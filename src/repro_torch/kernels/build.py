@@ -1,0 +1,67 @@
+"""Build a kernel's CUDA sources into a C-ABI shared library with ``nvcc``.
+
+Each kernel folder keeps its sources under ``csrc/``; the first call that
+needs a kernel compiles them for Hopper (``sm_90a``) into the repository's
+``build/kernels/`` directory, under a file name that carries a digest of the
+sources and flags — an edited source gets a fresh library, an unchanged one
+is reused.  The library is loaded with ``ctypes`` by the kernel's ``ops.py``.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Sequence
+
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on PATH,
+    then ``/usr/local/cuda/bin/nvcc``."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's kernels "
+                       "are compiled from their csrc/ sources at first use")
+
+
+def library_path(name: str, sources: Sequence[Path]) -> Path:
+    """Where ``name``'s library for these exact sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_library(name: str, sources: Sequence[Path]) -> Path:
+    """Compile ``sources`` into ``lib<name>-<digest>.so`` unless that file
+    already exists; returns its path.  Raises with the compiler's output
+    when ``nvcc`` fails.  The ``-Xptxas -v`` report (registers, shared
+    memory, spills per kernel) is kept beside the library as ``.log``."""
+    out = library_path(name, sources)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.tmp{os.getpid()}")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {name} "
+                           f"(exit {proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
