@@ -6,11 +6,13 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
 
 1. the card: ``torch.cuda.get_device_name(0)`` and the name and power limit
    as ``nvidia-smi`` reports them;
-2. build every kernel of the main path from its sources, all ``nvcc``
-   processes started together, and print the build seconds;
+2. build every kernel of the driven paths from its sources (``pareto_rank``
+   and ``gp_cov``), all ``nvcc`` processes started together, and print the
+   build seconds;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge cases (exact equality for the integer
-   dominance counts), timed with CUDA events;
+   paths' shapes and at edge cases (exact equality for the integer
+   dominance counts, max abs error <= 1e-5 for the covariance), timed with
+   CUDA events beside the least time the card could take;
 4. the evaluator's golden metric vectors on the card (rtol 1e-4);
 5. the main path, cold: ``Session.submit`` of the default query on the
    paper's Fig. 4a transformer block — budget 2048, pop 64, ``ch_max=4``,
@@ -21,7 +23,22 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
 7. where the main path's time goes: one 8-generation segment timed on the
    host clock, one population evaluation timed with CUDA events, and the
    device time and kernel counts of both from ``torch.profiler`` (reported
-   as not measured if the profiler sees no device events).
+   as not measured if the profiler sees no device events);
+8. the README's quickstart query, the paper's own engine:
+   ``Query(engine="bo_sa", weights=OBJ_EDP)`` on the Fig. 4a transformer
+   block with ``ch_max=6``, a 4096-PE budget, ``n_init=4``, ``n_iter=8``
+   and ``SAConfig(steps=250, chains=4)`` — 12 SA runs, 2 ``gp_cov``
+   launches per BO iteration — with the kernels' counts set to 0 just
+   before and read just after; the best design re-evaluates to its
+   metrics and objective and its feasibility penalty is printed (see
+   ``check_best``), the convergence trace is finite and
+   non-increasing; then one SA step, one BO acquisition and the device
+   share of a short SA run, timed on their own;
+9. ``two_stage`` on the same problem with ``SAConfig(steps=10, chains=4)``
+   (a cut of the SA steps only) and a ``ParetoArchive`` passed as
+   ``Query.archive``: ``gp_cov`` at d = 60 and d = 2, ``pareto_rank`` on
+   every archive insert, and the returned front checked against the
+   archive.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -50,10 +67,17 @@ from repro_torch.core.encoding import (DesignSpace,  # noqa: E402
                                        feasibility_penalty, random_design)
 from repro_torch.core.evaluate import (SystemSpec,  # noqa: E402
                                        evaluate_system, make_batch_evaluator)
-from repro_torch.core.optimizer import METRIC_KEYS, metric_stack  # noqa: E402
+from repro_torch.core.optimizer import (METRIC_KEYS, OBJ_EDP,  # noqa: E402
+                                        SAConfig, gp_posterior, make_sa,
+                                        metric_stack, objective_from_metrics,
+                                        prob_improvement)
 from repro_torch.core.workload import MAX_LOOPS  # noqa: E402
-from repro_torch.explore.archive import HV_LOG_REF, hypervolume_2d  # noqa: E402
+from repro_torch.explore.archive import (HV_LOG_REF,  # noqa: E402
+                                         ParetoArchive, hypervolume_2d,
+                                         pareto_front)
 from repro_torch.explore.nsga import NSGAConfig, make_nsga  # noqa: E402
+from repro_torch.kernels.gp_cov import ops as gp_ops  # noqa: E402
+from repro_torch.kernels.gp_cov.ref import matern52_ref  # noqa: E402
 from repro_torch.kernels.pareto_rank import ops as pareto_ops  # noqa: E402
 from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref  # noqa: E402
 
@@ -79,6 +103,28 @@ PARETO_SHAPES = ((128, 2, 1.0, "selection"), (64, 2, 0.9, "telemetry"),
                  (768, 4, 1.0, "archive insert"),
                  (190, 3, 0.9, "ragged"), (8192, 4, 0.8, "large, ties"),
                  (256, 4, 0.0, "all invalid"))
+
+# gp_cov checks: (n, m, d, tag).  The BO engine builds K(X, X) and K(Z, X)
+# for 512 candidates Z against the n <= n_init + n_iter - 1 observations X:
+# d = 62 on the quickstart path (BO_FIELDS over 5 workloads), 60 and 2 in
+# two_stage's stages 1 and 2
+GP_SHAPES = ((16, 16, 4, "kernel test"), (32, 24, 7, "kernel test"),
+             (64, 64, 12, "kernel test"),
+             (11, 11, 62, "quickstart K(X, X)"),
+             (512, 11, 62, "quickstart K(Z, X)"),
+             (9, 9, 60, "two_stage 1 K(X, X)"),
+             (512, 9, 60, "two_stage 1 K(Z, X)"),
+             (5, 5, 2, "two_stage 2 K(X, X)"),
+             (512, 5, 2, "two_stage 2 K(Z, X)"),
+             (190, 130, 7, "ragged"), (64, 48, 1, "d = 1"),
+             (4096, 4096, 62, "large"))
+GP_LENGTHSCALES = (0.1, 0.3, 0.5, 2.0)
+GP_TOL = 1e-5
+
+# the README's quickstart query (examples/quickstart.py)
+QUICK_OPTS = dict(n_init=4, n_iter=8)
+QUICK_SA = SAConfig(steps=250, chains=4)
+TWO_STAGE_SA = SAConfig(steps=10, chains=4)
 
 
 def fail(msg: str):
@@ -142,6 +188,45 @@ def check_pareto_rank() -> list:
     return rows
 
 
+def gp_bound_ms(n: int, m: int, d: int) -> tuple:
+    """Least time for one covariance: 4 (n + m) d bytes read and 4 n m
+    written at the memory rate, or n m (3 d + 15) FP32 operations at the
+    FP32 rate, whichever is larger."""
+    t_bytes = (4 * (n + m) * d + 4 * n * m) / PEAK_BYTES_PER_S * 1e3
+    t_ops = n * m * (3 * d + 15) / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_gp_cov() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for n, m, d, tag in GP_SHAPES:
+        x1 = torch.rand(n, d, generator=gen, device="cuda")
+        x2 = torch.rand(m, d, generator=gen, device="cuda")
+        x2[:min(4, m)] = x1[:min(4, m)]              # coincident points
+        err = 0.0
+        for ls in GP_LENGTHSCALES:
+            got = gp_ops.matern52(x1, x2, ls)
+            torch.cuda.synchronize()
+            e = float((got - matern52_ref(x1, x2, ls)).abs().max())
+            if not e <= GP_TOL:
+                fail(f"gp_cov disagrees with its plain version at ({n}, {m},"
+                     f" {d}), lengthscale {ls}: max abs err {e}")
+            err = max(err, e)
+        iters = 200 if n * m <= 1 << 20 else 20
+        k_ms = cuda_ms(lambda: gp_ops.matern52(x1, x2, 0.3), iters)
+        p_ms = cuda_ms(lambda: matern52_ref(x1, x2, 0.3),
+                       max(iters // 4, 5))
+        b_ms, b_by = gp_bound_ms(n, m, d)
+        rows.append(dict(n=n, m=m, d=d, tag=tag, max_abs_err=err, ms=k_ms,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"gp_cov ({n}, {m}, {d}) {tag}: max abs err {err:.3g} over "
+              f"lengthscales {GP_LENGTHSCALES}, kernel {k_ms * 1e3:.2f} us, "
+              f"plain {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us "
+              f"({b_by})")
+    return rows
+
+
 def golden_design(spec):
     W, CH, L = spec.W, spec.CH, MAX_LOOPS
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
@@ -194,6 +279,21 @@ def check_front(problem, result):
                                err_msg="front metrics do not re-evaluate")
 
 
+def device_kernels(fn) -> tuple:
+    """(device seconds, kernel count) of one synchronized call of ``fn``
+    under ``torch.profiler``; (0, 0) when it sees no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in dev) * 1e-6,
+            sum(e.count for e in dev))
+
+
 def breakdown(problem) -> dict:
     """Where one default-width segment's time goes (pop 64, 8 generations,
     the service's default chunk)."""
@@ -209,24 +309,8 @@ def breakdown(problem) -> dict:
     seg_s = time.perf_counter() - t0
     evaluate = make_batch_evaluator(problem.spec, device="cuda")
     eval_ms = cuda_ms(lambda: evaluate(pop0), 10)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(3, pop0)
-        torch.cuda.synchronize()
-    def device_kernels(prof):
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        return (sum(e.self_device_time_total for e in dev) * 1e-6,
-                sum(e.count for e in dev))
-
-    device_s, n_kernels = device_kernels(prof)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        evaluate(pop0)
-        torch.cuda.synchronize()
-    eval_device_s, eval_kernels = device_kernels(prof)
+    device_s, n_kernels = device_kernels(lambda: run(3, pop0))
+    eval_device_s, eval_kernels = device_kernels(lambda: evaluate(pop0))
     out = dict(segment_s=seg_s, generations=gens,
                generation_ms=seg_s / gens * 1e3, evaluate_ms=eval_ms,
                evaluate_share=eval_ms * gens / (seg_s * 1e3))
@@ -252,6 +336,208 @@ def breakdown(problem) -> dict:
     return out
 
 
+def quickstart_problem():
+    return Problem(presets.transformer_block(seq=512, d=512, heads=2),
+                   ("latency_ns", "energy_pj"), ch_max=6,
+                   space_kwargs=dict(max_total_pes=4096))
+
+
+def check_best(problem, r) -> float:
+    """The best design re-evaluates to its metrics and to its objective
+    (EDP weights plus 8 log penalty, rtol 1e-5); the trace is finite,
+    non-increasing and ends at that objective.  Returns the design's
+    feasibility penalty.  The penalty is reported, not required to be 1:
+    the reference's own quickstart query returns designs over the node
+    limit at seeds 0-2 (penalties 140.3, 16.7 and 5 at 250 SA steps on
+    the CPU, ``tests/test_torch_optimizer.py``, which also holds the
+    port's mean log penalty to the reference's), so feasibility is not a
+    property of this query."""
+    d = {k: torch.as_tensor(v, device="cuda")[None]
+         for k, v in r.best_design.items()}
+    m = evaluate_system(problem.spec, d)
+    again = metric_stack(m)[0].double().cpu().numpy()
+    want = np.asarray([float(r.best_metrics[k]) for k in METRIC_KEYS])
+    np.testing.assert_allclose(again, want, rtol=1e-5,
+                               err_msg="best metrics do not re-evaluate")
+    obj = float(objective_from_metrics(problem.space, d, m, OBJ_EDP)[0])
+    np.testing.assert_allclose(obj, r.best_objective, rtol=1e-5,
+                               err_msg="best objective does not re-evaluate")
+    best = r.trace.best
+    if not (np.all(np.isfinite(best)) and np.all(np.diff(best) <= 0)
+            and abs(best[-1] - r.best_objective) <= 1e-6 * abs(best[-1])):
+        fail(f"trace.best is not finite, non-increasing and ending at the "
+             f"best objective: {best}")
+    pen = float(feasibility_penalty(problem.space, d, m)[0])
+    if not (np.isfinite(pen) and pen >= 1.0):
+        fail(f"bad feasibility penalty {pen}")
+    return pen
+
+
+def counted_submit(query):
+    """``Session.submit`` on the card with every kernel's launch count set
+    to 0 just before and read just after: (result, wall seconds, counts)."""
+    with tempfile.TemporaryDirectory() as cache:
+        session = Session(cache_dir=cache, device="cuda")
+        gp_ops.matern52.launches = 0
+        pareto_ops.dominance_counts.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = session.submit(query)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return r, wall, dict(gp_cov=gp_ops.matern52.launches,
+                         pareto_rank=pareto_ops.dominance_counts.launches)
+
+
+def quickstart() -> dict:
+    """Phase 8: the README's quickstart query through Session.submit."""
+    problem = quickstart_problem()
+    r, wall, launches = counted_submit(Query(
+        problem, engine="bo_sa", weights=OBJ_EDP,
+        engine_opts=dict(QUICK_OPTS, sa=QUICK_SA)))
+    rounds = QUICK_OPTS["n_init"] + QUICK_OPTS["n_iter"]
+    want_evals = rounds * QUICK_SA.steps * QUICK_SA.chains
+    if r.provenance.n_evals_run != want_evals:
+        fail(f"quickstart ran {r.provenance.n_evals_run} evaluations, "
+             f"expected {want_evals}")
+    if launches["gp_cov"] != 2 * QUICK_OPTS["n_iter"]:
+        fail(f"gp_cov launched {launches['gp_cov']} times for "
+             f"{QUICK_OPTS['n_iter']} BO iterations")
+    pen = check_best(problem, r)
+    out = dict(wall_s=wall, evals=want_evals, evals_per_s=want_evals / wall,
+               sa_runs=rounds, sa_steps=rounds * QUICK_SA.steps,
+               best_objective=r.best_objective, best_penalty=pen,
+               launches=launches,
+               best_metrics={k: float(r.best_metrics[k])
+                             for k in METRIC_KEYS})
+    print(f"quickstart bo_sa: {want_evals} evaluations in {wall:.3f} s "
+          f"({want_evals / wall:.1f} evaluations/s), {rounds} SA runs x "
+          f"{QUICK_SA.steps} steps x {QUICK_SA.chains} chains, best "
+          f"objective {r.best_objective:.6f} (EDP nats, feasibility "
+          f"penalty {pen:.6g}), trace "
+          f"{np.round(r.trace.best, 4).tolist()}, gp_cov launches "
+          f"{launches['gp_cov']}, pareto_rank launches "
+          f"{launches['pareto_rank']}")
+    out.update(split_quickstart(problem, r))
+    return out
+
+
+def split_quickstart(problem, r) -> dict:
+    """One SA step and one BO acquisition of the quickstart, timed on
+    their own (host clock around synchronized work), and the device busy
+    share of a short SA run from torch.profiler."""
+    steps = 50
+    sa_run = make_sa(problem.spec, problem.space,
+                     sa=SAConfig(steps=steps, chains=QUICK_SA.chains),
+                     device="cuda")
+    d0 = {k: torch.as_tensor(v, device="cuda")
+          for k, v in r.best_design.items()}
+    sa_run(1, d0, OBJ_EDP)                         # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ob = sa_run(2, d0, OBJ_EDP)
+    float(ob)
+    sa_step_ms = (time.perf_counter() - t0) / steps * 1e3
+
+    rng = np.random.default_rng(0)
+    n_obs = QUICK_OPTS["n_init"] + QUICK_OPTS["n_iter"] - 1
+    X = torch.as_tensor(rng.random((n_obs, 62)), dtype=torch.float32,
+                        device="cuda")
+    y = torch.as_tensor(30 + rng.standard_normal(n_obs),
+                        dtype=torch.float32, device="cuda")
+    Z = torch.as_tensor(rng.random((512, 62)), dtype=torch.float32,
+                        device="cuda")
+
+    def acquire():
+        mu, sg = gp_posterior(X, y, Z)
+        return int(torch.argmax(prob_improvement(mu, sg, 29.0)))
+    for _ in range(3):
+        acquire()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        acquire()
+    acq_ms = (time.perf_counter() - t0) / 20 * 1e3
+    out = dict(sa_step_ms=sa_step_ms, acquisition_ms=acq_ms)
+    print(f"quickstart split: one SA step (4 chains) {sa_step_ms:.2f} ms; "
+          f"one BO acquisition (GP over {n_obs} points, 512 candidates, "
+          f"d = 62) {acq_ms:.2f} ms")
+
+    prof_steps = 20
+    short = make_sa(problem.spec, problem.space,
+                    sa=SAConfig(steps=prof_steps, chains=QUICK_SA.chains),
+                    device="cuda")
+    short(3, d0, OBJ_EDP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short(4, d0, OBJ_EDP)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    # the same run again under the profiler: its device time over the
+    # unprofiled wall (the profiler's own host cost would inflate the wall)
+    device_s, n_kernels = device_kernels(lambda: short(4, d0, OBJ_EDP))
+    if device_s <= 0:
+        print("quickstart split: device busy share not measured (the "
+              "profiler saw no device events)")
+        return out
+    out.update(profiled_sa_steps=prof_steps, profiled_run_s=run_s,
+               device_s=device_s, device_busy_share=device_s / run_s,
+               kernels_per_sa_step=n_kernels / prof_steps)
+    print(f"quickstart split: one {prof_steps}-step SA run: "
+          f"{run_s * 1e3:.1f} ms wall; under the profiler device busy "
+          f"{device_s * 1e3:.2f} ms = {out['device_busy_share']:.1%} of that"
+          f" wall, {out['kernels_per_sa_step']:.0f} kernels per SA step")
+    return out
+
+
+def two_stage() -> dict:
+    """Phase 9: two_stage on the quickstart problem with an archive."""
+    problem = quickstart_problem()
+    arc = ParetoArchive(256, random_design(0, problem.space, device="cuda"),
+                        obj_keys=METRIC_KEYS, device="cuda")
+    r, wall, launches = counted_submit(Query(
+        problem, engine="two_stage", archive=arc,
+        engine_opts=dict(sa=TWO_STAGE_SA)))
+    kept = r.raw.history[-1][1]
+    # stage 1: 3 scalarizations x 6 BO iterations; stage 2: 4 per kept
+    want_gp = 2 * (3 * 6 + 4 * kept)
+    if launches["gp_cov"] != want_gp:
+        fail(f"two_stage launched gp_cov {launches['gp_cov']} times, "
+             f"expected {want_gp} ({kept} candidates kept)")
+    if launches["pareto_rank"] < 3 + kept:
+        fail(f"two_stage launched pareto_rank {launches['pareto_rank']} "
+             f"times for {3 + kept} archive inserts")
+    pen = check_best(problem, r)
+    # the archive keeps only feasible SA-refined designs; without one the
+    # front is the single incumbent (the API's contract)
+    designs, metrics = arc.front()
+    idx = [METRIC_KEYS.index(o) for o in problem.objectives]
+    keep = pareto_front(metrics[:, idx]) if len(metrics) else []
+    want = metrics[keep] if len(keep) else np.asarray(
+        [[float(r.best_metrics[k]) for k in METRIC_KEYS]])
+    if not np.array_equal(r.front_metrics, want):
+        fail("the two_stage front is not the archive's projected front")
+    d = {k: torch.as_tensor(np.stack([x[k] for x in r.front_designs]),
+                            device="cuda") for k in r.front_designs[0]}
+    m = evaluate_system(problem.spec, d)
+    np.testing.assert_allclose(metric_stack(m).double().cpu().numpy(),
+                               r.front_metrics, rtol=1e-5,
+                               err_msg="front metrics do not re-evaluate")
+    if len(keep) and float(feasibility_penalty(problem.space, d,
+                                               m).max()) > 1.0 + 1e-6:
+        fail("the archive's front holds an infeasible design")
+    out = dict(wall_s=wall, evals_reported=r.provenance.n_evals_run,
+               kept=kept, archive_rows=len(arc), front=len(r.front_metrics),
+               best_objective=r.best_objective, best_penalty=pen,
+               launches=launches)
+    print(f"two_stage: {wall:.3f} s, {kept} architecture candidates kept, "
+          f"archive {len(arc)} rows, front {len(r.front_metrics)} points, "
+          f"best objective {r.best_objective:.6f} (penalty {pen:.6g}), "
+          f"gp_cov launches "
+          f"{launches['gp_cov']} (d = 60 and 2), pareto_rank launches "
+          f"{launches['pareto_rank']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -267,7 +553,7 @@ def main():
 
     # ---- 2. build every kernel, one nvcc each, all started together -------
     t0 = time.perf_counter()
-    builds = {"pareto_rank": pareto_ops.build}
+    builds = {"pareto_rank": pareto_ops.build, "gp_cov": gp_ops.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = {name: f.result() for name, f in
                 [(n, pool.submit(b)) for n, b in builds.items()]}
@@ -275,6 +561,7 @@ def main():
 
     # ---- 3. kernels against their plain versions ---------------------------
     pareto_rows = check_pareto_rank()
+    gp_rows = check_gp_cov()
 
     # ---- 4. evaluator golden vectors --------------------------------------
     check_golden()
@@ -323,6 +610,12 @@ def main():
     # ---- 7. where the time goes --------------------------------------------
     split = breakdown(problem)
 
+    # ---- 8. the quickstart query: BO x SA with gp_cov ----------------------
+    quick = quickstart()
+
+    # ---- 9. two_stage with an archive --------------------------------------
+    staged = two_stage()
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -341,7 +634,18 @@ def main():
                        generations=gens, segments=segs,
                        front_size=int(len(cold.front_objs)), hv=hv,
                        breakdown=split))
-    print(json.dumps({"kernels": [record]}))
+    gp_main = next(r for r in gp_rows if r["tag"] == "quickstart K(Z, X)")
+    gp_record = dict(
+        name="gp_cov", route="cuda",
+        source="src/repro_torch/kernels/gp_cov/csrc/gp_cov.cu",
+        replaces="src/repro/kernels/gp_cov/gp_cov.py:36",
+        launches=quick["launches"]["gp_cov"],
+        max_abs_err=max(r["max_abs_err"] for r in gp_rows),
+        ms=gp_main["ms"], plain_ms=gp_main["plain_ms"],
+        bound_ms=gp_main["bound_ms"], bound_by=gp_main["bound_by"],
+        library_ms=None, tolerance=GP_TOL, shapes=gp_rows,
+        main_path=dict(quickstart=quick, two_stage=staged))
+    print(json.dumps({"kernels": [record, gp_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,11 +24,14 @@ import torch
 from .core.constants import TechConstants, tech_from_dict, tech_to_dict
 from .core.evaluate import SystemSpec
 from .core.workload import Edge, TensorRef, Workload, WorkloadGraph
+from .runtime import resolve_device
 
 
-def design_to_torch(design: Dict, device="cpu") -> Dict[str, torch.Tensor]:
-    """A design pytree (numpy / JAX arrays) as int32 tensors on ``device``."""
-    return {k: torch.as_tensor(np.array(v, np.int32), device=device)
+def design_to_torch(design: Dict, device="cuda") -> Dict[str, torch.Tensor]:
+    """A design pytree (numpy / JAX arrays) as int32 tensors on ``device``
+    (the card unless ``device="cpu"``; see ``runtime.resolve_device``)."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, np.int32), device=dev)
             for k, v in design.items()}
 
 

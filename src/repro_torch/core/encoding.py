@@ -23,6 +23,7 @@ per design by mask, where the reference dispatches with ``lax.switch``.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -72,7 +73,17 @@ def _randint(gen, shape, low, high, device):
     broadcasts against ``shape`` (per-element upper bounds)."""
     u = torch.rand(shape, generator=gen, device=device)
     v = low + torch.floor(u * (high - low)).to(torch.int64)
-    return torch.minimum(v, torch.as_tensor(high, device=device) - 1).to(I32)
+    top = high - 1
+    return (torch.minimum(v, top) if torch.is_tensor(top)
+            else v.clamp_max(top)).to(I32)
+
+
+@lru_cache(maxsize=64)
+def _const(values: tuple, device: torch.device, dtype=None) -> torch.Tensor:
+    """A small constant table on ``device``, copied there once: a copy from
+    host memory synchronizes the stream, so the SA and NSGA step loops
+    must not make one per step.  Callers only read it."""
+    return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 def _rand_perm_rows(gen, shape, device):
@@ -160,7 +171,7 @@ def mutate(gen: torch.Generator, design: Dict, space: DesignSpace,
 
     def pick(values):
         idx = _randint(gen, (P,), 0, len(values), dev).long()
-        return torch.as_tensor(values, device=dev)[idx]
+        return _const(tuple(values), dev)[idx]
 
     # --- architecture moves -------------------------------------------------
     def mv_shape():
@@ -168,7 +179,7 @@ def mutate(gen: torch.Generator, design: Dict, space: DesignSpace,
         delta = pick([-2, -1, 1, 2]).to(I32)
         s = design["shape"].clone()
         s[ar, wsel, i] += delta
-        mx = torch.as_tensor(space.max_shape, dtype=I32, device=dev)
+        mx = _const(tuple(space.max_shape), dev, I32)
         return dict(shape=torch.minimum(s.clamp_min(1), mx))
 
     def mv_spatial():

@@ -17,8 +17,11 @@ F = torch.float32
 
 def tech_table(values, device) -> torch.Tensor:
     """A per-packaging tech tuple as a float32 tensor (entries may be
-    Python numbers or 0-d tensors)."""
-    return torch.stack([torch.as_tensor(v, dtype=F, device=device)
+    Python numbers or 0-d tensors).  Numbers are filled on the device:
+    a copy from host memory would synchronize the stream on every
+    evaluation."""
+    return torch.stack([v.to(device=device, dtype=F) if torch.is_tensor(v)
+                        else torch.full((), v, dtype=F, device=device)
                         for v in values])
 
 

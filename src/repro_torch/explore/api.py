@@ -1,36 +1,43 @@
 """One front door: the declarative Problem / Query / Session API, as
-``repro.explore.api`` has it, for the NSGA engine (re-exported at
-``repro_torch.api``).
+``repro.explore.api`` has it, for the NSGA engine and the scalarized
+engines (re-exported at ``repro_torch.api``).
 
 * ``Problem``  — a canonical, hashable statement of *what* to search:
   workload graph + objectives + ``DesignSpace`` bounds + padded spec
   space.  Content-addressed (``Problem.key()``, equal to the reference's
   key for the same problem).
 * ``Query``    — a request against a problem: evaluation ``budget`` and
-  ``engine`` (``"nsga"``, or ``"auto"`` without weights).
+  ``engine`` (``"nsga"``, ``"bo_sa"``, ``"two_stage"``, or ``"auto"``:
+  ``bo_sa`` with weights, ``nsga`` without).
 * ``Session``  — owns an ``ExplorationService`` on a device;
   ``submit(query | [queries])`` returns one ``Result`` per query with a
-  ``Provenance`` record of the cache accounting.
+  ``Provenance`` record of the cache accounting.  NSGA queries go through
+  the service; scalarized queries run the BO x SA engine
+  (``core.optimizer``) on the service's device and never touch the archive
+  cache.
 
-The scalarized engines (``bo_sa``, ``two_stage``), ``Session.plan``,
-``submit_async``, transfer, seeds, surrogate gating, resume, journals and
-per-query tech overrides are not ported yet: asking for one raises
-``NotImplementedError`` naming it.  Nothing is dropped silently.
+``Session.plan``, ``submit_async``, transfer, seed designs, surrogate
+gating, resume, journals and per-query tech overrides are not ported yet:
+asking for one raises ``NotImplementedError`` naming it.  Nothing is
+dropped silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..core.encoding import DesignSpace
 from ..core.evaluate import SystemSpec
-from ..core.optimizer import METRIC_KEYS
+from ..core.optimizer import (METRIC_KEYS, OBJ_EDP, _optimize_impl,
+                              _two_stage_impl)
 from ..core.workload import WorkloadGraph
-from .archive import ConvergenceTrace, spec_space_key
+from ..runtime import fold_in
+from .archive import ConvergenceTrace, pareto_front, spec_space_key
 from .service import (DEFAULT_OBJECTIVES, BudgetPolicy, ExplorationService,
                       ExploreQuery, ExploreResult, SegmentEvent, not_ported)
 
@@ -107,10 +114,15 @@ class Problem:
 class Query:
     """One declarative search request against a ``Problem``.
 
-    ``engine`` is ``"nsga"`` (the multi-objective front explorer) or
-    ``"auto"`` (``nsga`` unless ``weights`` are given).  ``budget`` is the
-    evaluation budget; ``policy`` overrides the session's ``BudgetPolicy``
-    for this submission.  The remaining fields exist for the reference's
+    ``engine`` is ``"nsga"`` (the multi-objective front explorer),
+    ``"bo_sa"`` (the nested BO x SA engine under ``weights``),
+    ``"two_stage"`` (the paper's architecture-then-integration flow) or
+    ``"auto"`` (``bo_sa`` when ``weights`` are given, else ``nsga``).
+    ``budget`` and ``policy`` size the nsga engine; ``weights``,
+    ``archive`` and ``engine_opts`` (``n_init``, ``n_iter``, ``sa``,
+    ``bo_fields``, ``sa_fields``, ``init_design`` for ``bo_sa``;
+    ``n_candidates``, ``sa`` for ``two_stage``) the scalarized ones.
+    ``transfer``, ``seed_designs`` and ``tech`` exist for the reference's
     other options and raise ``NotImplementedError`` when set."""
     problem: Problem
     budget: int = 2048
@@ -163,7 +175,10 @@ class Provenance:
 class Result:
     """The answer to one ``Query``: the Pareto front over the query's
     objectives, the run's ``ConvergenceTrace`` (``None`` on cache hits),
-    the provenance, and the engine-native ``ExploreResult`` as ``raw``."""
+    the provenance, and the engine-native result as ``raw``
+    (``ExploreResult`` for nsga, ``SearchResult`` for the scalarized
+    engines, which also fill the ``best_*`` fields: numpy values on the
+    host)."""
     objectives: Tuple[str, ...]
     front_objs: np.ndarray
     front_metrics: np.ndarray
@@ -176,20 +191,53 @@ class Result:
     raw: object = None
 
 
-def _check_ported(q: Query) -> None:
-    """Raise for any option of ``q`` the port does not run yet."""
-    eng = q.resolved_engine()
-    if eng != "nsga":
-        raise not_ported(f"the {eng!r} engine")
-    checks = ((q.transfer, "cross-workload transfer (Query.transfer)"),
-              (q.seed_designs, "seed designs (Query.seed_designs)"),
-              (q.archive is not None, "archive passthrough (Query.archive)"),
-              (q.engine_opts, "engine options / surrogate gating "
-                              "(Query.engine_opts)"),
-              (q.tech is not None, "per-query tech overrides (Query.tech)"))
-    for asked, what in checks:
-        if asked:
-            raise not_ported(what)
+# the engine_opts each scalarized engine takes (its keyword arguments)
+SCALARIZED_OPTS = {
+    "bo_sa": ("n_init", "n_iter", "sa", "bo_fields", "sa_fields",
+              "init_design"),
+    "two_stage": ("n_candidates", "sa"),
+}
+
+
+def _check_nsga(q: Query) -> None:
+    """Raise for an option the nsga engine does not take (``ValueError``,
+    as the reference) or the port does not run yet."""
+    opts = dict(q.engine_opts or {})
+    if "surrogate" in opts:
+        raise not_ported("surrogate gating (engine_opts['surrogate'])")
+    if q.weights is not None or q.seed_designs or q.archive is not None \
+            or opts:
+        raise ValueError(
+            "weights / seed_designs / archive / engine_opts apply to the "
+            "scalarized engines; the nsga engine takes budget / transfer / "
+            "policy")
+    if q.transfer:
+        raise not_ported("cross-workload transfer (Query.transfer)")
+    if q.tech is not None:
+        raise not_ported("per-query tech overrides (Query.tech)")
+
+
+def _validate_scalarized(q: Query, engine: str) -> None:
+    """Scalarized engines reject the nsga-only options as loudly as
+    ``_check_nsga`` rejects the scalarized-only ones: a transfer or policy
+    request is never dropped silently (``budget`` stays nsga-only: the
+    scalarized spend derives from ``engine_opts``)."""
+    if q.transfer:
+        raise ValueError(
+            "transfer=True applies to the nsga engine only; seed "
+            "scalarized engines explicitly via seed_designs=")
+    if q.policy is not None:
+        raise ValueError(
+            "BudgetPolicy applies to the nsga engine only; size "
+            "scalarized engines via engine_opts (n_init/n_iter/sa)")
+    bad = sorted(set(q.engine_opts or {}) - set(SCALARIZED_OPTS[engine]))
+    if bad:
+        raise ValueError(f"engine_opts {bad} do not apply to the {engine!r} "
+                         f"engine; it takes {SCALARIZED_OPTS[engine]}")
+    if q.seed_designs:
+        raise not_ported("seed designs (Query.seed_designs)")
+    if q.tech is not None:
+        raise not_ported("per-query tech overrides (Query.tech)")
 
 
 class Session:
@@ -218,10 +266,11 @@ class Session:
                on_segment=None, resume: bool = False,
                control=None) -> Union[Result, List[Result]]:
         """Execute one query (returns its ``Result``) or a batch (returns a
-        ``Result`` per query, in order).  Same-problem queries of a batch
-        merge into one run.  ``key`` is the integer seed of the
-        submission; ``on_segment`` streams every scan segment's
-        ``SegmentEvent`` as it completes."""
+        ``Result`` per query, in order).  Same-problem nsga queries of a
+        batch merge into one run; scalarized queries run one by one after
+        them.  ``key`` is the integer seed of the submission;
+        ``on_segment`` streams every nsga scan segment's ``SegmentEvent``
+        as it completes, and one completion event per scalarized query."""
         if resume:
             raise not_ported("checkpoint resume (submit(resume=True))")
         if control is not None:
@@ -230,22 +279,41 @@ class Session:
         qs: List[Query] = [queries] if single else list(queries)
         if not qs:
             return []
-        for q in qs:                        # validate the whole batch first
-            _check_ported(q)
+        nsga_idx = [i for i, q in enumerate(qs)
+                    if q.resolved_engine() == "nsga"]
+        for i, q in enumerate(qs):          # validate the whole batch first
+            if i in nsga_idx:
+                _check_nsga(q)
+            else:
+                _validate_scalarized(q, q.resolved_engine())
         override = {q.policy for q in qs if q.policy is not None}
         if len(override) > 1:
             raise ValueError("one submission takes at most one "
                              "BudgetPolicy override")
-        svc = self.service
-        saved = svc.policy
-        if override:
-            svc.policy = next(iter(override))
-        try:
-            ers = svc.run_queries([self._to_explore_query(q) for q in qs],
-                                  key=int(key), on_segment=on_segment)
-        finally:
-            svc.policy = saved
-        out = [self._wrap(er) for er in ers]
+        results: Dict[int, Result] = {}
+        if nsga_idx:
+            svc = self.service
+            saved = svc.policy
+            if override:
+                svc.policy = next(iter(override))
+            try:
+                ers = svc.run_queries(
+                    [self._to_explore_query(qs[i]) for i in nsga_idx],
+                    key=int(key), on_segment=on_segment)
+            finally:
+                svc.policy = saved
+            for i, er in zip(nsga_idx, ers):
+                results[i] = self._wrap(er)
+        for i, q in enumerate(qs):
+            if i in results:
+                continue
+            # a single query takes the caller's key verbatim; batched
+            # scalarized queries draw from a domain-separated stream so
+            # they never collide with run_queries' per-group folds
+            k = int(key) if single else fold_in(fold_in(key, 0x5ca1a2), i)
+            results[i] = self._run_scalarized(q, q.resolved_engine(), k,
+                                              on_segment)
+        out = [results[i] for i in range(len(qs))]
         return out[0] if single else out
 
     @staticmethod
@@ -267,6 +335,58 @@ class Session:
                 transferred_from=(), n_transfer_seeds=0,
                 plateaued=er.plateaued, elapsed_s=er.elapsed_s),
             raw=er)
+
+    def _run_scalarized(self, q: Query, engine: str, key: int,
+                        on_segment=None) -> Result:
+        """Run one ``bo_sa`` / ``two_stage`` query on the service's device
+        and wrap its ``SearchResult``: the best design, objective and
+        metrics, the front of ``Query.archive`` when one was passed (else
+        the single incumbent), one completion ``SegmentEvent``."""
+        p = q.problem
+        svc = self.service
+        ck = svc.problem_key(p.spec, p.space)
+        opts = dict(q.engine_opts or {})
+        t0 = time.perf_counter()
+        if engine == "two_stage":
+            sr = _two_stage_impl(p.spec, p.space, key, tech=svc.tech,
+                                 archive=q.archive, device=svc.device,
+                                 **opts)
+        else:
+            sr = _optimize_impl(p.spec, p.space, key,
+                                weights=q.weights or OBJ_EDP,
+                                tech=svc.tech, archive=q.archive,
+                                device=svc.device, **opts)
+        elapsed = time.perf_counter() - t0
+        if on_segment is not None:
+            # one completion event: scalarized engines have no segments
+            on_segment(SegmentEvent(ck, 0, sr.trace, engine,
+                                    elapsed_s=elapsed, seq=0))
+        n_evals = int(sr.trace.n_evals[-1]) if len(sr.trace.n_evals) else 0
+        idx = [METRIC_KEYS.index(o) for o in p.objectives]
+        if q.archive is not None and len(q.archive) > 0:
+            designs, metrics = q.archive.front()
+            cols = metrics[:, idx]
+            keep = pareto_front(cols) if len(cols) else []
+            front_objs, front_metrics = cols[keep], metrics[keep]
+            front_designs = [{k: v[i] for k, v in designs.items()}
+                             for i in keep]
+        else:                           # single-incumbent front
+            row = np.asarray([[float(sr.metrics[k]) for k in METRIC_KEYS]],
+                             np.float64)
+            front_objs, front_metrics = row[:, idx], row
+            front_designs = [{k: v.cpu().numpy()
+                              for k, v in sr.design.items()}]
+        return Result(
+            objectives=p.objectives,
+            front_objs=front_objs, front_metrics=front_metrics,
+            front_designs=front_designs, trace=sr.trace,
+            provenance=Provenance(
+                cache_key=ck, engine=engine, from_cache=False,
+                n_evals_run=n_evals, n_evals_banked=0, n_evals_realloc=0,
+                transferred_from=(), n_transfer_seeds=0, plateaued=False,
+                elapsed_s=elapsed),
+            best_design={k: v.cpu().numpy() for k, v in sr.design.items()},
+            best_objective=sr.objective, best_metrics=sr.metrics, raw=sr)
 
 
 __all__ = ["ENGINES", "Problem", "Provenance", "Query", "Result",

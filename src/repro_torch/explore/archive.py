@@ -194,6 +194,25 @@ class ConvergenceTrace:
             hv_gen=(np.asarray(tr["hv_now"], np.float64)
                     if "hv_now" in tr else None))
 
+    @classmethod
+    def from_history(cls, history: Sequence, evals_per_step: int = 1,
+                     objectives: Sequence[str] = ("objective",)
+                     ) -> "ConvergenceTrace":
+        """Adapt a scalarized engine's ``(iteration, best)`` history (the
+        BO x SA loop tracks one incumbent, so ``front_size`` is 1 and there
+        are no hypervolume pairs); non-integer tags are skipped."""
+        vals = [float(v) for i, v in history
+                if isinstance(i, (int, np.integer))]
+        g = len(vals)
+        best = (np.minimum.accumulate(np.asarray(vals, np.float64))
+                if g else np.zeros(0))
+        return cls(objectives=tuple(objectives), pairs=(),
+                   front_size=np.ones(g, np.int64),
+                   hypervolume=np.zeros((g, 0)),
+                   best=best, feasible_frac=np.ones(g),
+                   n_evals=(np.arange(g, dtype=np.int64) + 1)
+                   * int(evals_per_step))
+
     def extend(self, other: "ConvergenceTrace") -> "ConvergenceTrace":
         """Concatenate a follow-on segment: evaluation counts accumulate,
         and the running hv / best stay monotone across the seam."""

@@ -73,3 +73,80 @@ def test_short_search_goes_through_the_kernel(cuda, tmp_path):
     gens = r.trace.generations
     assert ops.dominance_counts.launches - before >= gens + 1
     assert len(r.front_objs) and np.all(np.isfinite(r.front_objs))
+
+
+# gp_cov: the reference kernel test's shapes, the BO engine's shapes
+# (quickstart d = 62, two_stage d = 60 and 2), a ragged tile edge, d = 1
+# and a large matrix
+GP_SHAPES = [(16, 16, 4), (32, 24, 7), (64, 64, 12), (11, 11, 62),
+             (512, 11, 62), (9, 9, 60), (512, 9, 60), (5, 5, 2),
+             (512, 5, 2), (190, 130, 7), (64, 48, 1), (4096, 4096, 62)]
+
+
+@pytest.mark.parametrize("n,m,d", GP_SHAPES)
+def test_gp_cov_kernel_matches_plain(cuda, n, m, d):
+    from repro_torch.kernels.gp_cov import ops
+    from repro_torch.kernels.gp_cov.ref import matern52_ref
+    gen = torch.Generator(device=cuda).manual_seed(n + m + d)
+    x1 = torch.rand(n, d, generator=gen, device=cuda)
+    x2 = torch.rand(m, d, generator=gen, device=cuda)
+    x2[: min(4, m)] = x1[: min(4, m)]                 # coincident points
+    for ls in (0.1, 0.3, 0.5, 2.0):
+        before = ops.matern52.launches
+        got = ops.matern52(x1, x2, ls)
+        torch.cuda.synchronize()
+        assert ops.matern52.launches == before + 1
+        want = matern52_ref(x1, x2, ls)
+        assert float((got - want).abs().max()) <= 1e-5
+    assert ops._lib.cache_info().currsize == 1      # one library, any ls
+
+
+def test_gp_cov_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.gp_cov import ops
+    x = torch.zeros(8, 4, device=cuda)
+    for a, b in [(x.double(), x), (x, x.half()), (x, torch.zeros(8, 5,
+                                                                  device=cuda)),
+                 (x.t(), x.t()), (x[:, ::2], x[:, ::2]), (x, x.cpu()),
+                 (x.cpu(), x), (x[0], x)]:
+        with pytest.raises(ValueError):
+            ops.matern52(a, b, 0.3)
+
+
+def test_bo_sa_query_goes_through_gp_cov(cuda, tmp_path):
+    from repro_torch.api import Problem, Query, Session
+    from repro_torch.core import presets
+    from repro_torch.core.optimizer import OBJ_EDP, SAConfig
+    from repro_torch.kernels.gp_cov import ops
+    n_iter = 3
+    before = ops.matern52.launches
+    r = Session(cache_dir=tmp_path).submit(Query(
+        Problem(presets.bert_mms()["att2"], ch_max=36), engine="bo_sa",
+        weights=OBJ_EDP, engine_opts=dict(n_init=2, n_iter=n_iter,
+                                          sa=SAConfig(steps=5, chains=4))))
+    assert ops.matern52.launches - before == 2 * n_iter
+    assert r.provenance.n_evals_run == (2 + n_iter) * 5 * 4
+    assert np.isfinite(r.best_objective)
+
+
+def test_sa_step_makes_no_host_sync(cuda):
+    """``make_sa``'s own step loop — ``mutate``, the evaluation, the
+    objective, the accept rule, the temperature read and the best
+    tracking — runs under CUDA sync debug mode "error": none of it waits
+    for the device.  Only the run's final read of its best is left out."""
+    from repro_torch.core import presets
+    from repro_torch.core.encoding import DesignSpace, random_design
+    from repro_torch.core.evaluate import SystemSpec
+    from repro_torch.core.optimizer import OBJ_EDP, SAConfig, make_sa
+    spec = SystemSpec.build(presets.transformer_block(), ch_max=6)
+    space = DesignSpace(spec, max_total_pes=4096)
+    run = make_sa(spec, space, sa=SAConfig(steps=5, chains=4), device=cuda)
+    st = run.start(0, random_design(0, space, device=cuda), OBJ_EDP)
+    run.steps(st, 0, 1)                   # warm-up: lazy inits may sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run.steps(st, 1, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(st["o_best"]).all()
+    assert bool((st["o_best"] <= st["o_cur"]).all())

@@ -56,7 +56,7 @@ def test_port_matches_golden(name):
     spec = SystemSpec.build(_port_graph(name), ch_max=2)
     fixed = _fixed_design(spec)
     design = convert.design_to_torch(
-        {k: np.asarray(v)[None] for k, v in fixed.items()})
+        {k: np.asarray(v)[None] for k, v in fixed.items()}, device="cpu")
     metrics = evaluate_system(spec, design)
     got = metric_stack(metrics)[0].double().numpy()
     np.testing.assert_allclose(got, np.asarray(GOLDEN[name]), rtol=RTOL,
@@ -82,7 +82,7 @@ def test_tech_jacobian_matches_reference():
 
     spec = convert.spec_from_reference(ref_spec)
     design = convert.design_to_torch(
-        {k: np.asarray(v)[None] for k, v in fixed.items()})
+        {k: np.asarray(v)[None] for k, v in fixed.items()}, device="cpu")
     base = dataclasses.replace(DEFAULT_TECH, t_tile_overhead_ns=8.0)
 
     def port_metrics(vals):
@@ -127,7 +127,7 @@ def population_parity(ref_graph, ch_max, seed=0, pop=POP):
 
     port_spec = convert.spec_from_reference(spec)
     port_space = DesignSpace(port_spec)
-    td = convert.design_to_torch(designs)
+    td = convert.design_to_torch(designs, device="cpu")
     m = make_batch_evaluator(port_spec, device="cpu")(td)
     for k in METRIC_KEYS:
         np.testing.assert_allclose(m[k].double().numpy(),
