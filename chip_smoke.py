@@ -6,13 +6,17 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
 
 1. the card: ``torch.cuda.get_device_name(0)`` and the name and power limit
    as ``nvidia-smi`` reports them;
-2. build every kernel of the driven paths from its sources (``pareto_rank``
-   and ``gp_cov``), all ``nvcc`` processes started together, and print the
-   build seconds;
+2. build every kernel of the driven paths from its sources (``pareto_rank``,
+   ``gp_cov``, ``flash_attention``, ``mamba_scan``), all ``nvcc``
+   processes started together, and print the build seconds;
 3. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at edge cases (exact equality for the integer
-   dominance counts, max abs error <= 1e-5 for the covariance), timed with
-   CUDA events beside the least time the card could take;
+   dominance counts, max abs error <= 1e-5 for the covariance; for
+   attention the reference kernel test's tolerances, 2e-5 in float32 and
+   2e-2 in bfloat16, atol and rtol, with bfloat16 at the serving shapes
+   held to about one bf16 rounding, atol 4e-3 and rtol 8e-3; 1e-4 for the
+   scan), timed with CUDA events beside the least time the card could take
+   (and, for attention, beside ``scaled_dot_product_attention``);
 4. the evaluator's golden metric vectors on the card (rtol 1e-4);
 5. the main path, cold: ``Session.submit`` of the default query on the
    paper's Fig. 4a transformer block — budget 2048, pop 64, ``ch_max=4``,
@@ -38,7 +42,21 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
    (a cut of the SA steps only) and a ``ParetoArchive`` passed as
    ``Query.archive``: ``gp_cov`` at d = 60 and d = 2, ``pareto_rank`` on
    every archive insert, and the returned front checked against the
-   archive.
+   archive;
+10. the LM serving slice on the card against the CPU: ``hymba-1.5b`` at
+    full width cut to 2 layers, in float32, one seeded weight set on both
+    devices, batch 1, a 1024-token prompt (1152 positions with the meta
+    tokens, so the 1024 window binds): forward logits, prefill logits and
+    4 greedy decode steps (logits and every cache leaf) within 1e-3;
+11. the LM serving slice at full size: ``hymba-1.5b`` as configured (32
+    layers, bfloat16 activations, float32 weights from a seed), batch 4,
+    a 1024-token prompt, 32 generated tokens through
+    ``launch.serve.generate``, with the kernels' counts set to 0 just
+    before and read just after (exactly 32 ``flash_attention`` and
+    32 x 32 ``mamba_scan`` launches); logits finite, a second run gives
+    the same tokens; prefill seconds, decode ms per token, tokens/s, peak
+    device memory, and the device busy share and kernel count of one
+    decode step from ``torch.profiler``.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -48,6 +66,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,6 +81,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.api import Problem, Query, Session  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import presets  # noqa: E402
 from repro_torch.core.encoding import (DesignSpace,  # noqa: E402
                                        feasibility_penalty, random_design)
@@ -77,13 +97,20 @@ from repro_torch.explore.archive import (HV_LOG_REF,  # noqa: E402
                                          pareto_front)
 from repro_torch.explore.nsga import NSGAConfig, make_nsga  # noqa: E402
 from repro_torch.kernels.gp_cov import ops as gp_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.gp_cov.ref import matern52_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models.model import HybridLM, build_model  # noqa: E402
 from repro_torch.kernels.pareto_rank import ops as pareto_ops  # noqa: E402
 from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 # (latency_ns, energy_pj, cost_usd, area_mm2) of the fixed golden design
 # under the default tech — the values tests/test_golden_metrics.py pins
@@ -125,6 +152,42 @@ GP_TOL = 1e-5
 QUICK_OPTS = dict(n_init=4, n_iter=8)
 QUICK_SA = SAConfig(steps=250, chains=4)
 TWO_STAGE_SA = SAConfig(steps=10, chains=4)
+
+# flash_attention checks: (B, Sq, Sk, H, KV, D, mask, window, kv_valid_len,
+# tag).  The reference kernel test's FA_SHAPES (tests/test_kernels.py),
+# the Hymba prefill shape (prompt 1024 + 128 meta tokens, 25 query heads
+# over 5 KV heads, window 1024), a ragged Sq = Sk = 1000, and a
+# kv_valid_len that is not a multiple of the kernel's tiles
+FA_PREFILL = (4, 1152, 1152, 25, 5, 64, "window", 1024, None,
+              "hymba prefill")
+FA_SHAPES = ((1, 32, 32, 4, 4, 16, "causal", 0, None, "kernel test"),
+             (2, 64, 64, 8, 2, 32, "causal", 0, None, "kernel test"),
+             (1, 64, 64, 4, 1, 64, "window", 16, None, "kernel test"),
+             (2, 32, 32, 4, 2, 16, "none", 0, None, "kernel test"),
+             (2, 8, 64, 4, 2, 16, "causal", 0, 40, "kernel test"),
+             (1, 16, 48, 2, 2, 8, "none", 0, 33, "kernel test"),
+             FA_PREFILL,
+             (1, 1000, 1000, 25, 5, 64, "window", 1024, None, "ragged"),
+             (2, 200, 333, 25, 5, 64, "causal", 0, 317, "kv_valid_len"))
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bfloat16 at the serving shapes (hymba prefill, ragged): about one bf16
+# rounding of the output (atol, rtol), since 2e-2 is ~40% of a typical
+# |out| there, where each output averages ~1000 values of v
+FA_BF16_SERVE_TOL = (4e-3, 8e-3)
+
+# mamba_scan checks: (B, S, Di, Ds, tag); each with and without h0.  The
+# reference kernel test's MS_SHAPES, the Hymba prefill scan and a decode
+# step (S = 1, h0 carried)
+MS_PREFILL = (4, 1152, 3200, 16, "hymba prefill")
+MS_DECODE = (4, 1, 3200, 16, "hymba decode")
+MS_SHAPES = ((1, 16, 8, 4, "kernel test"), (2, 32, 16, 8, "kernel test"),
+             (1, 64, 32, 16, "kernel test"), MS_PREFILL, MS_DECODE)
+MS_TOL = 1e-4
+
+# the LM serving slice (phases 10-11)
+HYMBA = "hymba-1.5b"
+LM_PARITY_TOL = 1e-3
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
 
 
 def fail(msg: str):
@@ -227,6 +290,313 @@ def check_gp_cov() -> list:
     return rows
 
 
+def visible_pairs(Sq: int, Sk: int, mask: str, window: int, kvl) -> int:
+    """(q, k) pairs the mask lets through, for one (b, h)."""
+    valid = Sk if kvl is None else kvl
+    p = torch.arange(Sq, dtype=torch.long) + (0 if kvl is None else kvl - Sq)
+    hi = torch.clamp(torch.minimum(p + 1, torch.tensor(valid)), min=0) \
+        if mask != "none" else torch.full_like(p, valid)
+    lo = torch.clamp(p - window + 1, min=0) if mask == "window" \
+        else torch.zeros_like(p)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def fa_bound_ms(B, Sq, Sk, H, KV, D, mask, window, kvl, dtype) -> tuple:
+    """Least time for one attention: q, k, v read once and out written
+    once at the memory rate, or 4 D operations (the two products) per
+    visible (q, k) pair and head at the peak rate of the input type
+    (bf16 tensor cores, or FP32)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = size * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) \
+        / PEAK_BYTES_PER_S * 1e3
+    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 \
+        else PEAK_FP32_OPS_PER_S
+    ops = 4 * B * H * D * visible_pairs(Sq, Sk, mask, window, kvl)
+    t_ops = ops / peak * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_flash_attention() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for shape in FA_SHAPES:
+        B, Sq, Sk, H, KV, D, mask, w, kvl, tag = shape
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dt)
+            k = torch.randn(B, Sk, KV, D, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, Sk, KV, D, generator=gen, device="cuda").to(dt)
+            got = fa_ops.flash_attention(q, k, v, mask, w, kvl)
+            torch.cuda.synchronize()
+            want = attention_ref(q, k, v, mask, w, kvl)
+            serve = shape is FA_PREFILL or tag == "ragged"
+            tol = FA_TOL[dt]
+            atol, rtol = (FA_BF16_SERVE_TOL if serve and dt == torch.bfloat16
+                          else (tol, tol))
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                fail(f"flash_attention disagrees with its plain version at "
+                     f"{shape[:-1]} {dt}: max abs err {err} (atol {atol}, "
+                     f"rtol {rtol})")
+            row = dict(shape=list(shape[:-1]), tag=tag, dtype=str(dt),
+                       max_abs_err=err, tolerance=tol, atol=atol, rtol=rtol)
+            if serve:
+                row.update(time_attention(q, k, v, mask, w, kvl))
+            rows.append(row)
+            timing = (f", kernel {row['ms'] * 1e3:.2f} us, plain "
+                      f"{row['plain_ms'] * 1e3:.2f} us, sdpa "
+                      f"{row['library_ms'] * 1e3:.2f} us, bound "
+                      f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
+                      if "ms" in row else "")
+            print(f"flash_attention {shape[:-1]} {tag} {dt}: max abs err "
+                  f"{err:.3g} (atol {atol}, rtol {rtol}){timing}")
+    return rows
+
+
+def time_attention(q, k, v, mask, w, kvl) -> dict:
+    """Kernel, plain version and one ``scaled_dot_product_attention`` call
+    (boolean mask, ``enable_gqa``; the port never calls it) on the same
+    inputs, CUDA-event means."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    k_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, mask, w, kvl), 20)
+    p_ms = cuda_ms(lambda: attention_ref(q, k, v, mask, w, kvl), 5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    valid = Sk if kvl is None else kvl
+    qp = torch.arange(Sq, device="cuda")[:, None] + (valid - Sq
+                                                     if kvl is not None
+                                                     else 0)
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    allowed = kp < valid
+    if mask != "none":
+        allowed = allowed & (kp <= qp)
+    if mask == "window":
+        allowed = allowed & (qp - kp < w)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - fa_ops.flash_attention(q, k, v, mask, w,
+                                              kvl).float()).abs().max())
+    l_ms = cuda_ms(sdpa, 20)
+    b_ms, b_by = fa_bound_ms(B, Sq, Sk, H, KV, D, mask, w, kvl, q.dtype)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, library_max_abs_diff=lib_err,
+                pairs_per_head=visible_pairs(Sq, Sk, mask, w, kvl))
+
+
+def ms_bound_ms(B, S, Di, Ds, with_h0: bool) -> tuple:
+    """Least time for one scan: u, delta, A, Bc, Cc (and h0) read once and
+    y, h_T written once at the memory rate, or 6 FP32 operations per
+    (b, t, di, n) (delta A, its exponential, the update FMA, the output
+    FMA) at the FP32 rate."""
+    elems = (3 * B * S * Di + Di * Ds + 2 * B * S * Ds
+             + B * Di * Ds * (2 if with_h0 else 1))
+    t_bytes = 4 * elems / PEAK_BYTES_PER_S * 1e3
+    t_ops = 6 * B * S * Di * Ds / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_mamba_scan() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rows = []
+    for shape in MS_SHAPES:
+        B, S, Di, Ds, tag = shape
+        for with_h0 in (False, True):
+            u, dl = r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di))
+            A = -torch.exp(r(Di, Ds) * 0.3)
+            Bc, Cc = r(B, S, Ds), r(B, S, Ds)
+            h0 = r(B, Di, Ds) if with_h0 else None
+            y, hT = ms_ops.selective_scan(u, dl, A, Bc, Cc, h0)
+            torch.cuda.synchronize()
+            yr, hr = selective_scan_ref(u, dl, A, Bc, Cc, h0)
+            err = 0.0
+            for got, want in ((y, yr), (hT, hr)):
+                diff = (got - want).abs()
+                err = max(err, float(diff.max()))
+                if not bool((diff <= MS_TOL + MS_TOL * want.abs()).all()):
+                    fail(f"mamba_scan disagrees with its plain version at "
+                         f"{shape[:-1]}, h0 {with_h0}: max abs err {err}")
+            row = dict(shape=[B, S, Di, Ds], tag=tag, h0=with_h0,
+                       max_abs_err=err, tolerance=MS_TOL)
+            if shape in (MS_PREFILL, MS_DECODE) and with_h0 == (S == 1):
+                k_ms = cuda_ms(lambda: ms_ops.selective_scan(u, dl, A, Bc,
+                                                             Cc, h0), 50)
+                p_ms = cuda_ms(lambda: selective_scan_ref(u, dl, A, Bc, Cc,
+                                                          h0),
+                               3 if S > 1 else 50)
+                b_ms, b_by = ms_bound_ms(B, S, Di, Ds, with_h0)
+                row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+            rows.append(row)
+            timing = (f", kernel {row['ms'] * 1e3:.2f} us, plain "
+                      f"{row['plain_ms'] * 1e3:.2f} us, bound "
+                      f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
+                      if "ms" in row else "")
+            print(f"mamba_scan {shape[:-1]} {tag} h0={with_h0}: max abs err "
+                  f"{err:.3g} (tol {MS_TOL}){timing}")
+    # state threading: [0:S] in one call equals [0:S/2] then [S/2:S] from
+    # the carried state (the decode-step invariant)
+    B, S, Di, Ds = 2, 96, 200, 16
+    u, dl = r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di))
+    A, Bc, Cc = -torch.exp(r(Di, Ds) * 0.3), r(B, S, Ds), r(B, S, Ds)
+    y, h = ms_ops.selective_scan(u, dl, A, Bc, Cc)
+    half = lambda t, sl: t[:, sl].contiguous()
+    y1, h1 = ms_ops.selective_scan(half(u, slice(0, S // 2)),
+                                   half(dl, slice(0, S // 2)), A,
+                                   half(Bc, slice(0, S // 2)),
+                                   half(Cc, slice(0, S // 2)))
+    y2, h2 = ms_ops.selective_scan(half(u, slice(S // 2, S)),
+                                   half(dl, slice(S // 2, S)), A,
+                                   half(Bc, slice(S // 2, S)),
+                                   half(Cc, slice(S // 2, S)), h0=h1)
+    err = max(float((torch.cat([y1, y2], 1) - y).abs().max()),
+              float((h2 - h).abs().max()))
+    if not err <= MS_TOL:
+        fail(f"mamba_scan does not thread its state: max abs err {err}")
+    print(f"mamba_scan state threading ({B}, {S}, {Di}, {Ds}): two calls "
+          f"with the carried state equal one call within {err:.3g}")
+    return rows
+
+
+def hymba_card_vs_cpu() -> dict:
+    """Phase 10: the serving slice on the card (kernels) against the CPU
+    (plain versions), full width, 2 layers, float32, one weight set."""
+    cfg = dataclasses.replace(get_config(HYMBA), n_layers=2, dtype="float32")
+    card, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = card.init(0)
+    params_cpu = HybridLM(cfg, "cpu")
+    params_cpu.load_state_dict(params.state_dict())
+    prompt = torch.randint(0, cfg.vocab, (1, 1024),
+                           generator=torch.Generator().manual_seed(10))
+    errs = {}
+
+    def compare(name, a, b):
+        e = float((a.float().cpu() - b.float()).abs().max())
+        errs[name] = max(errs.get(name, 0.0), e)
+        if not e <= LM_PARITY_TOL:
+            fail(f"hymba card vs CPU: {name} max abs err {e} > "
+                 f"{LM_PARITY_TOL}")
+
+    t0 = time.perf_counter()
+    compare("forward logits", card.forward(params, {"tokens": prompt}),
+            cpu.forward(params_cpu, {"tokens": prompt}))
+    n_new = 4
+    max_seq = prompt.shape[1] + cfg.meta_tokens + n_new + 1
+    lg, cache = card.prefill(params, {"tokens": prompt},
+                             card.init_cache(1, max_seq))
+    lg_c, cache_c = cpu.prefill(params_cpu, {"tokens": prompt},
+                                cpu.init_cache(1, max_seq))
+    compare("prefill logits", lg, lg_c)
+    base = prompt.shape[1] + cfg.meta_tokens
+    for i in range(n_new):
+        tok = torch.argmax(lg_c[:, -1], -1)[:, None]
+        lg, cache = card.decode_step(params, tok, cache, base + i)
+        lg_c, cache_c = cpu.decode_step(params_cpu, tok, cache_c, base + i)
+        compare("decode logits", lg, lg_c)
+        for j, (a, b) in enumerate(zip(_leaves(cache), _leaves(cache_c))):
+            compare(f"cache leaf {j}", a, b)
+    wall = time.perf_counter() - t0
+    print(f"hymba card vs CPU (d {cfg.d_model}, {cfg.n_layers} layers, "
+          f"float32, prompt {prompt.shape[1]} + {cfg.meta_tokens} meta, "
+          f"window {cfg.window}, {n_new} decode "
+          f"steps): max abs err {json.dumps(errs)} (gate {LM_PARITY_TOL}); "
+          f"{wall:.1f} s")
+    return dict(max_abs_err=errs, gate=LM_PARITY_TOL, wall_s=wall)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in _leaves(t)]
+
+
+def hymba_serve() -> dict:
+    """Phase 11: hymba-1.5b as configured, batch 4, a 1024-token prompt,
+    32 generated tokens, through ``generate``."""
+    cfg = get_config(HYMBA)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=torch.Generator().manual_seed(11))
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.flash_attention.launches = 0
+    ms_ops.selective_scan.launches = 0
+    first = generate(model, params, prompt, SERVE_TOKENS)
+    launches = dict(flash_attention=fa_ops.flash_attention.launches,
+                    mamba_scan=ms_ops.selective_scan.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(flash_attention=cfg.n_layers,
+                mamba_scan=cfg.n_layers * SERVE_TOKENS)
+    if launches != want:
+        fail(f"hymba serve launched {launches}, expected {want}")
+    if not bool(torch.isfinite(first.logits).all()):
+        fail("hymba serve: non-finite logits")
+    again = generate(model, params, prompt, SERVE_TOKENS)
+    if not torch.equal(first.tokens, again.tokens):
+        fail("hymba serve: two runs gave different tokens")
+    steps = SERVE_TOKENS - 1
+    out = dict(params=sum(p.numel() for p in params.parameters()),
+               init_s=init_s, launches=launches, peak_bytes=peak,
+               runs=[dict(prefill_s=g.prefill_s, decode_s=g.decode_s,
+                          decode_ms_per_token=g.decode_s / steps * 1e3,
+                          tokens_per_s=SERVE_BATCH * SERVE_TOKENS
+                          / (g.prefill_s + g.decode_s))
+                     for g in (first, again)])
+    for i, run in enumerate(out["runs"]):
+        print(f"hymba serve run {i + 1} ({cfg.n_layers} layers, batch "
+              f"{SERVE_BATCH}, prompt {SERVE_PROMPT} + {cfg.meta_tokens} "
+              f"meta, {SERVE_TOKENS} tokens): prefill {run['prefill_s']:.4f}"
+              f" s, decode {run['decode_ms_per_token']:.3f} ms/token, "
+              f"{run['tokens_per_s']:.1f} tokens/s")
+    print(f"hymba serve: {out['params']} parameters, init {init_s:.2f} s, "
+          f"launches {launches}, peak device memory {peak / 2**30:.3f} GiB, "
+          f"first sequence {first.tokens[0].tolist()}")
+
+    # one decode step alone: wall (synchronized) and, under the profiler,
+    # device time and kernel count
+    B = SERVE_BATCH
+    base = SERVE_PROMPT + cfg.meta_tokens
+    _, cache = model.prefill(params, {"tokens": prompt}, model.init_cache(
+        B, base + SERVE_TOKENS + 1))
+    tok = first.tokens[:, :1]
+    model.decode_step(params, tok, cache, base)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        model.decode_step(params, tok, cache, base)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    device_s, n_kernels, by_name = device_by_kernel(
+        lambda: model.decode_step(params, tok, cache, base))
+    out.update(decode_step_s=step_s)
+    pre_cache = model.init_cache(B, base + SERVE_TOKENS + 1)
+    pre_s, pre_n, pre_by = device_by_kernel(
+        lambda: model.prefill(params, {"tokens": prompt}, pre_cache))
+    if device_s <= 0 or pre_s <= 0:
+        print("hymba decode step: device busy share not measured (the "
+              "profiler saw no device events)")
+        return out
+    out.update(decode_step_device_s=device_s,
+               decode_step_busy_share=device_s / step_s,
+               decode_step_kernels=n_kernels,
+               decode_step_split=kernel_split(by_name, device_s),
+               prefill_device_s=pre_s, prefill_kernels=pre_n,
+               prefill_busy_share=pre_s / again.prefill_s,
+               prefill_split=kernel_split(pre_by, pre_s))
+    print(f"hymba decode step: {step_s * 1e3:.3f} ms wall; under the "
+          f"profiler {device_s * 1e3:.3f} ms device time = "
+          f"{device_s / step_s:.1%} of that wall, {n_kernels} kernels; "
+          f"split {json.dumps(out['decode_step_split'])}")
+    print(f"hymba prefill: under the profiler {pre_s * 1e3:.3f} ms device "
+          f"time = {out['prefill_busy_share']:.1%} of run 2's prefill wall,"
+          f" {pre_n} kernels; split {json.dumps(out['prefill_split'])}")
+    return out
+
+
 def golden_design(spec):
     W, CH, L = spec.W, spec.CH, MAX_LOOPS
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
@@ -279,9 +649,10 @@ def check_front(problem, result):
                                err_msg="front metrics do not re-evaluate")
 
 
-def device_kernels(fn) -> tuple:
-    """(device seconds, kernel count) of one synchronized call of ``fn``
-    under ``torch.profiler``; (0, 0) when it sees no device events."""
+def device_by_kernel(fn) -> tuple:
+    """(device seconds, kernel count, {kernel name: (device seconds,
+    count)}) of one synchronized call of ``fn`` under ``torch.profiler``;
+    (0, 0, {}) when it sees no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -291,7 +662,25 @@ def device_kernels(fn) -> tuple:
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     return (sum(e.self_device_time_total for e in dev) * 1e-6,
-            sum(e.count for e in dev))
+            sum(e.count for e in dev),
+            {e.key: (e.self_device_time_total * 1e-6, e.count) for e in dev})
+
+
+def kernel_split(by_name: dict, total_s: float, top: int = 5) -> dict:
+    """Device seconds of the port's two LM kernels and of the ``top``
+    kernels by device time, each with its share of ``total_s``."""
+    def share(keys):
+        t = sum(by_name[k][0] for k in keys)
+        return dict(s=t, share=t / total_s if total_s > 0 else 0.0,
+                    count=sum(by_name[k][1] for k in keys))
+    out = {name: share([k for k in by_name if tag in k])
+           for name, tag in (("flash_attention", "attn_fwd_kernel"),
+                             ("mamba_scan", "scan_kernel"))}
+    out["top"] = [dict(kernel=k[:120], s=t, count=c,
+                       share=t / total_s if total_s > 0 else 0.0)
+                  for k, (t, c) in sorted(by_name.items(),
+                                          key=lambda kv: -kv[1][0])[:top]]
+    return out
 
 
 def breakdown(problem) -> dict:
@@ -309,8 +698,8 @@ def breakdown(problem) -> dict:
     seg_s = time.perf_counter() - t0
     evaluate = make_batch_evaluator(problem.spec, device="cuda")
     eval_ms = cuda_ms(lambda: evaluate(pop0), 10)
-    device_s, n_kernels = device_kernels(lambda: run(3, pop0))
-    eval_device_s, eval_kernels = device_kernels(lambda: evaluate(pop0))
+    device_s, n_kernels = device_by_kernel(lambda: run(3, pop0))[:2]
+    eval_device_s, eval_kernels = device_by_kernel(lambda: evaluate(pop0))[:2]
     out = dict(segment_s=seg_s, generations=gens,
                generation_ms=seg_s / gens * 1e3, evaluate_ms=eval_ms,
                evaluate_share=eval_ms * gens / (seg_s * 1e3))
@@ -474,7 +863,7 @@ def split_quickstart(problem, r) -> dict:
     run_s = time.perf_counter() - t0
     # the same run again under the profiler: its device time over the
     # unprofiled wall (the profiler's own host cost would inflate the wall)
-    device_s, n_kernels = device_kernels(lambda: short(4, d0, OBJ_EDP))
+    device_s, n_kernels = device_by_kernel(lambda: short(4, d0, OBJ_EDP))[:2]
     if device_s <= 0:
         print("quickstart split: device busy share not measured (the "
               "profiler saw no device events)")
@@ -553,7 +942,8 @@ def main():
 
     # ---- 2. build every kernel, one nvcc each, all started together -------
     t0 = time.perf_counter()
-    builds = {"pareto_rank": pareto_ops.build, "gp_cov": gp_ops.build}
+    builds = {"pareto_rank": pareto_ops.build, "gp_cov": gp_ops.build,
+              "flash_attention": fa_ops.build, "mamba_scan": ms_ops.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = {name: f.result() for name, f in
                 [(n, pool.submit(b)) for n, b in builds.items()]}
@@ -562,6 +952,8 @@ def main():
     # ---- 3. kernels against their plain versions ---------------------------
     pareto_rows = check_pareto_rank()
     gp_rows = check_gp_cov()
+    fa_rows = check_flash_attention()
+    ms_rows = check_mamba_scan()
 
     # ---- 4. evaluator golden vectors --------------------------------------
     check_golden()
@@ -616,6 +1008,12 @@ def main():
     # ---- 9. two_stage with an archive --------------------------------------
     staged = two_stage()
 
+    # ---- 10. the LM serving slice: card against CPU -----------------------
+    lm_parity = hymba_card_vs_cpu()
+
+    # ---- 11. the LM serving slice at full size -----------------------------
+    served = hymba_serve()
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -645,7 +1043,37 @@ def main():
         bound_ms=gp_main["bound_ms"], bound_by=gp_main["bound_by"],
         library_ms=None, tolerance=GP_TOL, shapes=gp_rows,
         main_path=dict(quickstart=quick, two_stage=staged))
-    print(json.dumps({"kernels": [record, gp_record]}))
+    fa_main = next(r for r in fa_rows if r["tag"] == "hymba prefill"
+                   and r["dtype"] == str(torch.bfloat16))
+    fa_record = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:90",
+        launches=served["launches"]["flash_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in fa_rows),
+        ms=fa_main["ms"], plain_ms=fa_main["plain_ms"],
+        bound_ms=fa_main["bound_ms"], bound_by=fa_main["bound_by"],
+        library_ms=fa_main["library_ms"], tolerance=FA_TOL[torch.float32],
+        tolerance_bf16=FA_TOL[torch.bfloat16], shapes=fa_rows,
+        main_path=dict(card_vs_cpu=lm_parity, serve=served))
+    ms_main = next(r for r in ms_rows if r["tag"] == "hymba prefill"
+                   and "ms" in r)
+    ms_dec = next(r for r in ms_rows if r["tag"] == "hymba decode"
+                  and "ms" in r)
+    ms_record = dict(
+        name="mamba_scan", route="cuda",
+        source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan/mamba_scan.py:63",
+        launches=served["launches"]["mamba_scan"],
+        max_abs_err=max(r["max_abs_err"] for r in ms_rows),
+        ms=ms_main["ms"], plain_ms=ms_main["plain_ms"],
+        bound_ms=ms_main["bound_ms"], bound_by=ms_main["bound_by"],
+        library_ms=None, tolerance=MS_TOL, decode_ms=ms_dec["ms"],
+        decode_plain_ms=ms_dec["plain_ms"],
+        decode_bound_ms=ms_dec["bound_ms"], shapes=ms_rows)
+    print(json.dumps({"kernels": [record, gp_record, fa_record,
+                                  ms_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,17 @@
+"""grok-1-314b [moe]: 64L d_model=6144 48H (GQA kv=8) d_ff=32768
+vocab=131072, MoE 8 experts top-2  [hf:xai-org/grok-1; unverified]."""
+import dataclasses
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="grok-1-314b", family="moe",
+    n_layers=64, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=32768, vocab=131072,
+    n_experts=8, top_k=2, expert_ff=32768,
+)
+
+def reduced() -> ModelConfig:
+    return dataclasses.replace(
+        CONFIG, name="grok-1-reduced", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=128, vocab=256,
+        n_experts=4, top_k=2, expert_ff=128)

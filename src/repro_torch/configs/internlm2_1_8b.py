@@ -1,0 +1,15 @@
+"""internlm2-1.8b [dense]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192
+vocab=92544  [arXiv:2403.17297; hf]."""
+import dataclasses
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b", family="dense",
+    n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8,
+    d_ff=8192, vocab=92544,
+)
+
+def reduced() -> ModelConfig:
+    return dataclasses.replace(
+        CONFIG, name="internlm2-reduced", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=192, vocab=256)

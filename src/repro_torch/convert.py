@@ -11,7 +11,10 @@ JAX arrays that ``np.asarray`` accepts):
   arrays copied with the reference dtypes; ``core.evaluate.spec_tensors``
   puts them on a device);
 * ``tech_from_reference`` — a reference ``TechConstants`` through
-  ``tech_to_dict``.
+  ``tech_to_dict``;
+* ``load_reference_params`` / ``lm_params_from_reference`` — a reference
+  LM parameter pytree (nested dicts of arrays, ``blocks`` stacked on a
+  leading layer axis) as the port's parameter modules.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import torch
 from .core.constants import TechConstants, tech_from_dict, tech_to_dict
 from .core.evaluate import SystemSpec
 from .core.workload import Edge, TensorRef, Workload, WorkloadGraph
+from .models.config import ModelConfig
+from .models.model import HybridLM
 from .runtime import resolve_device
 
 
@@ -64,3 +69,43 @@ def spec_from_reference(spec) -> SystemSpec:
 def tech_from_reference(tech) -> TechConstants:
     """A reference ``TechConstants`` as the port's, field by field."""
     return tech_from_dict(tech_to_dict(tech))
+
+
+def _flatten(tree: Dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a pytree whose leaves are stacked on axis 0."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def load_reference_params(module: torch.nn.Module,
+                          tree: Dict) -> torch.nn.Module:
+    """Copy a reference parameter pytree into ``module``'s parameters of
+    the same dotted names (``{"wq": {"w": ...}}`` -> ``wq.w``), in place,
+    onto the module's device.  Every parameter must be matched exactly,
+    in name and shape."""
+    sd = {k: torch.as_tensor(np.array(v)) for k, v in _flatten(tree)}
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+def lm_params_from_reference(params: Dict, cfg: ModelConfig,
+                             device="cuda") -> HybridLM:
+    """The port's parameters (``models.model.HybridLM`` on ``device``, the
+    card unless ``device="cpu"``) holding a reference LM's weights:
+    ``params`` is the reference ``Model.init`` pytree, whose ``blocks``
+    leaves carry a leading layer axis (the reference vmaps its block
+    init)."""
+    dev = resolve_device(device)
+    tree = dict(params)
+    blocks = tree.pop("blocks")
+    tree["blocks"] = {str(i): _layer(blocks, i) for i in range(cfg.n_layers)}
+    return load_reference_params(HybridLM(cfg, dev), tree)

@@ -150,3 +150,147 @@ def test_sa_step_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(st["o_best"]).all()
     assert bool((st["o_best"] <= st["o_cur"]).all())
+
+
+# flash_attention: the reference kernel test's FA_SHAPES, the Hymba prefill
+# shape (window 1024 over 1152 positions, GQA 5:1), a ragged Sq = Sk = 1000
+# and a kv_valid_len that is not a multiple of the kernel's tiles
+FA_SHAPES = [
+    # (B, Sq, Sk, H, KV, D, mask, window, kv_valid)
+    (1, 32, 32, 4, 4, 16, "causal", 0, None),
+    (2, 64, 64, 8, 2, 32, "causal", 0, None),
+    (1, 64, 64, 4, 1, 64, "window", 16, None),
+    (2, 32, 32, 4, 2, 16, "none", 0, None),
+    (2, 8, 64, 4, 2, 16, "causal", 0, 40),
+    (1, 16, 48, 2, 2, 8, "none", 0, 33),
+    (4, 1152, 1152, 25, 5, 64, "window", 1024, None),
+    (1, 1000, 1000, 4, 2, 64, "window", 300, None),
+    (2, 200, 333, 4, 2, 64, "causal", 0, 317),
+]
+
+
+@pytest.mark.parametrize("shape", FA_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, Sq, Sk, H, KV, D, mk, w, kvl = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + H)
+    q = torch.randn(B, Sq, H, D, generator=gen, device=cuda).to(dt)
+    k = torch.randn(B, Sk, KV, D, generator=gen, device=cuda).to(dt)
+    v = torch.randn(B, Sk, KV, D, generator=gen, device=cuda).to(dt)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, mk, w, kvl)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == (B, Sq, H, D)
+    want = attention_ref(q, k, v, mk, w, kvl)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.zeros(1, 8, 4, 16, device=cuda)
+    k = torch.zeros(1, 8, 2, 16, device=cuda)
+    bad = [(q.cpu(), k, k), (q, k.cpu(), k), (q.double(), k.double(),
+                                               k.double()),
+           (q.half(), k.half(), k.half()), (q, k.bfloat16(), k),
+           (q.transpose(1, 2), k, k),
+           (torch.zeros(1, 16, 4, 16, device=cuda)[:, ::2], k, k),
+           (torch.zeros(1, 8, 3, 16, device=cuda), k, k),
+           (torch.zeros(1, 8, 4, 256, device=cuda),
+            torch.zeros(1, 8, 2, 256, device=cuda),
+            torch.zeros(1, 8, 2, 256, device=cuda))]
+    for a, b, c in bad:
+        with pytest.raises(ValueError):
+            ops.flash_attention(a, b, c, "causal")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k, "sliding")
+
+
+# mamba_scan: the reference kernel test's MS_SHAPES (B, S, Di, Ds), the
+# Hymba prefill shape and its decode step
+MS_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 8), (1, 64, 32, 16),
+             (4, 1152, 3200, 16), (4, 1, 3200, 16), (3, 77, 130, 32)]
+
+
+def _scan_inputs(B, S, Di, Ds, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return (r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di)),
+            -torch.exp(r(Di, Ds) * 0.3), r(B, S, Ds), r(B, S, Ds),
+            r(B, Di, Ds))
+
+
+@pytest.mark.parametrize("B,S,Di,Ds", MS_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_kernel_matches_plain(cuda, B, S, Di, Ds, with_h0):
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+    u, dl, A, Bc, Cc, h0 = _scan_inputs(B, S, Di, Ds, cuda, S + Di)
+    h0 = h0 if with_h0 else None
+    before = ops.selective_scan.launches
+    y, hT = ops.selective_scan(u, dl, A, Bc, Cc, h0)
+    torch.cuda.synchronize()
+    assert ops.selective_scan.launches == before + 1
+    yr, hr = selective_scan_ref(u, dl, A, Bc, Cc, h0)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hT, hr, atol=1e-4, rtol=1e-4)
+
+
+def test_mamba_scan_kernel_threads_its_state(cuda):
+    """Scanning [0:S] equals scanning [0:S/2] then [S/2:S] from the carried
+    state — the decode-step invariant."""
+    from repro_torch.kernels.mamba_scan import ops
+    u, dl, A, Bc, Cc, _ = _scan_inputs(2, 96, 200, 16, cuda, 7)
+    y, h = ops.selective_scan(u, dl, A, Bc, Cc)
+    s = 48
+    y1, h1 = ops.selective_scan(*(t[:, :s].contiguous() for t in (u, dl)), A,
+                                *(t[:, :s].contiguous() for t in (Bc, Cc)))
+    y2, h2 = ops.selective_scan(*(t[:, s:].contiguous() for t in (u, dl)), A,
+                                *(t[:, s:].contiguous() for t in (Bc, Cc)),
+                                h0=h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(h2, h, atol=1e-4, rtol=1e-4)
+
+
+def test_mamba_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.mamba_scan import ops
+    u, dl, A, Bc, Cc, h0 = _scan_inputs(2, 8, 16, 4, cuda, 0)
+    bad = [dict(u=u.cpu()), dict(u=u.double()), dict(u=u.bfloat16()),
+           dict(delta=dl.transpose(0, 1).contiguous().transpose(0, 1)),
+           dict(A=torch.zeros(16, 40, device=cuda)), dict(h0=h0[..., :2]),
+           dict(Bc=Bc[:, :4])]
+    for over in bad:
+        args = dict(u=u, delta=dl, A=A, Bc=Bc, Cc=Cc, h0=h0) | over
+        with pytest.raises(ValueError):
+            ops.selective_scan(**args)
+
+
+def test_reduced_hymba_generate_goes_through_the_kernels(cuda):
+    """A reduced-config ``generate`` on the card: one flash-attention launch
+    per layer in prefill, one scan launch per layer in prefill and in
+    every decode step; in float32 its greedy tokens equal the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_reduced("hymba-1.5b"), dtype="float32")
+    n_new = 6
+    prompt = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    on_card = build_model(cfg, device=cuda)
+    params = on_card.init(0)
+    fa.flash_attention.launches = ms.selective_scan.launches = 0
+    r = generate(on_card, params, prompt, n_new)
+    assert fa.flash_attention.launches == cfg.n_layers
+    assert ms.selective_scan.launches == cfg.n_layers * n_new
+    on_cpu = build_model(cfg, device="cpu")
+    r_cpu = generate(on_cpu, params.to("cpu"), prompt, n_new)
+    assert torch.equal(r.tokens.cpu(), r_cpu.tokens)
+    assert bool(torch.isfinite(r.logits).all())
