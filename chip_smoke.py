@@ -7,16 +7,22 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
 1. the card: ``torch.cuda.get_device_name(0)`` and the name and power limit
    as ``nvidia-smi`` reports them;
 2. build every kernel of the driven paths from its sources (``pareto_rank``,
-   ``gp_cov``, ``flash_attention``, ``mamba_scan``), all ``nvcc``
-   processes started together, and print the build seconds;
+   ``gp_cov``, ``flash_attention`` — its float32 SIMT kernel and its
+   bfloat16 tensor-core kernel in one library — and ``mamba_scan``), all
+   ``nvcc`` processes started together; print the build seconds, the
+   ``-Xptxas -v`` report of the attention kernels (registers, shared
+   memory, spills) and, where ``cuobjdump`` is installed, the count of
+   ``HGMMA`` instructions in the attention library (none fails the run);
 3. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at edge cases (exact equality for the integer
    dominance counts, max abs error <= 1e-5 for the covariance; for
    attention the reference kernel test's tolerances, 2e-5 in float32 and
    2e-2 in bfloat16, atol and rtol, with bfloat16 at the serving shapes
-   held to about one bf16 rounding, atol 4e-3 and rtol 8e-3; 1e-4 for the
-   scan), timed with CUDA events beside the least time the card could take
-   (and, for attention, beside ``scaled_dot_product_attention``);
+   held to about one bf16 rounding, atol 4e-3 and rtol 8e-3, and every
+   bfloat16 call counted as one tensor-core launch, every float32 call as
+   none; 1e-4 for the scan), timed with CUDA events beside the least time
+   the card could take (and, for attention, beside
+   ``scaled_dot_product_attention``);
 4. the evaluator's golden metric vectors on the card (rtol 1e-4);
 5. the main path, cold: ``Session.submit`` of the default query on the
    paper's Fig. 4a transformer block — budget 2048, pop 64, ``ch_max=4``,
@@ -47,16 +53,20 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     full width cut to 2 layers, in float32, one seeded weight set on both
     devices, batch 1, a 1024-token prompt (1152 positions with the meta
     tokens, so the 1024 window binds): forward logits, prefill logits and
-    4 greedy decode steps (logits and every cache leaf) within 1e-3;
+    4 greedy decode steps (logits and every cache leaf) within 1e-3, with
+    the attention counts set to 0 just before and read just after (the
+    float32 SIMT kernel: one launch per layer in the forward and in the
+    prefill, no tensor-core launch);
 11. the LM serving slice at full size: ``hymba-1.5b`` as configured (32
     layers, bfloat16 activations, float32 weights from a seed), batch 4,
     a 1024-token prompt, 32 generated tokens through
     ``launch.serve.generate``, with the kernels' counts set to 0 just
-    before and read just after (exactly 32 ``flash_attention`` and
-    32 x 32 ``mamba_scan`` launches); logits finite, a second run gives
-    the same tokens; prefill seconds, decode ms per token, tokens/s, peak
-    device memory, and the device busy share and kernel count of one
-    decode step from ``torch.profiler``.
+    before and read just after (exactly 32 ``flash_attention`` launches,
+    all 32 on the tensor-core kernel, and 32 x 32 ``mamba_scan``
+    launches); logits finite, a second run gives the same tokens; prefill
+    seconds, decode ms per token, tokens/s, peak device memory, the device
+    busy share and kernel count of one decode step, and the device-time
+    split of one prefill by kernel from ``torch.profiler``.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -68,6 +78,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -153,27 +165,33 @@ QUICK_OPTS = dict(n_init=4, n_iter=8)
 QUICK_SA = SAConfig(steps=250, chains=4)
 TWO_STAGE_SA = SAConfig(steps=10, chains=4)
 
-# flash_attention checks: (B, Sq, Sk, H, KV, D, mask, window, kv_valid_len,
-# tag).  The reference kernel test's FA_SHAPES (tests/test_kernels.py),
-# the Hymba prefill shape (prompt 1024 + 128 meta tokens, 25 query heads
-# over 5 KV heads, window 1024), a ragged Sq = Sk = 1000, and a
-# kv_valid_len that is not a multiple of the kernel's tiles
-FA_PREFILL = (4, 1152, 1152, 25, 5, 64, "window", 1024, None,
+# flash_attention checks: (B, Sq, Sk, H, KV, D, Dv, mask, window,
+# kv_valid_len, tag).  The reference kernel test's FA_SHAPES
+# (tests/test_kernels.py), two shapes with Dv != D, the Hymba prefill shape
+# (prompt 1024 + 128 meta tokens, 25 query heads over 5 KV heads, window
+# 1024), a ragged Sq = Sk = 1000, and a kv_valid_len that is not a
+# multiple of the kernels' tiles
+FA_PREFILL = (4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None,
               "hymba prefill")
-FA_SHAPES = ((1, 32, 32, 4, 4, 16, "causal", 0, None, "kernel test"),
-             (2, 64, 64, 8, 2, 32, "causal", 0, None, "kernel test"),
-             (1, 64, 64, 4, 1, 64, "window", 16, None, "kernel test"),
-             (2, 32, 32, 4, 2, 16, "none", 0, None, "kernel test"),
-             (2, 8, 64, 4, 2, 16, "causal", 0, 40, "kernel test"),
-             (1, 16, 48, 2, 2, 8, "none", 0, 33, "kernel test"),
+FA_SHAPES = ((1, 32, 32, 4, 4, 16, 16, "causal", 0, None, "kernel test"),
+             (2, 64, 64, 8, 2, 32, 32, "causal", 0, None, "kernel test"),
+             (1, 64, 64, 4, 1, 64, 64, "window", 16, None, "kernel test"),
+             (2, 32, 32, 4, 2, 16, 16, "none", 0, None, "kernel test"),
+             (2, 8, 64, 4, 2, 16, 16, "causal", 0, 40, "kernel test"),
+             (1, 16, 48, 2, 2, 8, 8, "none", 0, 33, "kernel test"),
+             (1, 256, 256, 4, 2, 64, 32, "causal", 0, None, "Dv != D"),
+             (2, 96, 160, 4, 1, 16, 64, "window", 48, 150, "Dv != D"),
              FA_PREFILL,
-             (1, 1000, 1000, 25, 5, 64, "window", 1024, None, "ragged"),
-             (2, 200, 333, 25, 5, 64, "causal", 0, 317, "kv_valid_len"))
+             (1, 1000, 1000, 25, 5, 64, 64, "window", 1024, None, "ragged"),
+             (2, 200, 333, 25, 5, 64, 64, "causal", 0, 317, "kv_valid_len"))
+FA_SERVE_TAGS = ("hymba prefill", "ragged", "kv_valid_len")
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# bfloat16 at the serving shapes (hymba prefill, ragged): about one bf16
-# rounding of the output (atol, rtol), since 2e-2 is ~40% of a typical
-# |out| there, where each output averages ~1000 values of v
+# bfloat16 at the serving shapes: about one bf16 rounding of the output
+# (atol, rtol), since 2e-2 is ~40% of a typical |out| there, where each
+# output averages ~100-1000 values of v
 FA_BF16_SERVE_TOL = (4e-3, 8e-3)
+FA_SOURCES = "src/repro_torch/kernels/flash_attention/csrc/"
+FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:90"
 
 # mamba_scan checks: (B, S, Di, Ds, tag); each with and without h0.  The
 # reference kernel test's MS_SHAPES, the Hymba prefill scan and a decode
@@ -301,17 +319,18 @@ def visible_pairs(Sq: int, Sk: int, mask: str, window: int, kvl) -> int:
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def fa_bound_ms(B, Sq, Sk, H, KV, D, mask, window, kvl, dtype) -> tuple:
+def fa_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask, window, kvl,
+                dtype) -> tuple:
     """Least time for one attention: q, k, v read once and out written
-    once at the memory rate, or 4 D operations (the two products) per
-    visible (q, k) pair and head at the peak rate of the input type
+    once at the memory rate, or 2 (D + Dv) operations (the two products)
+    per visible (q, k) pair and head at the peak rate of the input type
     (bf16 tensor cores, or FP32)."""
     size = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = size * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) \
+    t_bytes = size * (B * Sq * H * (D + Dv) + B * Sk * KV * (D + Dv)) \
         / PEAK_BYTES_PER_S * 1e3
     peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 \
         else PEAK_FP32_OPS_PER_S
-    ops = 4 * B * H * D * visible_pairs(Sq, Sk, mask, window, kvl)
+    ops = 2 * B * H * (D + Dv) * visible_pairs(Sq, Sk, mask, window, kvl)
     t_ops = ops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -320,15 +339,21 @@ def check_flash_attention() -> list:
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for shape in FA_SHAPES:
-        B, Sq, Sk, H, KV, D, mask, w, kvl, tag = shape
+        B, Sq, Sk, H, KV, D, Dv, mask, w, kvl, tag = shape
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dt)
             k = torch.randn(B, Sk, KV, D, generator=gen, device="cuda").to(dt)
-            v = torch.randn(B, Sk, KV, D, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, Sk, KV, Dv, generator=gen,
+                            device="cuda").to(dt)
+            tc_before = fa_ops.flash_attention.launches_tc
             got = fa_ops.flash_attention(q, k, v, mask, w, kvl)
             torch.cuda.synchronize()
+            tc = fa_ops.flash_attention.launches_tc - tc_before
+            if tc != (dt == torch.bfloat16):
+                fail(f"flash_attention at {shape[:-1]} {dt} moved the "
+                     f"tensor-core count by {tc}")
             want = attention_ref(q, k, v, mask, w, kvl)
-            serve = shape is FA_PREFILL or tag == "ragged"
+            serve = tag in FA_SERVE_TAGS
             tol = FA_TOL[dt]
             atol, rtol = (FA_BF16_SERVE_TOL if serve and dt == torch.bfloat16
                           else (tol, tol))
@@ -359,6 +384,7 @@ def time_attention(q, k, v, mask, w, kvl) -> dict:
     inputs, CUDA-event means."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[3]
     k_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, mask, w, kvl), 20)
     p_ms = cuda_ms(lambda: attention_ref(q, k, v, mask, w, kvl), 5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -378,7 +404,8 @@ def time_attention(q, k, v, mask, w, kvl) -> dict:
                      - fa_ops.flash_attention(q, k, v, mask, w,
                                               kvl).float()).abs().max())
     l_ms = cuda_ms(sdpa, 20)
-    b_ms, b_by = fa_bound_ms(B, Sq, Sk, H, KV, D, mask, w, kvl, q.dtype)
+    b_ms, b_by = fa_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask, w, kvl,
+                             q.dtype)
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                 bound_by=b_by, library_max_abs_diff=lib_err,
                 pairs_per_head=visible_pairs(Sq, Sk, mask, w, kvl))
@@ -479,6 +506,7 @@ def hymba_card_vs_cpu() -> dict:
                  f"{LM_PARITY_TOL}")
 
     t0 = time.perf_counter()
+    fa_ops.flash_attention.launches = fa_ops.flash_attention.launches_tc = 0
     compare("forward logits", card.forward(params, {"tokens": prompt}),
             cpu.forward(params_cpu, {"tokens": prompt}))
     n_new = 4
@@ -497,12 +525,19 @@ def hymba_card_vs_cpu() -> dict:
         for j, (a, b) in enumerate(zip(_leaves(cache), _leaves(cache_c))):
             compare(f"cache leaf {j}", a, b)
     wall = time.perf_counter() - t0
+    launches = dict(flash_attention=fa_ops.flash_attention.launches,
+                    tensor_core=fa_ops.flash_attention.launches_tc)
+    want = dict(flash_attention=2 * cfg.n_layers, tensor_core=0)
+    if launches != want:
+        fail(f"hymba card vs CPU launched {launches}, expected {want} (the "
+             f"float32 SIMT kernel in the forward and the prefill)")
     print(f"hymba card vs CPU (d {cfg.d_model}, {cfg.n_layers} layers, "
           f"float32, prompt {prompt.shape[1]} + {cfg.meta_tokens} meta, "
           f"window {cfg.window}, {n_new} decode "
           f"steps): max abs err {json.dumps(errs)} (gate {LM_PARITY_TOL}); "
-          f"{wall:.1f} s")
-    return dict(max_abs_err=errs, gate=LM_PARITY_TOL, wall_s=wall)
+          f"{wall:.1f} s; attention launches {launches}")
+    return dict(max_abs_err=errs, gate=LM_PARITY_TOL, wall_s=wall,
+                launches=launches)
 
 
 def _leaves(tree):
@@ -523,13 +558,15 @@ def hymba_serve() -> dict:
     prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                            generator=torch.Generator().manual_seed(11))
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.flash_attention.launches = 0
+    fa_ops.flash_attention.launches = fa_ops.flash_attention.launches_tc = 0
     ms_ops.selective_scan.launches = 0
     first = generate(model, params, prompt, SERVE_TOKENS)
     launches = dict(flash_attention=fa_ops.flash_attention.launches,
+                    flash_attention_tc=fa_ops.flash_attention.launches_tc,
                     mamba_scan=ms_ops.selective_scan.launches)
     peak = torch.cuda.max_memory_allocated()
     want = dict(flash_attention=cfg.n_layers,
+                flash_attention_tc=cfg.n_layers,
                 mamba_scan=cfg.n_layers * SERVE_TOKENS)
     if launches != want:
         fail(f"hymba serve launched {launches}, expected {want}")
@@ -594,6 +631,41 @@ def hymba_serve() -> dict:
     print(f"hymba prefill: under the profiler {pre_s * 1e3:.3f} ms device "
           f"time = {out['prefill_busy_share']:.1%} of run 2's prefill wall,"
           f" {pre_n} kernels; split {json.dumps(out['prefill_split'])}")
+    attn = out["prefill_split"]["flash_attention_tc"]
+    print(f"hymba prefill attention: {attn['count']} tensor-core launches, "
+          f"{attn['s'] * 1e3:.3f} ms = {attn['share']:.1%} of prefill device "
+          f"time")
+    return out
+
+
+def attention_build_report(lib: Path) -> dict:
+    """Registers, static shared memory and spills of each attention kernel
+    from the ``-Xptxas -v`` log kept beside the library, and the count of
+    ``HGMMA`` (wgmma) instructions in the library's SASS where
+    ``cuobjdump`` is installed; fails if the tensor-core kernel has
+    none."""
+    log = lib.with_suffix(".log").read_text()
+    kernels = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = re.search(r"(attn_fwd(?:_wgmma)?_kernel)ILi(\d+)E", chunk)
+        if name is None:
+            continue
+        num = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
+        kernels[f"{name[1]}<{name[2]}>"] = dict(
+            registers=num(r"Used (\d+) registers"),
+            static_smem_bytes=num(r"(\d+) bytes smem"),
+            spill_stores=num(r"(\d+) bytes spill stores"),
+            spill_loads=num(r"(\d+) bytes spill loads"))
+    out = dict(kernels=kernels, hgmma="not checked (no cuobjdump)")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).is_file():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        out["hgmma"] = sass.count("HGMMA")
+        if out["hgmma"] == 0:
+            fail("the flash_attention library holds no HGMMA instruction")
+    print(f"flash_attention build: {json.dumps(kernels)}; HGMMA "
+          f"instructions in the SASS: {out['hgmma']}")
     return out
 
 
@@ -667,14 +739,16 @@ def device_by_kernel(fn) -> tuple:
 
 
 def kernel_split(by_name: dict, total_s: float, top: int = 5) -> dict:
-    """Device seconds of the port's two LM kernels and of the ``top``
-    kernels by device time, each with its share of ``total_s``."""
+    """Device seconds of the port's LM kernels (the two attention kernels
+    by their own names, the scan) and of the ``top`` kernels by device
+    time, each with its share of ``total_s``."""
     def share(keys):
         t = sum(by_name[k][0] for k in keys)
         return dict(s=t, share=t / total_s if total_s > 0 else 0.0,
                     count=sum(by_name[k][1] for k in keys))
     out = {name: share([k for k in by_name if tag in k])
-           for name, tag in (("flash_attention", "attn_fwd_kernel"),
+           for name, tag in (("flash_attention_tc", "attn_fwd_wgmma_kernel"),
+                             ("flash_attention_simt", "attn_fwd_kernel"),
                              ("mamba_scan", "scan_kernel"))}
     out["top"] = [dict(kernel=k[:120], s=t, count=c,
                        share=t / total_s if total_s > 0 else 0.0)
@@ -948,6 +1022,7 @@ def main():
         libs = {name: f.result() for name, f in
                 [(n, pool.submit(b)) for n, b in builds.items()]}
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    fa_build = attention_build_report(libs["flash_attention"])
 
     # ---- 3. kernels against their plain versions ---------------------------
     pareto_rows = check_pareto_rank()
@@ -1043,20 +1118,31 @@ def main():
         bound_ms=gp_main["bound_ms"], bound_by=gp_main["bound_by"],
         library_ms=None, tolerance=GP_TOL, shapes=gp_rows,
         main_path=dict(quickstart=quick, two_stage=staged))
-    fa_main = next(r for r in fa_rows if r["tag"] == "hymba prefill"
-                   and r["dtype"] == str(torch.bfloat16))
+    def fa_rows_of(dt):
+        return [r for r in fa_rows if r["dtype"] == str(dt)]
+    bf16_rows, f32_rows = fa_rows_of(torch.bfloat16), fa_rows_of(torch.float32)
+    fa_main = next(r for r in bf16_rows if r["tag"] == "hymba prefill")
     fa_record = dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:90",
-        launches=served["launches"]["flash_attention"],
-        max_abs_err=max(r["max_abs_err"] for r in fa_rows),
+        source=FA_SOURCES + "flash_attention_wgmma.cu", replaces=FA_REPLACES,
+        dtype="bfloat16",
+        launches=served["launches"]["flash_attention_tc"],
+        max_abs_err=max(r["max_abs_err"] for r in bf16_rows),
         ms=fa_main["ms"], plain_ms=fa_main["plain_ms"],
         bound_ms=fa_main["bound_ms"], bound_by=fa_main["bound_by"],
-        library_ms=fa_main["library_ms"], tolerance=FA_TOL[torch.float32],
-        tolerance_bf16=FA_TOL[torch.bfloat16], shapes=fa_rows,
-        main_path=dict(card_vs_cpu=lm_parity, serve=served))
+        library_ms=fa_main["library_ms"],
+        tolerance=FA_TOL[torch.bfloat16], serve_tolerance=FA_BF16_SERVE_TOL,
+        build=fa_build, shapes=bf16_rows, main_path=dict(serve=served))
+    f32_main = next(r for r in f32_rows if r["tag"] == "hymba prefill")
+    fa_f32_record = dict(
+        name="flash_attention_f32", route="cuda",
+        source=FA_SOURCES + "flash_attention.cu", replaces=FA_REPLACES,
+        dtype="float32", launches=lm_parity["launches"]["flash_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in f32_rows),
+        ms=f32_main["ms"], plain_ms=f32_main["plain_ms"],
+        bound_ms=f32_main["bound_ms"], bound_by=f32_main["bound_by"],
+        library_ms=f32_main["library_ms"], tolerance=FA_TOL[torch.float32],
+        shapes=f32_rows, main_path=dict(card_vs_cpu=lm_parity))
     ms_main = next(r for r in ms_rows if r["tag"] == "hymba prefill"
                    and "ms" in r)
     ms_dec = next(r for r in ms_rows if r["tag"] == "hymba decode"
@@ -1073,7 +1159,7 @@ def main():
         decode_plain_ms=ms_dec["plain_ms"],
         decode_bound_ms=ms_dec["bound_ms"], shapes=ms_rows)
     print(json.dumps({"kernels": [record, gp_record, fa_record,
-                                  ms_record]}))
+                                  fa_f32_record, ms_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

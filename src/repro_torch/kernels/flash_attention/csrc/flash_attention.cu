@@ -1,22 +1,25 @@
-// Flash-attention forward on NVIDIA Hopper (sm_90a).
+// Flash-attention forward on NVIDIA Hopper (sm_90a): the C entry and the
+// float32 kernel.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
-// (flash_attention_pallas / _attn_kernel).  For q (B, Sq, H, D) and k/v
-// (B, Sk, KV, D | Dv), row-major, bf16 or float32, writes out (B, Sq, H, Dv)
-// in q's type: online-softmax attention with float32 running max, sum and
+// (flash_attention_pallas / _attn_kernel).  The entry flash_attention_fwd
+// sends bfloat16 inputs to the tensor-core kernel of
+// flash_attention_wgmma.cu and float32 inputs to the SIMT kernel below (on
+// tensor cores float32 would run as TF32, which misses the 2e-5 float32
+// tolerance).  For q (B, Sq, H, D) and k/v (B, Sk, KV, D | Dv), row-major
+// float32, the SIMT kernel writes out (B, Sq, H, Dv) in float32:
+// online-softmax attention with float32 running max, sum and
 // accumulator; query head h reads KV head h / (H / KV) (GQA, K/V never
 // repeated in memory); q scaled by 1/sqrt(D) before the product; masks
 // "causal" (k <= q), "window" (k <= q and q - k < window) or "none", plus
 // k < kv_valid_len, with the queries at absolute positions
 // q_offset + i (q_offset = kv_valid_len - Sq, or 0).
 //
-// What bounds it on the H100: 4 D per visible (q, k) pair per (b, h) —
-// the two products — at 989 TFLOP/s for bf16 (67 for float32) against
+// What bounds it on the H100: 4 D operations per visible (q, k) pair per
+// (b, h) — the two products — at 67 TFLOP/s for float32 FMAs against
 // reading q, k, v once and writing out once at 3.35 TB/s.  At the Hymba
 // prefill shape (q (4, 1152, 25, 64), window 1024) that is 1.68e10
-// operations, 17 us, against 35 MB, 10.6 us: bound by operations.  This
-// first kernel runs the products on FP32 FMAs, not tensor cores, so it sits
-// far above that bound.
+// operations, 251 us, against 71 MB, 21 us: bound by operations.
 //
 // Design.  The TPU kernel carries m, l and acc across a sequential kv grid
 // axis in VMEM scratch.  Here one block owns (b, h, a tile of kBQ queries),
@@ -38,7 +41,6 @@
 // tolerance.  The kernel launches on the caller's stream and the C entry
 // returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -50,25 +52,12 @@ constexpr float kNegInf = -3.4028234663852886e38f;   // finfo(float32).min
 
 enum MaskKind { kCausal = 0, kWindow = 1, kNone = 2 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int P>
+template <int P>
 __global__ void __launch_bounds__(kBQ)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-                int H, int KV, int D, int Dv, float scale, int mask_kind,
-                int window, int valid_len, int q_offset) {
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out, int Sq,
+                int Sk, int H, int KV, int D, int Dv, float scale,
+                int mask_kind, int window, int valid_len, int q_offset) {
   constexpr int kBK = P <= 64 ? 64 : 32;    // keys per staged tile
   __shared__ __align__(16) float s_k[kBK * P];
   __shared__ __align__(16) float s_v[kBK * P];
@@ -85,10 +74,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[P];
   float acc[P];
   {
-    const T* qp = q + ((static_cast<size_t>(b) * Sq + row) * H + h) * D;
+    const float* qp = q + ((static_cast<size_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int d = 0; d < P; ++d) {
-      qr[d] = (active && d < D) ? to_float(qp[d]) * scale : 0.0f;
+      qr[d] = (active && d < D) ? qp[d] * scale : 0.0f;
       acc[d] = 0.0f;
     }
   }
@@ -113,8 +102,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (key < hi) {
         const size_t base =
             (static_cast<size_t>(b) * Sk + key) * KV + kvh;
-        if (d < D) kk = to_float(k[base * D + d]);
-        if (d < Dv) vv = to_float(v[base * Dv + d]);
+        if (d < D) kk = k[base * D + d];
+        if (d < Dv) vv = v[base * Dv + d];
       }
       s_k[e] = kk;
       s_v[e] = vv;
@@ -178,52 +167,60 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!active) return;
   const float inv = 1.0f / fmaxf(l, 1e-20f);
-  T* op = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * Dv;
+  float* op = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * Dv;
 #pragma unroll
   for (int d = 0; d < P; ++d) {
-    if (d < Dv) op[d] = from_float<T>(acc[d] * inv);
+    if (d < Dv) op[d] = acc[d] * inv;
   }
 }
 
-template <typename T, int P>
+template <int P>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KV, int D, int Dv, int mask_kind,
            int window, int valid_len, int q_offset, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  attn_fwd_kernel<T, P><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, D, Dv,
-      1.0f / sqrtf(static_cast<float>(D)), mask_kind, window, valid_len,
-      q_offset);
+  attn_fwd_kernel<P><<<grid, kBQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
+      D, Dv, 1.0f / sqrtf(static_cast<float>(D)), mask_kind, window,
+      valid_len, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Sk, int H, int KV, int D, int Dv, int mask_kind,
-             int window, int valid_len, int q_offset, cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* out,
+                 int B, int Sq, int Sk, int H, int KV, int D, int Dv,
+                 int mask_kind, int window, int valid_len, int q_offset,
+                 cudaStream_t stream) {
   const int need = D > Dv ? D : Dv;
   if (need <= 16)
-    return launch<T, 16>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                         window, valid_len, q_offset, stream);
+    return launch<16>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                      window, valid_len, q_offset, stream);
   if (need <= 32)
-    return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                         window, valid_len, q_offset, stream);
+    return launch<32>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                      window, valid_len, q_offset, stream);
   if (need <= 64)
-    return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                         window, valid_len, q_offset, stream);
-  return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                        window, valid_len, q_offset, stream);
+    return launch<64>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                      window, valid_len, q_offset, stream);
+  return launch<128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                     window, valid_len, q_offset, stream);
 }
 
 }  // namespace
+
+// The bf16 tensor-core kernel (flash_attention_wgmma.cu).
+int flash_attention_wgmma(const void* q, const void* k, const void* v,
+                          void* out, int B, int Sq, int Sk, int H, int KV,
+                          int D, int Dv, int mask_kind, int window,
+                          int valid_len, int q_offset, cudaStream_t stream);
 
 // C interface, loaded with ctypes.  q: (B, Sq, H, D), k: (B, Sk, KV, D),
 // v: (B, Sk, KV, Dv), out: (B, Sq, H, Dv), all contiguous, of one type:
 // dtype 0 = float32, 1 = bfloat16.  mask_kind 0 = causal, 1 = window,
 // 2 = none.  valid_len: keys at or past it are masked (Sk when the caller
 // gave no kv_valid_len); q_offset: absolute position of query 0.  stream:
-// the cudaStream_t to launch on.  Returns a cudaError_t code (0 = launched).
+// the cudaStream_t to launch on.  bfloat16 needs D and Dv multiples of 8
+// and 16-byte aligned pointers.  Returns a cudaError_t code (0 =
+// launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
                                    int B, int Sq, int Sk, int H, int KV,
@@ -236,11 +233,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                           window, valid_len, q_offset, s);
+    return dispatch_f32(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                        window, valid_len, q_offset, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv,
-                                   mask_kind, window, valid_len, q_offset,
-                                   s);
+    return flash_attention_wgmma(q, k, v, out, B, Sq, Sk, H, KV, D, Dv,
+                                 mask_kind, window, valid_len, q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

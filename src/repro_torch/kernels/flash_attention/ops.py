@@ -1,13 +1,17 @@
 """``flash_attention``: the wrapper of the Hopper flash-attention kernel.
 
 A CPU tensor goes to the plain PyTorch version (``ref.flash_attention_blocked``).
-A CUDA tensor launches the kernel (``csrc/flash_attention.cu``, built at
-first use and loaded with ``ctypes``) or raises: there is no fallback.  The
-wrapper checks device, dtype, rank, shapes and contiguity and raises on
-anything the kernel does not take (float32 or bfloat16 only, one type for
-q, k and v, head dims up to 128).  ``flash_attention.launches`` counts
-kernel launches (and nothing else), so a run can show that it went through
-the kernel.
+A CUDA tensor launches a kernel (``csrc/``, built at first use into one
+library and loaded with ``ctypes``) or raises: there is no fallback.
+bfloat16 runs the tensor-core kernel (``csrc/flash_attention_wgmma.cu``),
+float32 the SIMT kernel (``csrc/flash_attention.cu``).  The wrapper checks
+device, dtype, rank, shapes and contiguity and raises on anything the
+kernels do not take (float32 or bfloat16 only, one type for q, k and v,
+head dims up to 128; for bfloat16 head dims that are multiples of 8 and
+16-byte aligned pointers).  ``flash_attention.launches`` counts kernel
+launches (and nothing else) and ``flash_attention.launches_tc`` the
+bfloat16 tensor-core launches among them, so a run can show which kernel
+served it.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 from ..build import build_library
 from .ref import MASK_KINDS, flash_attention_blocked
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 
@@ -90,6 +95,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(D, Dv) > MAX_HEAD_DIM or min(D, Dv) == 0:
         raise ValueError(f"flash_attention: head dims ({D}, {Dv}) outside "
                          f"1..{MAX_HEAD_DIM}")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores and (D % 8 or Dv % 8):
+        raise ValueError(f"flash_attention: bfloat16 head dims ({D}, {Dv}) "
+                         f"must be multiples of 8")
+    if tensor_cores and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k, v must start on "
+                         "16-byte boundaries")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -106,7 +118,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_tc += int(tensor_cores)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

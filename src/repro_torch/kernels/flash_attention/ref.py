@@ -9,6 +9,10 @@ held against, and the CPU path of ``ops.flash_attention``.
   a loop over KV blocks carrying the running max, sum and accumulator,
   with the same masks and the same guards for fully masked rows
   (``safe_m``, ``alpha = 0``, ``l >= 1e-20``).
+* ``flash_attention_tc_mirror`` — the bf16 tensor-core kernel's
+  arithmetic (``csrc/flash_attention_wgmma.cu``) for tests: the scale
+  applied after the product in the log2 domain, P rounded to bf16 before
+  P V, l summed from the float32 P.  Never on the main path.
 
 Layouts are the reference's: q (B, Sq, H, D); k/v (B, Sk, KV, D | Dv) with
 H % KV == 0.  Masks: ``causal`` — key j visible to the query at absolute
@@ -26,6 +30,7 @@ from typing import Optional
 import torch
 
 BLOCK_K = 512
+TC_BLOCK_K = 64     # keys per tile of the tensor-core kernel
 NEG_INF = float(torch.finfo(torch.float32).min)
 MASK_KINDS = ("causal", "window", "none")
 
@@ -99,6 +104,45 @@ def flash_attention_blocked(q, k, v, mask_kind: str = "causal",
         alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - safe))
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p, vf)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_tc_mirror(q, k, v, mask_kind: str = "causal",
+                              window: int = 0,
+                              kv_valid_len: Optional[int] = None):
+    """The tensor-core kernel's rounding scheme: per tile of ``TC_BLOCK_K``
+    keys, raw scores S = q k^T in float32 and the rows' running max of
+    them; P = exp2(S c - m c) with c = log2(e) / sqrt(D) applied after the
+    product; l adds the float32 P; P is rounded to bfloat16 before P V.
+    Masks and fully-masked-row guards as in ``flash_attention_blocked``."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    rep = H // KV
+    c = torch.tensor(math.log2(math.e) / math.sqrt(D), dtype=torch.float32)
+    qf = q.float().transpose(1, 2)                       # (B, H, Sq, D)
+    q_pos, valid_len = _positions(Sq, Sk, kv_valid_len, q.device)
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, H, Sq, 1), device=q.device)
+    acc = torch.zeros((B, H, Sq, Dv), device=q.device)
+    for k0 in range(0, Sk, TC_BLOCK_K):
+        kf = k[:, k0:k0 + TC_BLOCK_K].repeat_interleave(rep, dim=2).float()
+        vf = v[:, k0:k0 + TC_BLOCK_K].repeat_interleave(rep, dim=2).float()
+        s = torch.einsum("bhqd,bkhd->bhqk", qf, kf)
+        mask = _mask(q_pos, torch.arange(k0, k0 + kf.shape[1],
+                                         device=q.device),
+                     valid_len, mask_kind, window)[None, None]
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        p = torch.where(mask, torch.exp2(s * c - safe * c), 0.0)
+        alpha = torch.where(m <= NEG_INF / 2, 0.0,
+                            torch.exp2((m - safe) * c))
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vf)
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)
     return out.transpose(1, 2).to(q.dtype)

@@ -153,19 +153,24 @@ def test_sa_step_makes_no_host_sync(cuda):
 
 
 # flash_attention: the reference kernel test's FA_SHAPES, the Hymba prefill
-# shape (window 1024 over 1152 positions, GQA 5:1), a ragged Sq = Sk = 1000
-# and a kv_valid_len that is not a multiple of the kernel's tiles
+# shape (window 1024 over 1152 positions, GQA 5:1), a ragged Sq = Sk = 1000,
+# a kv_valid_len that is not a multiple of the kernel's tiles, two shapes
+# with Dv != D, and head dims of 128 (the tensor-core kernel's second class)
 FA_SHAPES = [
-    # (B, Sq, Sk, H, KV, D, mask, window, kv_valid)
-    (1, 32, 32, 4, 4, 16, "causal", 0, None),
-    (2, 64, 64, 8, 2, 32, "causal", 0, None),
-    (1, 64, 64, 4, 1, 64, "window", 16, None),
-    (2, 32, 32, 4, 2, 16, "none", 0, None),
-    (2, 8, 64, 4, 2, 16, "causal", 0, 40),
-    (1, 16, 48, 2, 2, 8, "none", 0, 33),
-    (4, 1152, 1152, 25, 5, 64, "window", 1024, None),
-    (1, 1000, 1000, 4, 2, 64, "window", 300, None),
-    (2, 200, 333, 4, 2, 64, "causal", 0, 317),
+    # (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid)
+    (1, 32, 32, 4, 4, 16, 16, "causal", 0, None),
+    (2, 64, 64, 8, 2, 32, 32, "causal", 0, None),
+    (1, 64, 64, 4, 1, 64, 64, "window", 16, None),
+    (2, 32, 32, 4, 2, 16, 16, "none", 0, None),
+    (2, 8, 64, 4, 2, 16, 16, "causal", 0, 40),
+    (1, 16, 48, 2, 2, 8, 8, "none", 0, 33),
+    (4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None),
+    (1, 1000, 1000, 4, 2, 64, 64, "window", 300, None),
+    (2, 200, 333, 4, 2, 64, 64, "causal", 0, 317),
+    (1, 256, 256, 4, 2, 64, 32, "causal", 0, None),
+    (2, 96, 160, 4, 1, 16, 64, "window", 48, 150),
+    (1, 200, 200, 4, 2, 128, 128, "causal", 0, None),
+    (1, 130, 190, 2, 1, 64, 128, "none", 0, None),
 ]
 
 
@@ -174,17 +179,21 @@ FA_SHAPES = [
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, Sq, Sk, H, KV, D, mk, w, kvl = shape
+    B, Sq, Sk, H, KV, D, Dv, mk, w, kvl = shape
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + H)
     q = torch.randn(B, Sq, H, D, generator=gen, device=cuda).to(dt)
     k = torch.randn(B, Sk, KV, D, generator=gen, device=cuda).to(dt)
-    v = torch.randn(B, Sk, KV, D, generator=gen, device=cuda).to(dt)
+    v = torch.randn(B, Sk, KV, Dv, generator=gen, device=cuda).to(dt)
     before = ops.flash_attention.launches
+    before_tc = ops.flash_attention.launches_tc
     got = ops.flash_attention(q, k, v, mk, w, kvl)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
-    assert got.dtype == dt and got.shape == (B, Sq, H, D)
+    # bf16 runs on the tensor-core kernel, float32 on the SIMT kernel
+    assert ops.flash_attention.launches_tc == before_tc + (
+        dt == torch.bfloat16)
+    assert got.dtype == dt and got.shape == (B, Sq, H, Dv)
     want = attention_ref(q, k, v, mk, w, kvl)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -202,7 +211,16 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
            (torch.zeros(1, 8, 3, 16, device=cuda), k, k),
            (torch.zeros(1, 8, 4, 256, device=cuda),
             torch.zeros(1, 8, 2, 256, device=cuda),
-            torch.zeros(1, 8, 2, 256, device=cuda))]
+            torch.zeros(1, 8, 2, 256, device=cuda)),
+           # bf16 head dims the tensor-core kernel does not take
+           (torch.zeros(1, 8, 4, 12, device=cuda).bfloat16(),
+            torch.zeros(1, 8, 2, 12, device=cuda).bfloat16(),
+            torch.zeros(1, 8, 2, 12, device=cuda).bfloat16()),
+           (q.bfloat16(), k.bfloat16(),
+            torch.zeros(1, 8, 2, 20, device=cuda).bfloat16()),
+           # bf16 not on a 16-byte boundary
+           (torch.zeros(4 * 8 * 16 + 1, device=cuda).bfloat16()[1:].view(
+               1, 8, 4, 16), k.bfloat16(), k.bfloat16())]
     for a, b, c in bad:
         with pytest.raises(ValueError):
             ops.flash_attention(a, b, c, "causal")
@@ -287,10 +305,32 @@ def test_reduced_hymba_generate_goes_through_the_kernels(cuda):
     on_card = build_model(cfg, device=cuda)
     params = on_card.init(0)
     fa.flash_attention.launches = ms.selective_scan.launches = 0
+    fa.flash_attention.launches_tc = 0
     r = generate(on_card, params, prompt, n_new)
     assert fa.flash_attention.launches == cfg.n_layers
+    assert fa.flash_attention.launches_tc == 0        # float32: SIMT kernel
     assert ms.selective_scan.launches == cfg.n_layers * n_new
     on_cpu = build_model(cfg, device="cpu")
     r_cpu = generate(on_cpu, params.to("cpu"), prompt, n_new)
     assert torch.equal(r.tokens.cpu(), r_cpu.tokens)
     assert bool(torch.isfinite(r.logits).all())
+
+
+def test_reduced_hymba_bf16_prefill_runs_on_the_tensor_core_kernel(cuda):
+    """The configured dtype (bfloat16): every prefill attention launch is a
+    tensor-core launch, and two runs give the same tokens."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    cfg = get_reduced("hymba-1.5b")
+    prompt = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(2))
+    model = build_model(cfg, device=cuda)
+    params = model.init(0)
+    fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
+    r = generate(model, params, prompt, 4)
+    assert fa.flash_attention.launches == cfg.n_layers
+    assert fa.flash_attention.launches_tc == cfg.n_layers
+    assert bool(torch.isfinite(r.logits).all())
+    assert torch.equal(r.tokens, generate(model, params, prompt, 4).tokens)

@@ -18,8 +18,8 @@ from repro.kernels.flash_attention.ops import \
     flash_attention_blocked as jax_blocked
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import (attention_ref,
-                                                     flash_attention_blocked)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref, flash_attention_blocked, flash_attention_tc_mirror)
 
 # tests/test_kernels.py FA_SHAPES: (B, Sq, Sk, H, KV, D, mask, window, kv_valid)
 FA_SHAPES = [
@@ -57,6 +57,7 @@ def test_port_matches_reference_oracle_and_pallas_kernel(shape):
         block_q=8, block_k=16, interpret=True))
     tq, tk, tv = _t(q, k, v)
     before = ops.flash_attention.launches
+    before_tc = ops.flash_attention.launches_tc
     for got in (attention_ref(tq, tk, tv, mk, w, kvl),
                 flash_attention_blocked(tq, tk, tv, mk, w, kvl, block_k=16),
                 ops.flash_attention(tq, tk, tv, mk, w, kvl)):
@@ -64,6 +65,7 @@ def test_port_matches_reference_oracle_and_pallas_kernel(shape):
             np.testing.assert_allclose(got.numpy(), ref, atol=2e-5,
                                        rtol=2e-5)
     assert ops.flash_attention.launches == before   # CPU: plain version
+    assert ops.flash_attention.launches_tc == before_tc
 
 
 @pytest.mark.parametrize("shape", FA_SHAPES[:3], ids=str)
@@ -77,6 +79,25 @@ def test_port_bf16_matches_reference_oracle(shape):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
                                rtol=2e-2)
+
+
+# the bf16 tensor-core kernel's rounding (P to bf16 before P V, the scale
+# after the product, l from the float32 P) against the reference oracle in
+# float32 on the same bf16-valued inputs, at a reduced serving-like shape
+# (GQA 5:1, D 64, window 256): within the serving gate the card holds the
+# kernel to (atol 4e-3, rtol 8e-3), so rounding P cannot break it.  The
+# ragged case keeps Sq <= kv_valid_len: no row is fully masked (the oracle
+# averages v over such a row, the online-softmax paths write 0)
+@pytest.mark.parametrize("Sq,Sk,kvl", [(300, 300, None), (200, 300, 287)])
+def test_tensor_core_rounding_holds_the_serving_gate(Sq, Sk, kvl):
+    q, k, v = _t(*_inputs(1, Sq, Sk, 5, 1, 64, seed=Sq + Sk),
+                 dtype=torch.bfloat16)
+    want = np.asarray(jax_ref(*(jnp.asarray(x.float().numpy())
+                                for x in (q, k, v)), "window", 256, kvl))
+    got = flash_attention_tc_mirror(q, k, v, "window", 256, kvl)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=4e-3,
+                               rtol=8e-3)
 
 
 @pytest.mark.parametrize("Sq,Sk,mk,w,kvl,bk", [
