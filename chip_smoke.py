@@ -10,9 +10,10 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
    ``gp_cov``, ``flash_attention`` — its float32 SIMT kernel and its
    bfloat16 tensor-core kernel in one library — and ``mamba_scan``), all
    ``nvcc`` processes started together; print the build seconds, the
-   ``-Xptxas -v`` report of the attention kernels (registers, shared
-   memory, spills) and, where ``cuobjdump`` is installed, the count of
-   ``HGMMA`` instructions in the attention library (none fails the run);
+   ``-Xptxas -v`` report of the attention and scan kernels (registers,
+   shared memory, spills; a scan kernel that spills fails the run) and,
+   where ``cuobjdump`` is installed, the count of ``HGMMA`` instructions in
+   the attention library (none fails the run);
 3. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at edge cases (exact equality for the integer
    dominance counts, max abs error <= 1e-5 for the covariance; for
@@ -20,9 +21,11 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
    2e-2 in bfloat16, atol and rtol, with bfloat16 at the serving shapes
    held to about one bf16 rounding, atol 4e-3 and rtol 8e-3, and every
    bfloat16 call counted as one tensor-core launch, every float32 call as
-   none; 1e-4 for the scan), timed with CUDA events beside the least time
-   the card could take (and, for attention, beside
-   ``scaled_dot_product_attention``);
+   none; 1e-4 for the scan, also with Hymba's A = -(1..16) and at ragged
+   shapes, and two calls bitwise equal), timed with CUDA events beside the
+   least time the card could take (and, for attention, beside
+   ``scaled_dot_product_attention``; for the scan, beside its floor on the
+   special-function units and with the split of its launch);
 4. the evaluator's golden metric vectors on the card (rtol 1e-4);
 5. the main path, cold: ``Session.submit`` of the default query on the
    paper's Fig. 4a transformer block — budget 2048, pop 64, ``ch_max=4``,
@@ -66,7 +69,8 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     launches); logits finite, a second run gives the same tokens; prefill
     seconds, decode ms per token, tokens/s, peak device memory, the device
     busy share and kernel count of one decode step, and the device-time
-    split of one prefill by kernel from ``torch.profiler``.
+    split of one prefill by kernel from ``torch.profiler``, with the scan's
+    device time per decode launch and in prefill.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -195,12 +199,20 @@ FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:90"
 
 # mamba_scan checks: (B, S, Di, Ds, tag); each with and without h0.  The
 # reference kernel test's MS_SHAPES, the Hymba prefill scan and a decode
-# step (S = 1, h0 carried)
+# step (S = 1, h0 carried), the prefill scan with Hymba's own A = -(1..16)
+# (``Mamba.reset``) in place of the random one, and ragged shapes that
+# cross the kernel's block of 32 / G channels and its 32-step tile (Ds 1,
+# 3 and 32: 4-byte copies, and four threads a channel)
 MS_PREFILL = (4, 1152, 3200, 16, "hymba prefill")
 MS_DECODE = (4, 1, 3200, 16, "hymba decode")
+MS_HYMBA_A = (4, 1152, 3200, 16, "hymba prefill, A = -(1..16)")
 MS_SHAPES = ((1, 16, 8, 4, "kernel test"), (2, 32, 16, 8, "kernel test"),
-             (1, 64, 32, 16, "kernel test"), MS_PREFILL, MS_DECODE)
+             (1, 64, 32, 16, "kernel test"), MS_PREFILL, MS_DECODE,
+             MS_HYMBA_A, (1, 5, 33, 16, "ragged"), (2, 37, 70, 3, "ragged"),
+             (1, 40, 64, 1, "ragged"), (3, 77, 130, 32, "ragged"))
 MS_TOL = 1e-4
+# special-function units per SM, each one exponential per clock
+SFU_PER_SM = 16
 
 # the LM serving slice (phases 10-11)
 HYMBA = "hymba-1.5b"
@@ -423,7 +435,30 @@ def ms_bound_ms(B, S, Di, Ds, with_h0: bool) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_mamba_scan() -> list:
+def ms_sfu_floor_ms(B, S, Di, Ds, split: dict, sm_clock_hz: float) -> dict:
+    """The scan's floor on the special-function units: one exponential per
+    (b, t, di, n) at SFU_PER_SM per SM per clock over the whole card, and
+    at the busiest SM sub-partition (a quarter of an SM, with a quarter of
+    its SFUs) of this launch, which holds at most ceil(warps of the
+    fullest SM / 4) warps of states_per_thread exponentials a step each,
+    at 32 / (SFU_PER_SM / 4) clocks a warp exponential."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    card = B * S * Di * Ds / (SFU_PER_SM * n_sm * sm_clock_hz) * 1e3
+    warps_per_block = split["threads_per_block"] // 32
+    most_blocks = -(-split["blocks"] // n_sm)
+    most_warps = -(-most_blocks * warps_per_block // 4)
+    busiest = (most_warps * split["states_per_thread"] * S
+               * 32 / (SFU_PER_SM // 4) / sm_clock_hz * 1e3)
+    return dict(card_ms=card, busiest_subpartition_ms=busiest,
+                sm_clock_hz=sm_clock_hz, sms=n_sm,
+                blocks_per_sm_most=most_blocks,
+                blocks_per_sm_mean=split["blocks"] / n_sm,
+                warps_per_subpartition_most=most_warps,
+                warps_per_subpartition_mean=split["blocks"]
+                * warps_per_block / (4 * n_sm))
+
+
+def check_mamba_scan(sm_clock_hz: float) -> list:
     gen = torch.Generator(device="cuda").manual_seed(3)
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     rows = []
@@ -432,6 +467,9 @@ def check_mamba_scan() -> list:
         for with_h0 in (False, True):
             u, dl = r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di))
             A = -torch.exp(r(Di, Ds) * 0.3)
+            if shape == MS_HYMBA_A:
+                A = -torch.arange(1, Ds + 1, dtype=torch.float32,
+                                  device="cuda").expand(Di, Ds).contiguous()
             Bc, Cc = r(B, S, Ds), r(B, S, Ds)
             h0 = r(B, Di, Ds) if with_h0 else None
             y, hT = ms_ops.selective_scan(u, dl, A, Bc, Cc, h0)
@@ -443,7 +481,12 @@ def check_mamba_scan() -> list:
                 err = max(err, float(diff.max()))
                 if not bool((diff <= MS_TOL + MS_TOL * want.abs()).all()):
                     fail(f"mamba_scan disagrees with its plain version at "
-                         f"{shape[:-1]}, h0 {with_h0}: max abs err {err}")
+                         f"{shape[:-1]} {tag}, h0 {with_h0}: max abs err "
+                         f"{err}")
+            y2, hT2 = ms_ops.selective_scan(u, dl, A, Bc, Cc, h0)
+            if not (torch.equal(y, y2) and torch.equal(hT, hT2)):
+                fail(f"mamba_scan is not deterministic at {shape[:-1]} {tag}"
+                     f", h0 {with_h0}: two calls differ")
             row = dict(shape=[B, S, Di, Ds], tag=tag, h0=with_h0,
                        max_abs_err=err, tolerance=MS_TOL)
             if shape in (MS_PREFILL, MS_DECODE) and with_h0 == (S == 1):
@@ -461,7 +504,19 @@ def check_mamba_scan() -> list:
                       f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
                       if "ms" in row else "")
             print(f"mamba_scan {shape[:-1]} {tag} h0={with_h0}: max abs err "
-                  f"{err:.3g} (tol {MS_TOL}){timing}")
+                  f"{err:.3g} (tol {MS_TOL}), deterministic{timing}")
+            if "ms" in row:
+                # the split and the SFU floor are computed from the shape
+                # and the card's max SM clock, not measured: printed beside
+                # the bound, not written to the kernels record
+                split = ms_ops.split(B, Di, Ds)
+                sfu = ms_sfu_floor_ms(B, S, Di, Ds, split, sm_clock_hz)
+                print(f"mamba_scan {shape[:-1]} SFU floor "
+                      f"{sfu['card_ms'] * 1e3:.3f} us (card) / "
+                      f"{sfu['busiest_subpartition_ms'] * 1e3:.3f} us "
+                      f"(busiest sub-partition) at max SM clock "
+                      f"{sm_clock_hz / 1e9:.3f} GHz; split "
+                      f"{json.dumps(split | sfu)}")
     # state threading: [0:S] in one call equals [0:S/2] then [S/2:S] from
     # the carried state (the decode-step invariant)
     B, S, Di, Ds = 2, 96, 200, 16
@@ -631,6 +686,19 @@ def hymba_serve() -> dict:
     print(f"hymba prefill: under the profiler {pre_s * 1e3:.3f} ms device "
           f"time = {out['prefill_busy_share']:.1%} of run 2's prefill wall,"
           f" {pre_n} kernels; split {json.dumps(out['prefill_split'])}")
+    scan_dec = out["decode_step_split"]["mamba_scan"]
+    scan_pre = out["prefill_split"]["mamba_scan"]
+    if scan_dec["count"] != cfg.n_layers or scan_pre["count"] != cfg.n_layers:
+        fail(f"the profiler saw {scan_dec['count']} scan kernels in a decode "
+             f"step and {scan_pre['count']} in prefill, expected "
+             f"{cfg.n_layers} each")
+    out.update(scan_decode_device_ms=scan_dec["s"] / scan_dec["count"] * 1e3,
+               scan_prefill_device_ms=scan_pre["s"] * 1e3)
+    print(f"hymba scan: {out['scan_decode_device_ms'] * 1e3:.3f} us of "
+          f"device time per decode launch ({scan_dec['count']} in a step), "
+          f"{out['scan_prefill_device_ms']:.3f} ms in prefill "
+          f"({scan_pre['count']} launches, {scan_pre['share']:.1%} of its "
+          f"device time)")
     attn = out["prefill_split"]["flash_attention_tc"]
     print(f"hymba prefill attention: {attn['count']} tensor-core launches, "
           f"{attn['s'] * 1e3:.3f} ms = {attn['share']:.1%} of prefill device "
@@ -638,24 +706,31 @@ def hymba_serve() -> dict:
     return out
 
 
-def attention_build_report(lib: Path) -> dict:
-    """Registers, static shared memory and spills of each attention kernel
-    from the ``-Xptxas -v`` log kept beside the library, and the count of
-    ``HGMMA`` (wgmma) instructions in the library's SASS where
-    ``cuobjdump`` is installed; fails if the tensor-core kernel has
-    none."""
+def ptxas_report(lib: Path, kernel_re: str) -> dict:
+    """Registers, static shared memory and spills of each kernel whose
+    mangled name ``kernel_re`` matches (group 1 the name, the others its
+    template arguments), from the ``-Xptxas -v`` log kept beside the
+    library."""
     log = lib.with_suffix(".log").read_text()
     kernels = {}
     for chunk in log.split("Compiling entry function")[1:]:
-        name = re.search(r"(attn_fwd(?:_wgmma)?_kernel)ILi(\d+)E", chunk)
+        name = re.search(kernel_re, chunk)
         if name is None:
             continue
         num = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
-        kernels[f"{name[1]}<{name[2]}>"] = dict(
+        kernels[f"{name[1]}<{','.join(name.groups()[1:])}>"] = dict(
             registers=num(r"Used (\d+) registers"),
             static_smem_bytes=num(r"(\d+) bytes smem"),
             spill_stores=num(r"(\d+) bytes spill stores"),
             spill_loads=num(r"(\d+) bytes spill loads"))
+    return kernels
+
+
+def attention_build_report(lib: Path) -> dict:
+    """The attention kernels' ``ptxas_report`` and the count of ``HGMMA``
+    (wgmma) instructions in the library's SASS where ``cuobjdump`` is
+    installed; fails if the tensor-core kernel has none."""
+    kernels = ptxas_report(lib, r"(attn_fwd(?:_wgmma)?_kernel)ILi(\d+)E")
     out = dict(kernels=kernels, hgmma="not checked (no cuobjdump)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(tool).is_file():
@@ -667,6 +742,21 @@ def attention_build_report(lib: Path) -> dict:
     print(f"flash_attention build: {json.dumps(kernels)}; HGMMA "
           f"instructions in the SASS: {out['hgmma']}")
     return out
+
+
+def scan_build_report(lib: Path) -> dict:
+    """The scan kernels' ``ptxas_report`` (one instantiation per state-size
+    class: states a thread, threads a channel, steps ahead); fails if one
+    spills."""
+    kernels = ptxas_report(lib, r"(scan_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E")
+    if not kernels:
+        fail("the mamba_scan build log names no scan_kernel")
+    spills = {k: v for k, v in kernels.items()
+              if v["spill_stores"] or v["spill_loads"]}
+    if spills:
+        fail(f"mamba_scan kernels spill registers: {json.dumps(spills)}")
+    print(f"mamba_scan build: {json.dumps(kernels)}")
+    return kernels
 
 
 def golden_design(spec):
@@ -1011,8 +1101,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}); nvidia-smi: {smi}")
+          f"{torch.version.cuda}); nvidia-smi: {smi}; max SM clock "
+          f"{sm_clock_hz / 1e6:.0f} MHz")
 
     # ---- 2. build every kernel, one nvcc each, all started together -------
     t0 = time.perf_counter()
@@ -1023,12 +1118,13 @@ def main():
                 [(n, pool.submit(b)) for n, b in builds.items()]}
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     fa_build = attention_build_report(libs["flash_attention"])
+    ms_build = scan_build_report(libs["mamba_scan"])
 
     # ---- 3. kernels against their plain versions ---------------------------
     pareto_rows = check_pareto_rank()
     gp_rows = check_gp_cov()
     fa_rows = check_flash_attention()
-    ms_rows = check_mamba_scan()
+    ms_rows = check_mamba_scan(sm_clock_hz)
 
     # ---- 4. evaluator golden vectors --------------------------------------
     check_golden()
@@ -1156,8 +1252,10 @@ def main():
         ms=ms_main["ms"], plain_ms=ms_main["plain_ms"],
         bound_ms=ms_main["bound_ms"], bound_by=ms_main["bound_by"],
         library_ms=None, tolerance=MS_TOL, decode_ms=ms_dec["ms"],
-        decode_plain_ms=ms_dec["plain_ms"],
-        decode_bound_ms=ms_dec["bound_ms"], shapes=ms_rows)
+        decode_plain_ms=ms_dec["plain_ms"], decode_bound_ms=ms_dec["bound_ms"],
+        decode_device_ms_per_launch=served.get("scan_decode_device_ms"),
+        prefill_device_ms=served.get("scan_prefill_device_ms"),
+        build=ms_build, shapes=ms_rows)
     print(json.dumps({"kernels": [record, gp_record, fa_record,
                                   fa_f32_record, ms_record]}))
     print(smi)

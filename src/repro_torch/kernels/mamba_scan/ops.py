@@ -6,7 +6,8 @@ with ``ctypes``) or raises: there is no fallback.  The wrapper checks
 device, dtype (float32 only, as the reference scan runs), shapes and
 contiguity and raises on anything the kernel does not take (state size up
 to 32).  ``selective_scan.launches`` counts kernel launches (and nothing
-else), so a run can show that it went through the kernel.
+else), so a run can show that it went through the kernel.  ``split``
+reports how the kernel divides a shape over the card.
 """
 
 from __future__ import annotations
@@ -32,11 +33,25 @@ def build() -> Path:
 @lru_cache(maxsize=1)
 def _lib():
     lib = ctypes.CDLL(str(build()))
-    fn = lib.mamba_selective_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.mamba_selective_scan.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.mamba_selective_scan.restype = ctypes.c_int
+    lib.mamba_scan_split.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.mamba_scan_split.restype = ctypes.c_int
+    return lib
+
+
+def split(B: int, Di: int, Ds: int) -> dict:
+    """How the kernel splits a (B, ., Di) scan with state size Ds over the
+    card: threads a channel (G), states a thread, threads and blocks of
+    the launch, and blocks one SM can hold at once."""
+    out = (ctypes.c_int * 5)()
+    rc = _lib().mamba_scan_split(B, Di, Ds, out)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan_split failed: CUDA error {rc}")
+    keys = ("threads_per_channel", "states_per_thread", "threads_per_block",
+            "blocks", "blocks_per_sm_max_resident")
+    return dict(zip(keys, out))
 
 
 def _check_shapes(u, delta, A, Bc, Cc, h0):
@@ -85,7 +100,7 @@ def selective_scan(u, delta, A, Bc, Cc, h0=None):
     hT = torch.empty((B, Di, Ds), dtype=torch.float32, device=dev)
     if hT.numel() == 0:
         return y, hT
-    fn = _lib()
+    fn = _lib().mamba_selective_scan
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bc.data_ptr(),

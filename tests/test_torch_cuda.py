@@ -229,17 +229,26 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 # mamba_scan: the reference kernel test's MS_SHAPES (B, S, Di, Ds), the
-# Hymba prefill shape and its decode step
+# Hymba prefill shape and its decode step, and ragged shapes that cross the
+# kernel's block of 32 / G channels and its 32-step tile (Ds 1 and 3:
+# 4-byte copies and padded states; Ds 32: four threads a channel)
 MS_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 8), (1, 64, 32, 16),
-             (4, 1152, 3200, 16), (4, 1, 3200, 16), (3, 77, 130, 32)]
+             (4, 1152, 3200, 16), (4, 1, 3200, 16), (3, 77, 130, 32),
+             (1, 5, 33, 16), (2, 37, 70, 3), (1, 40, 64, 1)]
+MS_PREFILL = (4, 1152, 3200, 16)
 
 
-def _scan_inputs(B, S, Di, Ds, dev, seed):
+def _scan_inputs(B, S, Di, Ds, dev, seed, hymba_a=False):
+    """Seeded inputs; ``hymba_a`` gives Hymba's own A = -(1..Ds) for every
+    channel (``Mamba.reset``) in place of a random one."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    return (r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di)),
-            -torch.exp(r(Di, Ds) * 0.3), r(B, S, Ds), r(B, S, Ds),
-            r(B, Di, Ds))
+    u, dl = r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di))
+    A = -torch.exp(r(Di, Ds) * 0.3)
+    if hymba_a:
+        A = -torch.arange(1, Ds + 1, dtype=torch.float32,
+                          device=dev).expand(Di, Ds).contiguous()
+    return u, dl, A, r(B, S, Ds), r(B, S, Ds), r(B, Di, Ds)
 
 
 @pytest.mark.parametrize("B,S,Di,Ds", MS_SHAPES)
@@ -256,6 +265,46 @@ def test_mamba_scan_kernel_matches_plain(cuda, B, S, Di, Ds, with_h0):
     yr, hr = selective_scan_ref(u, dl, A, Bc, Cc, h0)
     torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(hT, hr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_kernel_matches_plain_with_hymba_A(cuda, with_h0):
+    """The prefill shape with Hymba's A = -(1..16): decays down to
+    exp(-16 delta), through the kernel's ex2.approx."""
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+    u, dl, A, Bc, Cc, h0 = _scan_inputs(*MS_PREFILL, cuda, 11, hymba_a=True)
+    h0 = h0 if with_h0 else None
+    y, hT = ops.selective_scan(u, dl, A, Bc, Cc, h0)
+    torch.cuda.synchronize()
+    yr, hr = selective_scan_ref(u, dl, A, Bc, Cc, h0)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hT, hr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,Di,Ds", [MS_PREFILL, (4, 1, 3200, 16),
+                                       (2, 37, 70, 3)])
+def test_mamba_scan_kernel_is_deterministic(cuda, B, S, Di, Ds):
+    """Two calls on the same inputs give bitwise-equal y and h_T (no
+    atomics, a fixed order of every sum)."""
+    from repro_torch.kernels.mamba_scan import ops
+    u, dl, A, Bc, Cc, h0 = _scan_inputs(B, S, Di, Ds, cuda, 12)
+    y1, h1 = ops.selective_scan(u, dl, A, Bc, Cc, h0)
+    y2, h2 = ops.selective_scan(u, dl, A, Bc, Cc, h0)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_mamba_scan_split_reports_the_launch(cuda):
+    """At the Hymba shapes: two threads a channel of 8 states each, one-warp
+    blocks of 16 channels, so 800 blocks for 4 x 3200 channels."""
+    from repro_torch.kernels.mamba_scan import ops
+    got = ops.split(4, 3200, 16)
+    assert {k: got[k] for k in ("threads_per_channel", "states_per_thread",
+                                "threads_per_block", "blocks")} == dict(
+        threads_per_channel=2, states_per_thread=8, threads_per_block=32,
+        blocks=800)
+    assert got["blocks_per_sm_max_resident"] >= 7
+    assert ops.split(1, 33, 3)["threads_per_channel"] == 1
 
 
 def test_mamba_scan_kernel_threads_its_state(cuda):

@@ -2,9 +2,9 @@
 against the JAX reference on the same numpy inputs: the wrapper's CPU path
 (the plain sequential loop) against the reference's ``selective_scan_ref``
 and its Pallas kernel in interpret mode, at the reference kernel test's
-shapes with and without h0, plus the state-threading invariant.  The CUDA
-kernel is held against the plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+shapes with and without h0, with a random A and with Hymba's own, plus the
+state-threading invariant.  The CUDA kernel is held against the plain
+version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,20 +21,27 @@ MS_SHAPES = [(1, 16, 8, 4, 8), (2, 32, 16, 8, 8), (1, 64, 32, 16, 16)]
 TOL = 1e-4      # the reference kernel test's: float32 sums in another order
 
 
-def _inputs(B, S, Di, Ds, seed=0):
+def _inputs(B, S, Di, Ds, seed=0, hymba_a=False):
+    """Seeded inputs; ``hymba_a`` gives Hymba's own A = -(1..Ds) for every
+    channel (``Mamba.reset``) in place of a random one."""
     rng = np.random.default_rng(seed)
     n = lambda *s: rng.standard_normal(s).astype(np.float32)
+    A = (-np.exp(n(Di, Ds) * 0.3)).astype(np.float32)
+    if hymba_a:
+        A = -np.broadcast_to(np.arange(1, Ds + 1, dtype=np.float32),
+                             (Di, Ds)).copy()
     return dict(u=n(B, S, Di),
                 delta=np.log1p(np.exp(n(B, S, Di))).astype(np.float32),
-                A=(-np.exp(n(Di, Ds) * 0.3)).astype(np.float32),
-                Bc=n(B, S, Ds), Cc=n(B, S, Ds), h0=n(B, Di, Ds))
+                A=A, Bc=n(B, S, Ds), Cc=n(B, S, Ds), h0=n(B, Di, Ds))
 
 
 @pytest.mark.parametrize("B,S,Di,Ds,chunk", MS_SHAPES)
 @pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("hymba_a", [False, True])
 def test_port_matches_reference_oracle_and_pallas_kernel(B, S, Di, Ds,
-                                                         chunk, with_h0):
-    x = _inputs(B, S, Di, Ds)
+                                                         chunk, with_h0,
+                                                         hymba_a):
+    x = _inputs(B, S, Di, Ds, hymba_a=hymba_a)
     if not with_h0:
         x["h0"] = None
     jx = {k: None if v is None else jnp.asarray(v) for k, v in x.items()}
