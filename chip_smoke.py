@@ -11,7 +11,9 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
    bfloat16 tensor-core kernel in one library — and ``mamba_scan``), all
    ``nvcc`` processes started together; print the build seconds, the
    ``-Xptxas -v`` report of the attention and scan kernels (registers,
-   shared memory, spills; a scan kernel that spills fails the run) and,
+   shared memory, spills, per instantiation: the attention kernels' padded
+   head dims (PD, PV), 192 / 128 for MLA; a scan kernel that spills fails
+   the run) and,
    where ``cuobjdump`` is installed, the count of ``HGMMA`` instructions in
    the attention library (none fails the run);
 3. hold each kernel against its plain PyTorch version on the card, at the
@@ -24,8 +26,13 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
    none; 1e-4 for the scan, also with Hymba's A = -(1..16) and at ragged
    shapes, and two calls bitwise equal), timed with CUDA events beside the
    least time the card could take (and, for attention, beside
-   ``scaled_dot_product_attention``; for the scan, beside its floor on the
-   special-function units and with the split of its launch);
+   ``scaled_dot_product_attention``, also at MLA's head dims D 192 / Dv
+   128; for the scan, beside its floor on the special-function units and
+   with the split of its launch; for ``pareto_rank`` — also on pools with
+   NaN and +-inf objectives — and ``gp_cov``, the device time per launch
+   from ``torch.profiler`` beside the wrapper's time per call, and an
+   issue floor: the instructions a pair needs over the card's FP32 lanes
+   at the max SM clock);
 4. the evaluator's golden metric vectors on the card (rtol 1e-4);
 5. the main path, cold: ``Session.submit`` of the default query on the
    paper's Fig. 4a transformer block — budget 2048, pop 64, ``ch_max=4``,
@@ -141,11 +148,26 @@ GOLDEN = {
 
 # pareto_rank checks: (n, k, valid fraction, tag); the first three are the
 # main path's pools (NSGA selection over 2 x pop, the per-generation front
-# telemetry over pop, archive insert over capacity + pop x chunk)
+# telemetry over pop, archive insert over capacity + pop x chunk).  The
+# others cross the kernel's edges: its 128-row j tiles, its chunks of
+# dominator rows (at least 64 rows, at most 8 a cluster) and the staged
+# tiles' rounding to 4 rows; "nan/inf" pools hold NaN, +inf and -inf
+# objectives (ties among them too)
 PARETO_SHAPES = ((128, 2, 1.0, "selection"), (64, 2, 0.9, "telemetry"),
                  (768, 4, 1.0, "archive insert"),
                  (190, 3, 0.9, "ragged"), (8192, 4, 0.8, "large, ties"),
-                 (256, 4, 0.0, "all invalid"))
+                 (256, 4, 0.0, "all invalid"),
+                 (768, 4, 0.9, "nan/inf"), (4099, 2, 0.9, "nan/inf, large"),
+                 (300, 3, 0.0, "nan/inf, all invalid"),
+                 (1, 1, 1.0, "one row"), (65, 1, 0.7, "two chunks"),
+                 (129, 4, 0.9, "j tile edge"), (513, 3, 0.9, "chunk edge"))
+
+
+def pareto_instructions(k: int) -> int:
+    """Instructions a pair on the kernel's path for finite tiles: k
+    subtracts, k // 2 three-way ORs, a decrement and an add."""
+    return k + k // 2 + 2
+
 
 # gp_cov checks: (n, m, d, tag).  The BO engine builds K(X, X) and K(Z, X)
 # for 512 candidates Z against the n <= n_init + n_iter - 1 observations X:
@@ -160,9 +182,16 @@ GP_SHAPES = ((16, 16, 4, "kernel test"), (32, 24, 7, "kernel test"),
              (5, 5, 2, "two_stage 2 K(X, X)"),
              (512, 5, 2, "two_stage 2 K(Z, X)"),
              (190, 130, 7, "ragged"), (64, 48, 1, "d = 1"),
+             (100, 64, 62, "thin tile edge"), (513, 65, 62, "wide, m 65"),
+             (130, 129, 33, "128 tile edge"), (256, 132, 62, "16-byte stores"),
              (4096, 4096, 62, "large"))
 GP_LENGTHSCALES = (0.1, 0.3, 0.5, 2.0)
 GP_TOL = 1e-5
+# issue floor: a subtract and an FMA per feature, and an epilogue of about
+# 25 instructions (square root, scale, exponential, polynomial) per pair
+GP_EPILOGUE_INSTRUCTIONS = 25
+# FP32 lanes of an SM
+LANES_PER_SM = 128
 
 # the README's quickstart query (examples/quickstart.py)
 QUICK_OPTS = dict(n_init=4, n_iter=8)
@@ -187,8 +216,20 @@ FA_SHAPES = ((1, 32, 32, 4, 4, 16, 16, "causal", 0, None, "kernel test"),
              (2, 96, 160, 4, 1, 16, 64, "window", 48, 150, "Dv != D"),
              FA_PREFILL,
              (1, 1000, 1000, 25, 5, 64, 64, "window", 1024, None, "ragged"),
-             (2, 200, 333, 25, 5, 64, 64, "causal", 0, 317, "kv_valid_len"))
-FA_SERVE_TAGS = ("hymba prefill", "ragged", "kv_valid_len")
+             (2, 200, 333, 25, 5, 64, 64, "causal", 0, 317, "kv_valid_len"),
+             (1, 64, 64, 4, 4, 192, 128, "causal", 0, None, "MLA"),
+             (1, 64, 128, 4, 4, 192, 128, "causal", 0, 100,
+              "MLA kv_valid_len"),
+             (1, 512, 512, 128, 128, 192, 128, "causal", 0, None,
+              "deepseek-v2 width"),
+             (1, 1024, 1024, 32, 8, 128, 128, "causal", 0, None,
+              "head dim 128"))
+# held to the serving tolerance (bf16) and timed
+FA_SERVE_TAGS = ("hymba prefill", "ragged", "kv_valid_len",
+                 "deepseek-v2 width")
+# MLA's head dims (DeepSeek-V2: q/k 128 + 64 rope, v 128) and a head dim
+# of 128 (32 query heads over 8 KV heads), timed too
+FA_TIMED_TAGS = FA_SERVE_TAGS + ("MLA", "MLA kv_valid_len", "head dim 128")
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bfloat16 at the serving shapes: about one bf16 rounding of the output
 # (atol, rtol), since 2e-2 is ~40% of a typical |out| there, where each
@@ -249,14 +290,55 @@ def pareto_bound_ms(n: int, k: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_pareto_rank() -> list:
+def issue_floor_ms(pairs: int, instructions_per_pair: int,
+                   sm_clock_hz: float) -> float:
+    """Least time to issue ``instructions_per_pair`` instructions for each
+    of ``pairs`` pairs on every SM's LANES_PER_SM lanes at the max SM clock
+    (a floor beside the bound, computed from the shape)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return (pairs * instructions_per_pair
+            / (n_sm * LANES_PER_SM * sm_clock_hz) * 1e3)
+
+
+def device_ms_per_launch(fn, kernel_name: str, calls: int = 20):
+    """Mean device milliseconds per launch of the kernel whose name holds
+    ``kernel_name``, over the launches torch.profiler records in ``calls``
+    calls of ``fn`` (it may drop a record: the launch count itself is the
+    wrappers' counter's job); None when the profiler sees no device
+    events.  Fails if it sees device events but none of this kernel."""
+    fn()
+    torch.cuda.synchronize()
+    by_name = device_by_kernel(lambda: [fn() for _ in range(calls)])[2]
+    if not by_name:
+        return None
+    hits = [v for key, v in by_name.items() if kernel_name in key]
+    launches = sum(c for _, c in hits)
+    if launches == 0:
+        fail(f"the profiler saw no {kernel_name} launch in {calls} calls")
+    return sum(t for t, _ in hits) / launches * 1e3
+
+
+def pareto_pool(n: int, k: int, frac: float, tag: str, gen):
+    """A seeded pool with exact ties; "nan/inf" pools also hold NaN, +inf
+    and -inf objectives, and ties among those rows."""
+    objs = torch.randn(n, k, generator=gen, device="cuda")
+    dup = min(16, n // 4)
+    objs[n // 2:n // 2 + dup] = objs[:dup]          # exact ties
+    if "nan/inf" in tag:
+        pick = torch.rand(n, k, generator=gen, device="cuda")
+        objs[pick < 0.05] = float("nan")
+        objs[(pick >= 0.05) & (pick < 0.1)] = float("inf")
+        objs[(pick >= 0.1) & (pick < 0.15)] = -float("inf")
+        objs[n // 4:n // 4 + dup] = objs[:dup]
+    valid = torch.rand(n, generator=gen, device="cuda") < frac
+    return objs, valid
+
+
+def check_pareto_rank(sm_clock_hz: float) -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for n, k, frac, tag in PARETO_SHAPES:
-        objs = torch.randn(n, k, generator=gen, device="cuda")
-        dup = min(16, n // 4)
-        objs[n // 2:n // 2 + dup] = objs[:dup]      # exact ties
-        valid = torch.rand(n, generator=gen, device="cuda") < frac
+        objs, valid = pareto_pool(n, k, frac, tag, gen)
         got = pareto_ops.dominance_counts(objs, valid)
         torch.cuda.synchronize()
         want = dominance_counts_ref(objs, valid)
@@ -267,17 +349,26 @@ def check_pareto_rank() -> list:
         if frac == 0.0 and int(got.sum()) != 0:
             fail("pareto_rank counted dominators in an all-invalid pool")
         iters = 200 if n <= 1024 else 50
-        k_ms = cuda_ms(lambda: pareto_ops.dominance_counts(objs, valid),
-                       iters)
+        call = lambda: pareto_ops.dominance_counts(objs, valid)
+        k_ms = cuda_ms(call, iters)
+        dev_ms = device_ms_per_launch(call, "rank_kernel")
         p_ms = cuda_ms(lambda: dominance_counts_ref(objs, valid),
                        max(iters // 4, 10))
         b_ms, b_by = pareto_bound_ms(n, k)
         rows.append(dict(n=n, k=k, valid_frac=frac, tag=tag, exact=True,
-                         max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=b_ms, bound_by=b_by))
-        print(f"pareto_rank ({n}, {k}) {tag}: exact, kernel {k_ms * 1e3:.2f}"
-              f" us, plain {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us "
+                         max_abs_err=err, ms=k_ms, device_ms=dev_ms,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+        dev = ("not measured" if dev_ms is None
+               else f"{dev_ms * 1e3:.3f} us")
+        print(f"pareto_rank ({n}, {k}) {tag}: exact, wrapper "
+              f"{k_ms * 1e3:.2f} us per call, device {dev} per launch, "
+              f"plain {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us "
               f"({b_by})")
+        per_pair = pareto_instructions(k)
+        floor_ms = issue_floor_ms(n * n, per_pair, sm_clock_hz)
+        print(f"pareto_rank ({n}, {k}) issue floor {floor_ms * 1e3:.4f} us "
+              f"({per_pair} instructions a pair at "
+              f"{sm_clock_hz / 1e9:.3f} GHz)")
     return rows
 
 
@@ -290,7 +381,7 @@ def gp_bound_ms(n: int, m: int, d: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_gp_cov() -> list:
+def check_gp_cov(sm_clock_hz: float) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for n, m, d, tag in GP_SHAPES:
@@ -307,16 +398,26 @@ def check_gp_cov() -> list:
                      f" {d}), lengthscale {ls}: max abs err {e}")
             err = max(err, e)
         iters = 200 if n * m <= 1 << 20 else 20
-        k_ms = cuda_ms(lambda: gp_ops.matern52(x1, x2, 0.3), iters)
+        call = lambda: gp_ops.matern52(x1, x2, 0.3)
+        k_ms = cuda_ms(call, iters)
+        dev_ms = device_ms_per_launch(call, "matern52_kernel")
         p_ms = cuda_ms(lambda: matern52_ref(x1, x2, 0.3),
                        max(iters // 4, 5))
         b_ms, b_by = gp_bound_ms(n, m, d)
         rows.append(dict(n=n, m=m, d=d, tag=tag, max_abs_err=err, ms=k_ms,
-                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+                         device_ms=dev_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        dev = ("not measured" if dev_ms is None
+               else f"{dev_ms * 1e3:.3f} us")
         print(f"gp_cov ({n}, {m}, {d}) {tag}: max abs err {err:.3g} over "
-              f"lengthscales {GP_LENGTHSCALES}, kernel {k_ms * 1e3:.2f} us, "
-              f"plain {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us "
-              f"({b_by})")
+              f"lengthscales {GP_LENGTHSCALES}, wrapper {k_ms * 1e3:.2f} us "
+              f"per call, device {dev} per launch, plain "
+              f"{p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us ({b_by})")
+        per_pair = 2 * d + GP_EPILOGUE_INSTRUCTIONS
+        print(f"gp_cov ({n}, {m}, {d}) issue floor "
+              f"{issue_floor_ms(n * m, per_pair, sm_clock_hz) * 1e3:.4f} us "
+              f"({per_pair} instructions a pair at "
+              f"{sm_clock_hz / 1e9:.3f} GHz)")
     return rows
 
 
@@ -377,7 +478,7 @@ def check_flash_attention() -> list:
                      f"rtol {rtol})")
             row = dict(shape=list(shape[:-1]), tag=tag, dtype=str(dt),
                        max_abs_err=err, tolerance=tol, atol=atol, rtol=rtol)
-            if serve:
+            if tag in FA_TIMED_TAGS:
                 row.update(time_attention(q, k, v, mask, w, kvl))
             rows.append(row)
             timing = (f", kernel {row['ms'] * 1e3:.2f} us, plain "
@@ -730,7 +831,8 @@ def attention_build_report(lib: Path) -> dict:
     """The attention kernels' ``ptxas_report`` and the count of ``HGMMA``
     (wgmma) instructions in the library's SASS where ``cuobjdump`` is
     installed; fails if the tensor-core kernel has none."""
-    kernels = ptxas_report(lib, r"(attn_fwd(?:_wgmma)?_kernel)ILi(\d+)E")
+    kernels = ptxas_report(lib,
+                           r"(attn_fwd(?:_wgmma)?_kernel)ILi(\d+)ELi(\d+)E")
     out = dict(kernels=kernels, hgmma="not checked (no cuobjdump)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(tool).is_file():
@@ -739,8 +841,25 @@ def attention_build_report(lib: Path) -> dict:
         out["hgmma"] = sass.count("HGMMA")
         if out["hgmma"] == 0:
             fail("the flash_attention library holds no HGMMA instruction")
+    for name in ("attn_fwd_kernel<192,128>", "attn_fwd_wgmma_kernel<192,128>"):
+        if name not in kernels:
+            fail(f"the flash_attention build log names no {name} (MLA's "
+                 f"head dims)")
     print(f"flash_attention build: {json.dumps(kernels)}; HGMMA "
           f"instructions in the SASS: {out['hgmma']}")
+    return out
+
+
+def small_build_report(libs: dict) -> dict:
+    """The ``ptxas_report`` of the pareto_rank and gp_cov kernels (one
+    instantiation per objective count, and per gp_cov tile shape)."""
+    out = dict(pareto_rank=ptxas_report(libs["pareto_rank"],
+                                        r"(rank_kernel)ILi(\d+)E"),
+               gp_cov=ptxas_report(
+                   libs["gp_cov"],
+                   r"(matern52_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi"
+                   r"(\d+)E"))
+    print(f"pareto_rank and gp_cov build: {json.dumps(out)}")
     return out
 
 
@@ -1119,10 +1238,11 @@ def main():
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     fa_build = attention_build_report(libs["flash_attention"])
     ms_build = scan_build_report(libs["mamba_scan"])
+    small_build = small_build_report(libs)
 
     # ---- 3. kernels against their plain versions ---------------------------
-    pareto_rows = check_pareto_rank()
-    gp_rows = check_gp_cov()
+    pareto_rows = check_pareto_rank(sm_clock_hz)
+    gp_rows = check_gp_cov(sm_clock_hz)
     fa_rows = check_flash_attention()
     ms_rows = check_mamba_scan(sm_clock_hz)
 
@@ -1195,6 +1315,8 @@ def main():
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=None, exact=True,
+        device_ms_per_launch=main_row["device_ms"],
+        build=small_build["pareto_rank"],
         kernel_us=main_row["ms"] * 1e3, plain_us=main_row["plain_ms"] * 1e3,
         bound_us=main_row["bound_ms"] * 1e3, shapes=pareto_rows,
         main_path=dict(cold_s=cold_s, warm_s=warm_s,
@@ -1212,7 +1334,9 @@ def main():
         max_abs_err=max(r["max_abs_err"] for r in gp_rows),
         ms=gp_main["ms"], plain_ms=gp_main["plain_ms"],
         bound_ms=gp_main["bound_ms"], bound_by=gp_main["bound_by"],
-        library_ms=None, tolerance=GP_TOL, shapes=gp_rows,
+        library_ms=None, tolerance=GP_TOL,
+        device_ms_per_launch=gp_main["device_ms"],
+        build=small_build["gp_cov"], shapes=gp_rows,
         main_path=dict(quickstart=quick, two_stage=staged))
     def fa_rows_of(dt):
         return [r for r in fa_rows if r["dtype"] == str(dt)]

@@ -10,7 +10,8 @@
 // repeated in memory); masks "causal" (k <= q), "window" (k <= q and
 // q - k < window) or "none", plus k < kv_valid_len, with the queries at
 // absolute positions q_offset + i.  D and Dv must be multiples of 8 (rows
-// of 16-byte chunks) and at most 128.
+// of 16-byte chunks); D at most 192 (MLA's 128 + 64 rope dims), Dv at most
+// 128.
 //
 // What bounds it on the H100: 4 D operations per visible (q, k) pair per
 // (b, h) at 989 TFLOP/s against q, k, v read once and out written once at
@@ -32,8 +33,13 @@
 // sit in shared memory under the 128-byte swizzle that wgmma's descriptors
 // name: 128-byte rows, 16-byte chunk c of row r stored at chunk c ^ (r % 8),
 // 64-element column blocks one after another; head dims are zero-filled up
-// to a class P in {64, 128} (max of D and Dv), so D = 8 or 16 and D != Dv
-// run on the same two instantiations.  K/V tiles arrive through a ring of
+// to a class (PD, PV) in {(64, 64), (128, 128), (192, 128)}: PD pads D for
+// Q and K, PV pads Dv for V and O, so D = 8 or 16 and D != Dv run on the
+// same instantiations.  At PD = 192 (MLA: D = 192, Dv = 128) S is 12 k16
+// steps over three swizzled 64-column blocks of Q and K, O stays m64n128,
+// and shared memory holds Q (48 KB), four K stages (96 KB) and four V
+// stages (64 KB), 209 KB with the alignment slack: one block an SM, as
+// at (128, 128).  K/V tiles arrive through a ring of
 // four stages filled with 16-byte cp.async copies: a tensor map cannot
 // describe every (B, Sk, KV, D) stride and zero-fill rule used here, and
 // cp.async writes the same swizzled layout, zero-filling keys past
@@ -49,9 +55,9 @@
 // pipelining); O is rescaled once P V has landed.  Every wgmma is issued
 // by the whole warpgroup on every tile with no branch around it — under a
 // per-warpgroup branch ptxas serializes them all (its warning C7520) — so
-// a tile a warpgroup cannot see is computed and masked to nothing.  Two blocks fit an SM (<= 128 registers
-// a thread, 81 KB of shared memory), so four warpgroups share its tensor
-// cores and SFUs.
+// a tile a warpgroup cannot see is computed and masked to nothing.  At
+// (64, 64) two blocks fit an SM (<= 128 registers a thread, 81 KB of
+// shared memory), so four warpgroups share its tensor cores and SFUs.
 //
 // Softmax.  Each thread holds two query rows' scores in the accumulator
 // layout (rows 16 w + lane / 4 and + 8, two adjacent columns of each
@@ -260,7 +266,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows [first, first + ROWS) of a bf16 array with `stride` elements between
 // rows, `width` elements each, into a swizzled tile; rows at or past
-// `n_valid` and columns at or past `width` (up to P) are zero-filled.
+// `n_valid` and columns at or past `width` (up to P) are zero-filled.  P is
+// the padded width of the array: PD for Q and K, PV for V.
 template <int P, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
                                           size_t stride, int first,
@@ -291,17 +298,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // S = Q K^T for one warpgroup's 64 rows and one K tile, issued (async):
-// P / 16 steps of 16 along the head dim.  Its wgmma.fence orders every
-// register write before it (s here, O and P by the caller) before the
-// products that read those registers.
-template <int P>
+// PD / 16 steps of 16 along the head dim, four to a 64-column block.  Its
+// wgmma.fence orders every register write before it (s here, O and P by
+// the caller) before the products that read those registers.
+template <int PD>
 __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], uint32_t q_rows,
                                          uint32_t k_tile) {
 #pragma unroll
   for (int i = 0; i < kBK / 2; ++i) s[i] = 0.0f;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < P / 16; ++kk) {
+  for (int kk = 0; kk < PD / 16; ++kk) {
     const uint32_t qa = q_rows + (kk / 4) * (kBQ * 128) + (kk % 4) * 32;
     const uint32_t ka = k_tile + (kk / 4) * (kBK * 128) + (kk % 4) * 32;
     wgmma_ss<kBK>(s, smem_desc(qa, 16, 1024), smem_desc(ka, 16, 1024),
@@ -311,13 +318,13 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], uint32_t q_rows,
 }
 
 // O += P V for one V tile, issued (async): kBK / 16 steps of 16 keys.
-template <int P>
-__device__ __forceinline__ void issue_pv(float (&o)[P / 2],
+template <int PV>
+__device__ __forceinline__ void issue_pv(float (&o)[PV / 2],
                                          const uint32_t (&a)[kBK / 16][4],
                                          uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs<P>(o, a[kk], smem_desc(v_tile + kk * 16 * 128, kBK * 128, 1024));
+    wgmma_rs<PV>(o, a[kk], smem_desc(v_tile + kk * 16 * 128, kBK * 128, 1024));
   wgmma_commit();
 }
 
@@ -388,15 +395,16 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-template <int P>
-__global__ void __launch_bounds__(kThreads, P <= 64 ? 2 : 1)
+template <int PD, int PV>
+__global__ void __launch_bounds__(kThreads, PD <= 64 && PV <= 64 ? 2 : 1)
 attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       int Sq, int Sk, int H, int KV, int D, int Dv,
                       float scale_log2, int mask_kind, int window,
                       int valid_len, int q_offset) {
-  constexpr int kQBytes = (P / 64) * kBQ * 128;
-  constexpr int kKVBytes = (P / 64) * kBK * 128;
+  constexpr int kQBytes = (PD / 64) * kBQ * 128;
+  constexpr int kKBytes = (PD / 64) * kBK * 128;
+  constexpr int kVBytes = (PV / 64) * kBK * 128;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s_q =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) &
@@ -434,25 +442,25 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (static_cast<size_t>(b) * Sk * KV + kvh) * D;
   const bf16* vb = v + (static_cast<size_t>(b) * Sk * KV + kvh) * Dv;
   const auto stage = [&](int t) {
-    return s_q + kQBytes + (t % kStages) * 2 * kKVBytes;
+    return s_q + kQBytes + (t % kStages) * (kKBytes + kVBytes);
   };
   // K/V tile t into its ring stage: one cp.async group per tile
   const auto load_kv = [&](int t) {
     const int k0 = lo + t * kBK;
-    load_tile<P, kBK>(stage(t), kb, static_cast<size_t>(KV) * D, k0,
-                      kv_end - k0, D, tid);
-    load_tile<P, kBK>(stage(t) + kKVBytes, vb, static_cast<size_t>(KV) * Dv,
-                      k0, kv_end - k0, Dv, tid);
+    load_tile<PD, kBK>(stage(t), kb, static_cast<size_t>(KV) * D, k0,
+                       kv_end - k0, D, tid);
+    load_tile<PV, kBK>(stage(t) + kKBytes, vb, static_cast<size_t>(KV) * Dv,
+                       k0, kv_end - k0, Dv, tid);
   };
 
-  float o[P / 2];
+  float o[PV / 2];
 #pragma unroll
-  for (int i = 0; i < P / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < PV / 2; ++i) o[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.0f, 0.0f};
 
   if (n_tiles > 0) {
-    load_tile<P, kBQ>(s_q, qb, static_cast<size_t>(H) * D, q0, Sq - q0, D,
+    load_tile<PD, kBQ>(s_q, qb, static_cast<size_t>(H) * D, q0, Sq - q0, D,
                       tid);
     load_kv(0);
     cp_async_commit();
@@ -489,7 +497,7 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float alpha[2];
   if (n_tiles > 0) {
     next_tile(0);
-    issue_qk<P>(s, q_rows, stage(0));
+    issue_qk<PD>(s, q_rows, stage(0));
     wgmma_wait<0>();
     fence_regs<kBK / 2>(s);
     softmax_step(s, m, l, alpha, scale_log2, bites(0), lo, wg_first + r0,
@@ -500,24 +508,24 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // tile t's softmax while P V still runs.
   for (int t = 1; t < n_tiles; ++t) {
     next_tile(t);
-    issue_qk<P>(s, q_rows, stage(t));
-    issue_pv<P>(o, a, stage(t - 1) + kKVBytes);
+    issue_qk<PD>(s, q_rows, stage(t));
+    issue_pv<PV>(o, a, stage(t - 1) + kKBytes);
     wgmma_wait<1>();
     fence_regs<kBK / 2>(s);
     softmax_step(s, m, l, alpha, scale_log2, bites(t), lo + t * kBK,
                  wg_first + r0, cq, kv_end, mask_kind, window);
     wgmma_wait<0>();
-    fence_regs<P / 2>(o);
+    fence_regs<PV / 2>(o);
     fence_frags<kBK / 16>(a);
 #pragma unroll
-    for (int i = 0; i < P / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < PV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     pack_p(s, a);
   }
   if (n_tiles > 0) {
     wgmma_fence();
-    issue_pv<P>(o, a, stage(n_tiles - 1) + kKVBytes);
+    issue_pv<PV>(o, a, stage(n_tiles - 1) + kKBytes);
     wgmma_wait<0>();
-    fence_regs<P / 2>(o);
+    fence_regs<PV / 2>(o);
   }
 
 #pragma unroll
@@ -532,7 +540,7 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ob = out + (static_cast<size_t>(b) * Sq * H + h) * Dv;
   const size_t stride = static_cast<size_t>(H) * Dv;
 #pragma unroll
-  for (int j = 0; j < P / 8; ++j) {
+  for (int j = 0; j < PV / 8; ++j) {
     const int col = 8 * j + cq;
     if (col < Dv) {
       if (row0 < Sq)
@@ -545,19 +553,21 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int P>
+template <int PD, int PV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KV, int D, int Dv, int mask_kind,
            int window, int valid_len, int q_offset, cudaStream_t stream) {
   // Q tile and the K/V stages, plus slack to align to 1024 bytes
-  constexpr int kSmem = 1024 + (P / 64) * 128 * (kBQ + 2 * kStages * kBK);
+  constexpr int kSmem =
+      1024 + 128 * ((PD / 64) * kBQ + kStages * kBK * (PD / 64 + PV / 64));
+  static_assert(kSmem <= 232448, "Q tile and K/V ring exceed shared memory");
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd_wgmma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      attn_fwd_wgmma_kernel<PD, PV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const double log2e = 1.4426950408889634;
-  attn_fwd_wgmma_kernel<P><<<grid, kThreads, kSmem, stream>>>(
+  attn_fwd_wgmma_kernel<PD, PV><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KV, D,
       Dv, static_cast<float>(log2e / sqrt(static_cast<double>(D))), mask_kind,
@@ -568,16 +578,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // Called by flash_attention_fwd (flash_attention.cu) for bf16 inputs, with
-// its arguments checked there; D and Dv multiples of 8, at most 128.
+// its arguments checked there; D and Dv multiples of 8, D at most 192, Dv
+// at most 128.
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
                           void* out, int B, int Sq, int Sk, int H, int KV,
                           int D, int Dv, int mask_kind, int window,
                           int valid_len, int q_offset, cudaStream_t stream) {
-  if (D % 8 != 0 || Dv % 8 != 0)
+  if (D % 8 != 0 || Dv % 8 != 0 || D > 192 || Dv > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64 && Dv <= 64)
-    return launch<64>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                      window, valid_len, q_offset, stream);
-  return launch<128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                     window, valid_len, q_offset, stream);
+    return launch<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                          window, valid_len, q_offset, stream);
+  if (D <= 128)
+    return launch<128, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv,
+                            mask_kind, window, valid_len, q_offset, stream);
+  return launch<192, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                          window, valid_len, q_offset, stream);
 }

@@ -7,8 +7,9 @@ bfloat16 runs the tensor-core kernel (``csrc/flash_attention_wgmma.cu``),
 float32 the SIMT kernel (``csrc/flash_attention.cu``).  The wrapper checks
 device, dtype, rank, shapes and contiguity and raises on anything the
 kernels do not take (float32 or bfloat16 only, one type for q, k and v,
-head dims up to 128; for bfloat16 head dims that are multiples of 8 and
-16-byte aligned pointers).  ``flash_attention.launches`` counts kernel
+D up to 192 and Dv up to 128 — MLA's 128 + 64 query/key dims over 128
+value dims; for bfloat16 head dims that are multiples of 8 and 16-byte
+aligned pointers).  ``flash_attention.launches`` counts kernel
 launches (and nothing else) and ``flash_attention.launches_tc`` the
 bfloat16 tensor-core launches among them, so a run can show which kernel
 served it.
@@ -24,12 +25,14 @@ from typing import Optional
 import torch
 
 from ..build import build_library
+from ..launch import on, stream_of
 from .ref import MASK_KINDS, flash_attention_blocked
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_D = 192       # q/k head dim
+MAX_DV = 128      # v/out head dim
 
 
 def build() -> Path:
@@ -92,9 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: {name} must be contiguous")
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if max(D, Dv) > MAX_HEAD_DIM or min(D, Dv) == 0:
+    if not (1 <= D <= MAX_D and 1 <= Dv <= MAX_DV):
         raise ValueError(f"flash_attention: head dims ({D}, {Dv}) outside "
-                         f"1..{MAX_HEAD_DIM}")
+                         f"D 1..{MAX_D}, Dv 1..{MAX_DV}")
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores and (D % 8 or Dv % 8):
         raise ValueError(f"flash_attention: bfloat16 head dims ({D}, {Dv}) "
@@ -108,12 +111,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid_len = Sk if kv_valid_len is None else int(kv_valid_len)
     q_offset = 0 if kv_valid_len is None else valid_len - Sq
     fn = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with on(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 DTYPES[q.dtype], B, Sq, Sk, H, KV, D, Dv,
                 MASK_KINDS.index(mask_kind), int(window), valid_len,
-                q_offset, stream)
+                q_offset, stream_of(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

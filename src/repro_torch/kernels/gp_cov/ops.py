@@ -18,6 +18,7 @@ from pathlib import Path
 import torch
 
 from ..build import build_library
+from ..launch import on, stream_of
 from .ref import matern52_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "gp_cov.cu",)
@@ -63,10 +64,9 @@ def matern52(X1: torch.Tensor, X2: torch.Tensor,
     if n == 0 or m == 0:
         return out
     fn = _lib()
-    stream = torch.cuda.current_stream(X1.device).cuda_stream
-    with torch.cuda.device(X1.device):
+    with on(X1.device):
         rc = fn(X1.data_ptr(), X2.data_ptr(), out.data_ptr(), n, m, d,
-                float(lengthscale), stream)
+                float(lengthscale), stream_of(X1.device))
     if rc != 0:
         raise RuntimeError(f"gp_cov kernel launch failed: CUDA error {rc}")
     matern52.launches += 1

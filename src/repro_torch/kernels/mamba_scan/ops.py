@@ -19,6 +19,7 @@ from pathlib import Path
 import torch
 
 from ..build import build_library
+from ..launch import on, stream_of
 from .ref import selective_scan_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu",)
@@ -101,11 +102,10 @@ def selective_scan(u, delta, A, Bc, Cc, h0=None):
     if hT.numel() == 0:
         return y, hT
     fn = _lib().mamba_selective_scan
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with on(dev):
         rc = fn(u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bc.data_ptr(),
                 Cc.data_ptr(), None if h0 is None else h0.data_ptr(),
-                y.data_ptr(), hT.data_ptr(), B, S, Di, Ds, stream)
+                y.data_ptr(), hT.data_ptr(), B, S, Di, Ds, stream_of(dev))
     if rc != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{rc}")

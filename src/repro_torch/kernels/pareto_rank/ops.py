@@ -18,6 +18,7 @@ from pathlib import Path
 import torch
 
 from ..build import build_library
+from ..launch import on, stream_of
 from .ref import dominance_counts_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "pareto_rank.cu",)
@@ -67,10 +68,9 @@ def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     fn = _lib()
-    stream = torch.cuda.current_stream(objs.device).cuda_stream
-    with torch.cuda.device(objs.device):
+    with on(objs.device):
         rc = fn(objs.data_ptr(), valid.data_ptr(), out.data_ptr(), n, k,
-                stream)
+                stream_of(objs.device))
     if rc != 0:
         raise RuntimeError(f"pareto_rank kernel launch failed: CUDA error "
                            f"{rc}")

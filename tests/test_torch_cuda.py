@@ -20,9 +20,15 @@ def cuda():
     return torch.device("cuda")
 
 
+# pools: the search's, a ragged one, a large one, all invalid, one row;
+# then the kernel's edges: its 128-row j tiles (129), its chunks of at
+# least 64 dominator rows (65: two chunks), 8 chunks to a cluster (513,
+# 8193), staged tiles of 512 rows rounded up to 4 (8193 / 8 per chunk)
 @pytest.mark.parametrize("n,k,frac", [(128, 2, 1.0), (768, 4, 1.0),
                                       (190, 3, 0.9), (8192, 4, 0.8),
-                                      (256, 4, 0.0), (1, 1, 1.0)])
+                                      (256, 4, 0.0), (1, 1, 1.0),
+                                      (129, 4, 0.9), (65, 1, 0.7),
+                                      (513, 3, 0.9), (8193, 2, 0.9)])
 def test_pareto_rank_kernel_matches_plain(cuda, n, k, frac):
     from repro_torch.kernels.pareto_rank import ops
     from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref
@@ -35,6 +41,62 @@ def test_pareto_rank_kernel_matches_plain(cuda, n, k, frac):
     got = ops.dominance_counts(objs, valid)
     torch.cuda.synchronize()
     assert ops.dominance_counts.launches == before + 1
+    assert torch.equal(got, dominance_counts_ref(objs, valid))
+
+
+def _special_pool(n, k, frac, values, dev, seed):
+    """A pool drawn from ``values`` with a normal row every 7th, exact
+    ties, and ``frac`` of the rows valid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.tensor(values, dtype=torch.float32, device=dev)
+    objs = vals[torch.randint(len(values), (n, k), generator=gen,
+                              device=dev)]
+    objs[::7] = torch.randn(objs[::7].shape, generator=gen, device=dev)
+    dup = min(16, n // 4)
+    objs[n // 2:n // 2 + dup] = objs[:dup]
+    return objs, torch.rand(n, generator=gen, device=dev) < frac
+
+
+NONFINITE = (float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1.0,
+             -1.0, 2.0)
+# finite values that break a careless subtract: +-0, subnormals, +-FLT_MAX
+# (differences overflow), adjacent floats
+FINITE_EDGES = (0.0, -0.0, 1e-45, -1e-45, 1.2e-38, 3.4028235e38,
+                -3.4028235e38, 1.0, 1.0000001, -1.0, 2.0)
+
+
+@pytest.mark.parametrize("n,k,frac,values", [
+    (768, 4, 0.9, "nonfinite"), (4099, 2, 0.9, "nonfinite"),
+    (300, 3, 0.0, "nonfinite"), (130, 1, 0.5, "nonfinite"),
+    (768, 4, 0.9, "finite edges"), (2000, 3, 0.8, "finite edges"),
+    (1000, 2, 1.0, "finite edges")])
+def test_pareto_rank_kernel_matches_plain_on_special_values(cuda, n, k, frac,
+                                                            values):
+    """NaN and +-inf pools go through the kernel's compare path, finite
+    pools of edge values through its difference-bits path: both exact."""
+    from repro_torch.kernels.pareto_rank import ops
+    from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref
+    objs, valid = _special_pool(
+        n, k, frac, NONFINITE if values == "nonfinite" else FINITE_EDGES,
+        cuda, n + k)
+    got = ops.dominance_counts(objs, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dominance_counts_ref(objs, valid))
+
+
+def test_pareto_rank_kernel_mixes_its_two_paths(cuda):
+    """One +inf row in a large finite pool: the staged tiles and the j
+    tiles that hold it take the compare path, the others the
+    difference-bits path, and the counts stay exact."""
+    from repro_torch.kernels.pareto_rank import ops
+    from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    objs = torch.randn(3000, 4, generator=gen, device=cuda)
+    objs[1500, 2] = float("inf")
+    objs[2500:2504] = objs[:4]
+    valid = torch.rand(3000, generator=gen, device=cuda) < 0.9
+    got = ops.dominance_counts(objs, valid)
+    torch.cuda.synchronize()
     assert torch.equal(got, dominance_counts_ref(objs, valid))
 
 
@@ -76,11 +138,15 @@ def test_short_search_goes_through_the_kernel(cuda, tmp_path):
 
 
 # gp_cov: the reference kernel test's shapes, the BO engine's shapes
-# (quickstart d = 62, two_stage d = 60 and 2), a ragged tile edge, d = 1
-# and a large matrix
+# (quickstart d = 62, two_stage d = 60 and 2), a ragged tile edge, d = 1,
+# the kernel's edges (m = 64 the last thin tile, m = 65 the first wide
+# one, 129 across a 128 x 128 tile, m = 132 its 16-byte stores) and a
+# large matrix
 GP_SHAPES = [(16, 16, 4), (32, 24, 7), (64, 64, 12), (11, 11, 62),
              (512, 11, 62), (9, 9, 60), (512, 9, 60), (5, 5, 2),
-             (512, 5, 2), (190, 130, 7), (64, 48, 1), (4096, 4096, 62)]
+             (512, 5, 2), (190, 130, 7), (64, 48, 1), (100, 64, 62),
+             (513, 65, 62), (130, 129, 33), (256, 132, 62),
+             (4096, 4096, 62)]
 
 
 @pytest.mark.parametrize("n,m,d", GP_SHAPES)
@@ -155,7 +221,9 @@ def test_sa_step_makes_no_host_sync(cuda):
 # flash_attention: the reference kernel test's FA_SHAPES, the Hymba prefill
 # shape (window 1024 over 1152 positions, GQA 5:1), a ragged Sq = Sk = 1000,
 # a kv_valid_len that is not a multiple of the kernel's tiles, two shapes
-# with Dv != D, and head dims of 128 (the tensor-core kernel's second class)
+# with Dv != D, head dims of 128 (the tensor-core kernel's second class),
+# and MLA's head dims, D 192 over Dv 128 (causal, with a kv_valid_len, and
+# at DeepSeek-V2's width: 128 heads)
 FA_SHAPES = [
     # (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid)
     (1, 32, 32, 4, 4, 16, 16, "causal", 0, None),
@@ -171,6 +239,9 @@ FA_SHAPES = [
     (2, 96, 160, 4, 1, 16, 64, "window", 48, 150),
     (1, 200, 200, 4, 2, 128, 128, "causal", 0, None),
     (1, 130, 190, 2, 1, 64, 128, "none", 0, None),
+    (1, 64, 64, 4, 4, 192, 128, "causal", 0, None),
+    (1, 64, 128, 4, 4, 192, 128, "causal", 0, 100),
+    (1, 512, 512, 128, 128, 192, 128, "causal", 0, None),
 ]
 
 
@@ -212,6 +283,10 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
            (torch.zeros(1, 8, 4, 256, device=cuda),
             torch.zeros(1, 8, 2, 256, device=cuda),
             torch.zeros(1, 8, 2, 256, device=cuda)),
+           # v past the kernels' 128 value dims
+           (torch.zeros(1, 8, 4, 128, device=cuda),
+            torch.zeros(1, 8, 2, 128, device=cuda),
+            torch.zeros(1, 8, 2, 192, device=cuda)),
            # bf16 head dims the tensor-core kernel does not take
            (torch.zeros(1, 8, 4, 12, device=cuda).bfloat16(),
             torch.zeros(1, 8, 2, 12, device=cuda).bfloat16(),

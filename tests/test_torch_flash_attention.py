@@ -2,8 +2,8 @@
 against the JAX reference on the same numpy inputs: the plain
 ``attention_ref`` and the wrapper's CPU path (``flash_attention_blocked``)
 against the reference's oracle and against its Pallas kernel in interpret
-mode, at the reference kernel test's shapes; then ragged lengths and fully
-masked rows on the port's side.  The CUDA kernel itself is held against
+mode, at the reference kernel test's shapes and at MLA's head dims (D 192,
+Dv 128); then ragged lengths and fully masked rows on the port's side.  The CUDA kernel itself is held against
 these plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
 
@@ -66,6 +66,62 @@ def test_port_matches_reference_oracle_and_pallas_kernel(shape):
                                        rtol=2e-5)
     assert ops.flash_attention.launches == before   # CPU: plain version
     assert ops.flash_attention.launches_tc == before_tc
+
+
+# MLA's head dims (DeepSeek-V2: q/k 128 nope + 64 rope = 192, v 128), causal
+# and with a kv_valid_len past Sq (queries at 36..99, keys from 100 masked):
+# (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid)
+MLA_SHAPES = [(1, 64, 64, 4, 4, 192, 128, "causal", 0, None),
+              (1, 64, 128, 4, 4, 192, 128, "causal", 0, 100)]
+
+
+@pytest.mark.parametrize("shape", MLA_SHAPES, ids=str)
+def test_port_matches_reference_at_mla_head_dims(shape):
+    """D 192 over Dv 128 — what the reference's MLA hands its kernel — in
+    float32: the port's plain versions and the wrapper's CPU path against
+    the reference's oracle and its Pallas kernel in interpret mode."""
+    B, Sq, Sk, H, KV, D, Dv, mk, w, kvl = shape
+    q, k, v = _inputs(B, Sq, Sk, H, KV, D, seed=D + Sk, Dv=Dv)
+    want = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), mk, w, kvl))
+    pallas = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mk, w, kvl,
+        block_q=8, block_k=16, interpret=True))
+    assert want.shape == (B, Sq, H, Dv)
+    tq, tk, tv = _t(q, k, v)
+    for got in (attention_ref(tq, tk, tv, mk, w, kvl),
+                flash_attention_blocked(tq, tk, tv, mk, w, kvl, block_k=16),
+                ops.flash_attention(tq, tk, tv, mk, w, kvl)):
+        for ref in (want, pallas):
+            np.testing.assert_allclose(got.numpy(), ref, atol=2e-5,
+                                       rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", MLA_SHAPES, ids=str)
+def test_port_bf16_matches_reference_at_mla_head_dims(shape):
+    """The same in bfloat16: the wrapper's CPU path and the tensor-core
+    kernel's rounding (``flash_attention_tc_mirror``: P to bf16 before P V,
+    the 1/sqrt(192) scale after the product) against the reference's
+    oracle on the same bf16 inputs, within one bf16 rounding (2e-2)."""
+    B, Sq, Sk, H, KV, D, Dv, mk, w, kvl = shape
+    q, k, v = _inputs(B, Sq, Sk, H, KV, D, seed=D + Sk + 1, Dv=Dv)
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    want = np.asarray(jax_ref(*jb, mk, w, kvl).astype(jnp.float32))
+    tb = _t(q, k, v, dtype=torch.bfloat16)
+    for got in (ops.flash_attention(*tb, mk, w, kvl),
+                flash_attention_tc_mirror(*tb, mk, w, kvl)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_wrapper_limits_are_mlas_head_dims():
+    """D up to 192 and Dv up to 128 are the kernels' limits (a CUDA tensor
+    past them raises, ``test_torch_cuda.py``); the shape checks that run
+    on every device pass MLA's dims."""
+    assert (ops.MAX_D, ops.MAX_DV) == (192, 128)
+    q, k, v = _t(*_inputs(1, 8, 8, 2, 2, 192, Dv=128))
+    assert ops.flash_attention(q, k, v).shape == (1, 8, 2, 128)
 
 
 @pytest.mark.parametrize("shape", FA_SHAPES[:3], ids=str)
