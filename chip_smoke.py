@@ -77,7 +77,42 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     seconds, decode ms per token, tokens/s, peak device memory, the device
     busy share and kernel count of one decode step, and the device-time
     split of one prefill by kernel from ``torch.profiler``, with the scan's
-    device time per decode launch and in prefill.
+    device time per decode launch and in prefill;
+12. transfer, fleet cache and resume on the card, through
+    ``Session.submit`` / ``Session.plan``, every query timed with its
+    evaluations/s and ``pareto_rank`` / ``gp_cov`` launches:
+    (a) the reference's transfer benchmark (``benchmarks/bench_transfer.py``)
+    at its full budget B = 4096 — pop 32, no immigrants, one mutation,
+    non-adaptive budgets, the bounded space ``max_shape=(8, 8, 2, 2, 1,
+    2)`` at ``ch_max=2``: the held-out ``attn_qwen2_5_32b`` cold at B
+    (``balanced_init`` seed) against the same query at B/2 after the
+    ``attn_qwen2_72b`` and ``attn_internlm2`` neighbors;
+    (b) its warm-refinement arms: a B/8 shallow run, cloned, refined at B
+    unseeded and seeded (4-generation segments, a manifest bounded at 2
+    entries); both at the benchmark's key 42 and at 43-46, one process a
+    key, the five started together.  Asserted at
+    every key: the transfer arm spends <= 60% of the cold run's
+    evaluations, both seeded runs take >= 1 neighbor, the manifest keeps
+    <= 2 entries and ``nearest`` answers.  The benchmark's hypervolume
+    conditions, on the runs pooled over the five keys: the transfer arms'
+    mean hypervolume at least the cold arms', and the seeded refinements'
+    mean trace crossing the unseeded ones' mean final hypervolume within
+    75% of their evaluations; and each gate met alone at >= 2 of the five
+    keys (each key's own verdict is printed);
+    (c) phase 5's query stopped by a ``RunControl`` after its second
+    segment and resumed in a fresh session: interrupted, the two spends sum
+    to phase 5's, and the resumed front is phase 5's byte for byte (a third,
+    uninterrupted run must agree too);
+    (d) two processes write transfer queries on two library graphs into one
+    cache directory at once: both manifest entries survive, both archives
+    load, and a third process's ``Session.plan`` names the neighbors (each
+    with a seed quota) its run then reports in ``transferred_from``;
+    (e) a registered tech preset (``DEFAULT_TECH`` with ``router_delay_ns``
+    10 in place of 20) lands under its own cache key with ``tech ==
+    "<name>@<digest12>"``, and the quickstart ``bo_sa`` query, SA steps cut
+    250 -> 10 as in phase 9, seeded with designs migrated out of (a)'s
+    front, launches ``gp_cov`` 16 times and returns a feasible best design;
+    the device busy share of the preset's query from ``torch.profiler``.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -88,6 +123,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -103,11 +139,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.api import Problem, Query, Session  # noqa: E402
+from repro_torch.api import (Problem, Query, RunControl,  # noqa: E402
+                             Session)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import presets  # noqa: E402
+from repro_torch.core.constants import DEFAULT_TECH, tech_key  # noqa: E402
 from repro_torch.core.encoding import (DesignSpace,  # noqa: E402
-                                       feasibility_penalty, random_design)
+                                       feasibility_penalty, migrate,
+                                       random_design)
 from repro_torch.core.evaluate import (SystemSpec,  # noqa: E402
                                        evaluate_system, make_batch_evaluator)
 from repro_torch.core.optimizer import (METRIC_KEYS, OBJ_EDP,  # noqa: E402
@@ -116,9 +155,11 @@ from repro_torch.core.optimizer import (METRIC_KEYS, OBJ_EDP,  # noqa: E402
                                         prob_improvement)
 from repro_torch.core.workload import MAX_LOOPS  # noqa: E402
 from repro_torch.explore.archive import (HV_LOG_REF,  # noqa: E402
-                                         ParetoArchive, hypervolume_2d,
-                                         pareto_front)
+                                         MANIFEST_NAME, ArchiveManifest,
+                                         ManifestPolicy, ParetoArchive,
+                                         hypervolume_2d, pareto_front)
 from repro_torch.explore.nsga import NSGAConfig, make_nsga  # noqa: E402
+from repro_torch.explore.service import BudgetPolicy  # noqa: E402
 from repro_torch.kernels.gp_cov import ops as gp_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -1210,6 +1251,504 @@ def two_stage() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: transfer, fleet cache and resume on the card
+# ---------------------------------------------------------------------------
+# the reference's transfer benchmark scenario (benchmarks/bench_transfer.py
+# :50-166) at its full budget: a bounded space (<= 2x2 core / 1x2 chiplet
+# arrays), the two attention neighbors and the held-out qwen2.5-32b block
+TR_OBJ = ("latency_ns", "cost_usd")
+TR_SPACE_KW = dict(max_shape=(8, 8, 2, 2, 1, 2))
+TR_CH_MAX = 2
+TR_NSGA_KW = dict(pop=32, immigrants=0.0, mutations=1)
+TR_POLICY_KW = dict(adaptive=False, reallocate=False)
+# the reference benchmark's key and the next four.  Its hypervolume
+# conditions are single draws of a random search, which the reference's
+# own run also misses at some keys (``tests/torch_transfer_gates.py``
+# reads both packages key by key on the CPU; PERF.md keeps the counts),
+# so they are held on the runs pooled over these keys: the mean of the
+# per-key hypervolumes for (a), the mean seeded trace against the mean
+# unseeded final hypervolume for (b).  Every key's spend, neighbors and
+# manifest bound are asserted as the reference asserts them, and at least
+# TR_MIN_ALONE keys must meet each gate on their own (the reference meets
+# each alone at about 4 keys in 5 on the CPU), so a transfer that is a
+# little weaker at every key fails even where the pool would not
+TR_KEYS = (42, 43, 44, 45, 46)
+TR_MIN_ALONE = 2
+TR_KEY = TR_KEYS[0]
+TR_BUDGET = 4096
+TR_NEIGHBORS = ("attn_qwen2_72b", "attn_internlm2")
+TR_HELD_OUT = "attn_qwen2_5_32b"
+# (d): two writers at once into one directory, then a third process
+FLEET_WRITERS = ("attn_qwen2_72b", "mlp_qwen2_72b")
+FLEET_READER = "attn_internlm2"
+FLEET_BUDGET = 1024
+FLEET_TIMEOUT_S = 300
+# (e): DEFAULT_TECH with the per-hop router delay (t_s) halved
+TECH_NAME = "smoke_fast_router"
+TECH_BUDGET = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class Package:
+    """What the transfer arms use of a search package: its API classes,
+    its workload library, its key type and a device barrier.  ``CARD`` is
+    the port on the card; ``tests/torch_transfer_gates.py`` passes the
+    port on the CPU and the JAX reference, to read the gates' statistics
+    through the same arms."""
+    Session: object
+    Query: object
+    Problem: object
+    NSGAConfig: object
+    BudgetPolicy: object
+    ManifestPolicy: object
+    library: object
+    key: object = int
+    sync: object = torch.cuda.synchronize
+
+
+CARD = Package(functools.partial(Session, device="cuda"), Query, Problem,
+               NSGAConfig, BudgetPolicy, ManifestPolicy,
+               presets.workload_library)
+
+# one fleet process: a transfer query into the shared cache directory.  A
+# writer waits for the parent's go file after its imports, so both
+# writers submit at once; a reader plans first, then submits
+FLEET_CHILD = r"""
+import json, sys, time
+from pathlib import Path
+repo, cache, name, mode = sys.argv[1:5]
+sys.path.insert(0, repo)
+import chip_smoke as cs
+s = cs.tr_session(Path(cache))
+q = cs.Query(cs.tr_problem(name), budget=cs.FLEET_BUDGET, transfer=True)
+out = dict(graph=name)
+if mode == "read":
+    out["plan"] = [[n.key, n.distance, n.quota] for n in s.plan(q).neighbors]
+else:
+    Path(cache, ".ready-" + name).touch()
+    while not Path(cache, ".go").exists():
+        time.sleep(0.002)
+r, rec = cs.timed_submit(s, q, key=cs.TR_KEY)
+pv = r.provenance
+out.update(rec, key=pv.cache_key, seeds=pv.n_transfer_seeds,
+           transferred_from=list(pv.transferred_from))
+print(json.dumps(out))
+"""
+
+
+# one key of (a) and (b) in a process of its own: the keys run at once
+TR_CHILD = r"""
+import json, sys
+from pathlib import Path
+repo, root, key = sys.argv[1:4]
+sys.path.insert(0, repo)
+import chip_smoke
+chip_smoke.torch.set_num_threads(1)    # five at once share the host's cores
+out, warm = chip_smoke.transfer_arms(Path(root), int(key))
+out["front_designs"] = [{k: v.tolist() for k, v in d.items()}
+                        for d in warm.front_designs]
+print(json.dumps(out))
+"""
+TR_TIMEOUT_S = 600
+
+
+def launch_counts() -> dict:
+    return dict(pareto_rank=pareto_ops.dominance_counts.launches,
+                gp_cov=gp_ops.matern52.launches)
+
+
+def timed_submit(session, query, sync=torch.cuda.synchronize, **kw):
+    """``session.submit(query, **kw)`` with its synchronized wall seconds,
+    evaluations, evaluations/s and kernel launches: (result, record)."""
+    before = launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    r = session.submit(query, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    n = r.provenance.n_evals_run
+    return r, dict(wall_s=wall, evals=n, evals_per_s=n / wall,
+                   launches={k: v - before[k]
+                             for k, v in launch_counts().items()})
+
+
+def print_arm(tag: str, rec: dict):
+    extra = "".join(f", {k} {rec[k]}" for k in ("hv", "seeds", "neighbors")
+                    if k in rec)
+    print(f"phase 12 {tag}: {rec['evals']} evaluations in "
+          f"{rec['wall_s']:.3f} s ({rec['evals_per_s']:.1f} evaluations/s)"
+          f"{extra}, pareto_rank launches {rec['launches']['pareto_rank']}, "
+          f"gp_cov launches {rec['launches']['gp_cov']}")
+
+
+def tr_session(cache: Path, pkg: Package = CARD, chunk=None, **kw):
+    """A session under the benchmark's NSGA and budget settings."""
+    policy = dict(TR_POLICY_KW)
+    if chunk is not None:
+        policy["chunk_generations"] = chunk
+    return pkg.Session(cache_dir=cache, nsga=pkg.NSGAConfig(**TR_NSGA_KW),
+                       policy=pkg.BudgetPolicy(**policy), **kw)
+
+
+def tr_problem(name: str, pkg: Package = CARD):
+    return pkg.Problem(pkg.library()[name], TR_OBJ, ch_max=TR_CH_MAX,
+                       space_kwargs=TR_SPACE_KW)
+
+
+def transfer_arms(root: Path, key: int, budget: int = TR_BUDGET,
+                  pkg: Package = CARD) -> tuple:
+    """(a) and (b) of the reference benchmark at one key: every arm's
+    record and each gate's readings, and the transfer arm's result."""
+    arms = {}
+
+    def arm(tag, session, name, b, transfer=True):
+        r, rec = timed_submit(
+            session, pkg.Query(tr_problem(name, pkg), budget=b,
+                               transfer=transfer), pkg.sync,
+            key=pkg.key(key))
+        if r.provenance.from_cache:
+            fail(f"phase 12 {tag} was served from cache")
+        rec.update(graph=name, budget=b, transfer=transfer,
+                   hv=float(r.trace.archive_hv[-1, 0]),
+                   seeds=r.provenance.n_transfer_seeds,
+                   neighbors=len(r.provenance.transferred_from))
+        arms[tag] = rec
+        print_arm(f"key {key} {tag}", rec)
+        return r
+
+    # (a) cold: an empty cache, the balanced_init seed, the full budget;
+    # transfer: the neighbors cached first, half the budget
+    cold = arm("cold", tr_session(root / "cold", pkg), TR_HELD_OUT, budget)
+    if cold.provenance.transferred_from or cold.provenance.n_transfer_seeds < 1:
+        fail(f"cold arm was not seeded by balanced_init: {cold.provenance}")
+    svc = tr_session(root / "warm", pkg)
+    for name in TR_NEIGHBORS:
+        arm(f"neighbor {name}", svc, name, budget)
+    warm = arm("transfer", svc, TR_HELD_OUT, budget // 2)
+    gate = dict(hv_cold=arms["cold"]["hv"], hv_warm=arms["transfer"]["hv"],
+                evals_frac=(warm.provenance.n_evals_run
+                            / cold.provenance.n_evals_run),
+                neighbors=list(warm.provenance.transferred_from))
+    gate["hv_ratio"] = gate["hv_warm"] / gate["hv_cold"]
+    gate["passes_alone"] = bool(gate["hv_ratio"] >= 1.0
+                                and gate["evals_frac"] <= 0.60
+                                and gate["neighbors"])
+    if gate["evals_frac"] > 0.60 or not gate["neighbors"]:
+        fail(f"transfer arm at key {key}: {gate}")
+
+    # (b) a shallow run at B/8, cloned; unseeded against seeded refinement
+    # at B (4-generation segments, a manifest bounded at 2 entries)
+    arm("refine pre", tr_session(root / "refine_base", pkg, chunk=4),
+        TR_HELD_OUT, budget // 8, transfer=False)
+    for tag in ("refine_cold", "refine_warm"):
+        shutil.copytree(root / "refine_base", root / tag)
+    ref_cold = arm("refine unseeded",
+                   tr_session(root / "refine_cold", pkg, chunk=4),
+                   TR_HELD_OUT, budget, transfer=False)
+    s_rw = tr_session(root / "refine_warm", pkg, chunk=4,
+                      manifest_policy=pkg.ManifestPolicy(max_entries=2))
+    for name in TR_NEIGHBORS:
+        arm(f"refine neighbor {name}", s_rw, name, budget, transfer=False)
+    ref_warm = arm("refine seeded", s_rw, TR_HELD_OUT, budget)
+    manifest = s_rw.service.manifest
+    probe = next(iter(manifest.entries.values()))["embedding"]
+    if len(manifest) > 2 or not manifest.nearest(probe, k=8):
+        fail(f"refine manifest: {len(manifest)} entries, nearest "
+             f"{manifest.nearest(probe, k=8)}")
+    hv_rc = arms["refine unseeded"]["hv"]
+    rows = ref_warm.trace.archive_hv[:, 0]
+    seg = ref_warm.provenance.n_evals_run // max(len(rows), 1)
+    cross = next(((i + 1) * seg for i, v in enumerate(rows) if v >= hv_rc),
+                 None)
+    refine = dict(hv_unseeded=hv_rc, hv_seeded=arms["refine seeded"]["hv"],
+                  seeded_trace=[float(v) for v in rows],
+                  unseeded_evals=ref_cold.provenance.n_evals_run,
+                  evals_per_segment=seg, evals_to_cross=cross,
+                  neighbors=list(ref_warm.provenance.transferred_from),
+                  manifest_entries=len(manifest))
+    refine["hv_ratio"] = refine["hv_seeded"] / hv_rc
+    refine["passes_alone"] = bool(
+        cross is not None and refine["hv_ratio"] >= 1.0
+        and cross <= 0.75 * refine["unseeded_evals"] and refine["neighbors"])
+    if not refine["neighbors"]:
+        fail(f"seeded refinement at key {key} took no neighbor: {refine}")
+    print(f"phase 12 key {key}: transfer hv {gate['hv_warm']:.6f} against "
+          f"cold {gate['hv_cold']:.6f} (ratio {gate['hv_ratio']:.4f}) at "
+          f"{gate['evals_frac']:.2f} of its evaluations from "
+          f"{len(gate['neighbors'])} neighbors (the reference's gate at "
+          f"this key alone: {gate['passes_alone']}); seeded refinement "
+          f"{refine['hv_seeded']:.6f} against {hv_rc:.6f} (ratio "
+          f"{refine['hv_ratio']:.4f}), crossing at {cross} evaluations, "
+          f"manifest {len(manifest)} entries (alone: "
+          f"{refine['passes_alone']})")
+    return dict(key=key, arms=arms, gate=gate, refine_gate=refine), warm
+
+
+def pooled_gates(runs: list) -> tuple:
+    """The benchmark's hypervolume conditions on ``transfer_arms`` readings
+    pooled over their keys, with the count of keys meeting each gate alone
+    held to ``TR_MIN_ALONE``: (transfer gate, refinement gate), each with
+    its verdict under ``passes``."""
+    keys = [v["key"] for v in runs]
+    mean = lambda g, f: float(np.mean([v[g][f] for v in runs]))
+    gate = dict(keys=keys, hv_cold_mean=mean("gate", "hv_cold"),
+                hv_warm_mean=mean("gate", "hv_warm"),
+                evals_frac_max=max(v["gate"]["evals_frac"] for v in runs),
+                alone=[v["gate"]["passes_alone"] for v in runs])
+    gate["hv_ratio"] = gate["hv_warm_mean"] / gate["hv_cold_mean"]
+    gate["passes"] = bool(gate["hv_ratio"] >= 1.0
+                          and sum(gate["alone"]) >= TR_MIN_ALONE)
+    # (b) pooled: the key-mean seeded trace against the key-mean unseeded
+    # final hypervolume, within 75% of the unseeded runs' evaluations
+    n_seg = min(len(v["refine_gate"]["seeded_trace"]) for v in runs)
+    trace = np.mean([v["refine_gate"]["seeded_trace"][:n_seg]
+                     for v in runs], axis=0)
+    seg = runs[0]["refine_gate"]["evals_per_segment"]
+    target = mean("refine_gate", "hv_unseeded")
+    cross = next(((i + 1) * seg for i, v in enumerate(trace)
+                  if v >= target), None)
+    unseeded = runs[0]["refine_gate"]["unseeded_evals"]
+    refine = dict(keys=keys, hv_unseeded_mean=target,
+                  hv_seeded_mean=mean("refine_gate", "hv_seeded"),
+                  mean_seeded_trace=trace.tolist(), evals_to_cross=cross,
+                  unseeded_evals=unseeded,
+                  alone=[v["refine_gate"]["passes_alone"] for v in runs])
+    refine["hv_ratio"] = refine["hv_seeded_mean"] / target
+    refine["passes"] = bool(refine["hv_ratio"] >= 1.0 and cross is not None
+                            and cross <= 0.75 * unseeded
+                            and sum(refine["alone"]) >= TR_MIN_ALONE)
+    return gate, refine
+
+
+def transfer_gates(root: Path) -> tuple:
+    """(a) and (b): the reference benchmark's two transfer gates at each of
+    ``TR_KEYS`` — one process a key, all started together — held as
+    ``pooled_gates`` holds them.  Returns (the readings, the front designs
+    of the transfer arm at the reference's key)."""
+    repo = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    procs = {key: subprocess.Popen(
+        [sys.executable, "-c", TR_CHILD, repo, str(root / f"key{key}"),
+         str(key)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for key in TR_KEYS}
+    per_key = {}
+    try:
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=TR_TIMEOUT_S)
+            if proc.returncode != 0:
+                fail(f"phase 12 key {key} exited {proc.returncode}: "
+                     f"{err[-2000:]}")
+            lines = out.strip().splitlines()
+            print("\n".join(lines[:-1]))
+            per_key[key] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    print(f"phase 12 keys {list(TR_KEYS)}: {len(TR_KEYS)} processes at once "
+          f"in {wall:.1f} s")
+    fronts = {key: v.pop("front_designs") for key, v in per_key.items()}
+    gate, refine = pooled_gates(list(per_key.values()))
+    print(f"phase 12 transfer gate over keys {list(TR_KEYS)}: mean hv "
+          f"{gate['hv_warm_mean']:.6f} against the cold runs' "
+          f"{gate['hv_cold_mean']:.6f} (ratio {gate['hv_ratio']:.4f}, >= 1),"
+          f" spend <= {gate['evals_frac_max']:.2f} of the cold run's "
+          f"(<= 0.60); each key alone {gate['alone']} (>= {TR_MIN_ALONE} "
+          f"true)")
+    print(f"phase 12 refine gate over keys {list(TR_KEYS)}: the mean seeded "
+          f"trace crosses the unseeded runs' mean final hv "
+          f"{refine['hv_unseeded_mean']:.6f} at {refine['evals_to_cross']} "
+          f"of {refine['unseeded_evals']} evaluations (<= 0.75), mean final "
+          f"{refine['hv_seeded_mean']:.6f} (ratio {refine['hv_ratio']:.4f});"
+          f" each key alone {refine['alone']} (>= {TR_MIN_ALONE} true)")
+    if not gate["passes"]:
+        fail(f"transfer gate: {gate}")
+    if not refine["passes"]:
+        fail(f"warm-refinement gate: {refine}")
+    return (dict(per_key=per_key, gate=gate, refine_gate=refine,
+                 keys_wall_s=wall), fronts[TR_KEYS[0]])
+
+
+def resume_check(root: Path, problem, cold) -> dict:
+    """(c) phase 5's default query stopped after its second segment, then
+    resumed in a fresh session: bit-identical to phase 5's cold front."""
+    query = Query(problem, budget=2048)
+    ctl = RunControl()
+
+    def stop_after_second(ev):
+        if ev.segment == 1:
+            ctl.stop()
+    first, rec1 = timed_submit(Session(cache_dir=root / "resume",
+                                       device="cuda"), query,
+                               on_segment=stop_after_second, resume=True,
+                               control=ctl)
+    rest, rec2 = timed_submit(Session(cache_dir=root / "resume",
+                                      device="cuda"), query, resume=True)
+    again, rec3 = timed_submit(Session(cache_dir=root / "again",
+                                       device="cuda"), query)
+
+    def same(a, b):
+        return (a.front_objs.tobytes() == b.front_objs.tobytes()
+                and a.front_metrics.tobytes() == b.front_metrics.tobytes()
+                and len(a.front_designs) == len(b.front_designs)
+                and all(np.array_equal(x[k], y[k])
+                        for x, y in zip(a.front_designs, b.front_designs)
+                        for k in x))
+    agree, resumed = same(again, cold), same(rest, cold)
+    spent = first.provenance.n_evals_run + rest.provenance.n_evals_run
+    for tag, rec in (("resume stopped", rec1), ("resume rest", rec2),
+                     ("uninterrupted again", rec3)):
+        print_arm(tag, rec)
+    print(f"phase 12 resume: stopped after 2 segments (interrupted "
+          f"{first.provenance.interrupted}), {first.provenance.n_evals_run}"
+          f" + {rest.provenance.n_evals_run} = {spent} evaluations against "
+          f"phase 5's {cold.provenance.n_evals_run}; resumed front "
+          f"byte-identical to phase 5's: {resumed}; two uninterrupted runs "
+          f"agree: {agree}")
+    if not first.provenance.interrupted or rest.provenance.interrupted:
+        fail("the stopped run was not interrupted, or the resumed one was")
+    if spent != cold.provenance.n_evals_run:
+        fail(f"resume spent {spent}, phase 5 {cold.provenance.n_evals_run}")
+    if not (resumed and agree):
+        fail(f"resume not bit-identical (resumed {resumed}, two "
+             f"uninterrupted runs agree {agree})")
+    return dict(stopped=rec1, rest=rec2, again=rec3, identical=resumed,
+                uninterrupted_agree=agree)
+
+
+def fleet_check(root: Path) -> dict:
+    """(d) two processes write one cache directory at once; a third plans
+    and runs a transfer query on what they left."""
+    cache = root / "fleet"
+    cache.mkdir(parents=True)
+    repo = str(Path(__file__).resolve().parent)
+
+    def child(name, mode):
+        return subprocess.Popen(
+            [sys.executable, "-c", FLEET_CHILD, repo, str(cache), name,
+             mode], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def result(proc, tag):
+        out, err = proc.communicate(timeout=FLEET_TIMEOUT_S)
+        if proc.returncode != 0:
+            fail(f"fleet {tag} exited {proc.returncode}: {err[-2000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    t0 = time.perf_counter()
+    procs = [child(name, "write") for name in FLEET_WRITERS]
+    try:
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while not all((cache / f".ready-{n}").exists()
+                      for n in FLEET_WRITERS):
+            if time.monotonic() > deadline or any(
+                    p.poll() is not None for p in procs):
+                fail("fleet writers did not get ready")
+            time.sleep(0.01)
+        (cache / ".go").touch()
+        writers = [result(p, n) for p, n in zip(procs, FLEET_WRITERS)]
+        keys = [w["key"] for w in writers]
+        m = ArchiveManifest.load(cache / MANIFEST_NAME)
+        lost = [k for k in keys if k not in m.entries]
+        if len(set(keys)) != 2 or lost:
+            fail(f"fleet manifest lost {lost} (keys {keys})")
+        sizes = [len(ParetoArchive.load(cache / f"{k}.npz", device="cuda"))
+                 for k in keys]
+        if min(sizes) < 1:
+            fail(f"fleet archives hold {sizes} rows")
+        reader = result(child(FLEET_READER, "read"), FLEET_READER)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    planned = [k for k, _, quota in reader["plan"] if quota >= 1]
+    print(f"phase 12 fleet: writers {[w['graph'] for w in writers]} "
+          f"committed {keys} ({sizes} archive rows, manifest "
+          f"{len(m)} entries); reader {FLEET_READER} planned "
+          f"{reader['plan']} and ran seeded from "
+          f"{reader['transferred_from']} in {time.perf_counter() - t0:.1f} s")
+    for w in writers + [reader]:
+        print_arm(f"fleet {w['graph']}", w)
+    if not planned or reader["transferred_from"] != planned:
+        fail(f"fleet reader planned {reader['plan']} but ran "
+             f"{reader['transferred_from']}")
+    return dict(writers=writers, reader=reader, archive_rows=sizes)
+
+
+def tech_and_seeds(root: Path, front_designs) -> dict:
+    """(e) a registered tech preset lands in an archive of its own; a
+    ``bo_sa`` query seeded with designs migrated out of (a)'s front."""
+    from repro_torch.core.presets import register_tech
+    fast = dataclasses.replace(DEFAULT_TECH, router_delay_ns=10.0)
+    register_tech(TECH_NAME, fast)
+    s = tr_session(root / "tech")
+    p = tr_problem(TR_HELD_OUT)
+    r, rec = timed_submit(s, Query(p, budget=TECH_BUDGET, tech=TECH_NAME),
+                          key=TR_KEY)
+    label = f"{TECH_NAME}@{tech_key(fast)[:12]}"
+    default_key = s.service.problem_key(p.spec, p.space)
+    print_arm("tech preset", rec)
+    print(f"phase 12 tech: {r.provenance.tech} under key "
+          f"{r.provenance.cache_key} (default key {default_key})")
+    if r.provenance.tech != label or r.provenance.cache_key == default_key:
+        fail(f"tech preset query: {r.provenance}")
+    # the same query again on an empty cache under the profiler: its
+    # device time over the unprofiled wall above
+    again = tr_session(root / "tech_profiled")
+    device_s, n_kernels = device_by_kernel(lambda: again.submit(
+        Query(p, budget=TECH_BUDGET, tech=TECH_NAME), key=TR_KEY))[:2]
+    if device_s > 0:
+        rec.update(device_s=device_s, kernels=n_kernels,
+                   device_busy_share=device_s / rec["wall_s"])
+        print(f"phase 12 tech: under the profiler device busy "
+              f"{device_s * 1e3:.2f} ms = {rec['device_busy_share']:.1%} of "
+              f"the unprofiled wall, {n_kernels} kernels")
+    else:
+        print("phase 12 tech: device busy share not measured (the profiler "
+              "saw no device events)")
+
+    qp = quickstart_problem()
+    src = tr_problem(TR_HELD_OUT).space
+    seeds = [migrate({k: np.asarray(v, np.int32) for k, v in d.items()},
+                     src, qp.space)
+             for d in front_designs[:QUICK_OPTS["n_init"]]]
+    r2, rec2 = timed_submit(
+        Session(cache_dir=root / "seeded", device="cuda"),
+        Query(qp, engine="bo_sa", weights=OBJ_EDP, seed_designs=seeds,
+              engine_opts=dict(QUICK_OPTS, sa=TWO_STAGE_SA)))
+    pen = check_best(qp, r2)
+    rec2.update(seeds=len(seeds), best_objective=r2.best_objective,
+                best_penalty=pen)
+    print_arm("seeded bo_sa", rec2)
+    print(f"phase 12 seeded bo_sa: {len(seeds)} seeds migrated out of the "
+          f"transfer arm's front, best objective {r2.best_objective:.6f}, "
+          f"feasibility penalty {pen:.6g}")
+    if rec2["launches"]["gp_cov"] != 2 * QUICK_OPTS["n_iter"]:
+        fail(f"seeded bo_sa launched gp_cov {rec2['launches']['gp_cov']} "
+             f"times")
+    if abs(pen - 1.0) > 1e-6:
+        fail(f"the seeded bo_sa best design is infeasible (penalty {pen})")
+    return dict(tech=rec, tech_label=label, seeded_bo_sa=rec2)
+
+
+def transfer_phase(problem, cold) -> dict:
+    """Phase 12: (a)-(e) in one temporary directory."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        gates, front = transfer_gates(root)
+        out = dict(gates, resume=resume_check(root, problem, cold),
+                   fleet=fleet_check(root))
+        out.update(tech_and_seeds(root, front))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 12: {out['wall_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1305,6 +1844,9 @@ def main():
     # ---- 11. the LM serving slice at full size -----------------------------
     served = hymba_serve()
 
+    # ---- 12. transfer, fleet cache and resume on the card -----------------
+    transfer = transfer_phase(problem, cold)
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -1324,7 +1866,7 @@ def main():
                        evals_per_s=pv.n_evals_run / cold_s,
                        generations=gens, segments=segs,
                        front_size=int(len(cold.front_objs)), hv=hv,
-                       breakdown=split))
+                       breakdown=split, transfer=transfer))
     gp_main = next(r for r in gp_rows if r["tag"] == "quickstart K(Z, X)")
     gp_record = dict(
         name="gp_cov", route="cuda",
@@ -1337,7 +1879,9 @@ def main():
         library_ms=None, tolerance=GP_TOL,
         device_ms_per_launch=gp_main["device_ms"],
         build=small_build["gp_cov"], shapes=gp_rows,
-        main_path=dict(quickstart=quick, two_stage=staged))
+        main_path=dict(quickstart=quick, two_stage=staged, transfer=dict(
+            readings="pareto_rank's main_path.transfer",
+            seeded_bo_sa_launches=transfer["seeded_bo_sa"]["launches"])))
     def fa_rows_of(dt):
         return [r for r in fa_rows if r["dtype"] == str(dt)]
     bf16_rows, f32_rows = fa_rows_of(torch.bfloat16), fa_rows_of(torch.float32)

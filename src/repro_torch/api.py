@@ -8,10 +8,14 @@
     r = s.submit(Query(Problem(transformer_block(),
                                objectives=("latency_ns", "cost_usd")),
                        budget=2048))
+    s.plan(Query(..., transfer=True))     # neighbors and seed quotas first
 """
 
-from .explore.api import (ENGINES, Problem, Provenance,  # noqa: F401
-                          Query, Result, SegmentEvent, Session)
+from .explore.api import (ENGINES, NeighborPlan, Plan,  # noqa: F401
+                          Problem, Provenance, Query, Result, SegmentEvent,
+                          SegmentPlan, Session, plan, session)
+from .explore.service import RunControl  # noqa: F401
 
-__all__ = ["ENGINES", "Problem", "Provenance", "Query", "Result",
-           "SegmentEvent", "Session"]
+__all__ = ["ENGINES", "NeighborPlan", "Plan", "Problem", "Provenance",
+           "Query", "Result", "RunControl", "SegmentEvent", "SegmentPlan",
+           "Session", "plan", "session"]

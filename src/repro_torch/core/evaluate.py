@@ -222,9 +222,14 @@ def evaluate_arrays(arr: Dict, design: Dict, dims: Tuple[int, int, int],
     # Sec III-C); each workload's effective external bandwidth per chiplet is
     # what its block-A flows achieved under contention
     ebw_f = torch.where(fmask, vol / net["delay_ns"].clamp_min(1.0), 0.0)
-    ebw_A = ebw_f[:, : W * CH]
-    inbound = torch.zeros(P, W, dtype=F, device=dev).index_add_(
-        1, wgrid, torch.where(mA, ebw_A, 0.0))
+    ebw_A = torch.where(mA, ebw_f[:, : W * CH], 0.0)
+    if dev.type == "cuda":
+        # a workload's CH chiplets are adjacent: a reduction, in a fixed
+        # order (the card's index_add_ adds with atomics, in any order)
+        inbound = ebw_A.reshape(P, W, CH).sum(-1)
+    else:
+        inbound = torch.zeros(P, W, dtype=F, device=dev).index_add_(
+            1, wgrid, ebw_A)
     per_chip_bw = inbound / an0["n_chiplets"].clamp_min(1.0)
     per_chip_bw = torch.where(per_chip_bw > 0, per_chip_bw, cap[:, None])
     an = analyze(torch.minimum(per_chip_bw, cap[:, None]))

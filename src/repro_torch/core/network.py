@@ -150,6 +150,26 @@ def route_links(nh, src, dst):
     return u, v, hops
 
 
+def link_load_dense(u, v, w):
+    """Per-link sums of ``w`` over the links (u, v) its entries take, as a
+    product of one-hot matrices: (P, N_TOT * N_TOT), link id u * N_TOT + v.
+
+    u, v, w: (MAX_HOPS, P, F); ``w`` is 0 wherever (u, v) is no link of the
+    table.  The card's ``scatter_add_`` adds with atomics, whose order (and
+    so rounding) changes from call to call; a batched GEMM adds in a fixed
+    order, so one population sums to the same bits on every call.  Each
+    product is a requirement times 1 or 0, so the requirements must be
+    finite (they are volumes over delays of at least 1 ns)."""
+    H, P, Fl = u.shape
+    nodes = torch.arange(N_TOT, device=u.device)
+
+    def rows(x):                                 # (H, P, F) -> (P, H * F)
+        return x.permute(1, 0, 2).reshape(P, H * Fl, 1)
+    wu = torch.where(rows(u.clamp(0, N_TOT - 1)) == nodes, rows(w), 0.0)
+    ov = (rows(v.clamp(0, N_TOT - 1)) == nodes).to(w.dtype)
+    return torch.bmm(wu.transpose(1, 2), ov).reshape(P, N_TOT * N_TOT)
+
+
 def evaluate_network(route, bwr, vol_bytes, fmask, link_bw, dram_bw,
                      router_delay_ns, n_nodes):
     """Contention-aware per-flow delay (paper Sec. III-C last equation).
@@ -169,14 +189,17 @@ def evaluate_network(route, bwr, vol_bytes, fmask, link_bw, dram_bw,
     lid = u * N_TOT + v                          # directed link id
     n_links = N_TOT * N_TOT
 
-    # scatter-add of the requirements onto links; ids past the table are
-    # dropped, as the reference's scatter drops them
+    # sum of the requirements onto links; ids past the table are dropped,
+    # as the reference's scatter drops them
     inb = lid < n_links
-    load = torch.zeros(P, n_links, dtype=F, device=bwr.device)
-    load.scatter_add_(
-        1, torch.where(inb, lid, 0).permute(1, 0, 2).reshape(P, H * Fl),
-        torch.where(active & inb, bwr[None], 0.0)
-        .permute(1, 0, 2).reshape(P, H * Fl))
+    w = torch.where(active & inb, bwr[None], 0.0)
+    if bwr.device.type == "cuda":
+        load = link_load_dense(u, v, w)
+    else:
+        load = torch.zeros(P, n_links, dtype=F, device=bwr.device)
+        load.scatter_add_(
+            1, torch.where(inb, lid, 0).permute(1, 0, 2).reshape(P, H * Fl),
+            w.permute(1, 0, 2).reshape(P, H * Fl))
     hotspot = load.amax(1)
 
     # per-link capacity: DRAM-attached links run at dram_bw, others at link_bw

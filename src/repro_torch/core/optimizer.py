@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ from ..kernels.gp_cov import ops as gp_cov_ops
 from ..runtime import fold_in, generator, resolve_device
 from .constants import DEFAULT_TECH
 from .encoding import (BO_FIELDS, SA_FIELDS, DesignSpace,
-                       feasibility_penalty, mutate, random_design)
+                       feasibility_penalty, mutate, random_design, repair)
 from .evaluate import SystemSpec, evaluate_arrays, spec_tensors
 from .network import N_FAMILIES
 
@@ -287,6 +287,7 @@ def _optimize_impl(spec: SystemSpec, space: DesignSpace, key: int,
                    n_init: int = 8, n_iter: int = 24,
                    sa: SAConfig = SAConfig(), tech=None,
                    init_design: Optional[Dict] = None,
+                   seed_designs: Optional[Sequence[Dict]] = None,
                    archive=None, device="cuda") -> SearchResult:
     """Nested BO(low-dim) x SA(high-dim) search (paper Fig. 6b) on
     ``device``.
@@ -296,7 +297,10 @@ def _optimize_impl(spec: SystemSpec, space: DesignSpace, key: int,
     the restart seeds and the BO candidate draws follow the same numpy
     stream.  Setting ``bo_fields=()`` degenerates to pure SA over
     ``sa_fields``.  ``init_design`` replaces the first random restart.
-    ``archive`` (a ``repro_torch.explore.archive.ParetoArchive``) records
+    ``seed_designs`` (e.g. designs migrated out of a neighbor spec's
+    archive with ``encoding.migrate``) replace the next leading random
+    restarts, each ``repair``-ed into this space first; at most ``n_init``
+    entries are consumed, one SA refinement each.  ``archive`` (a ``repro_torch.explore.archive.ParetoArchive``) records
     every SA-refined design with its raw metric vector, masked to the
     feasible ones."""
     tech = tech or DEFAULT_TECH
@@ -308,6 +312,8 @@ def _optimize_impl(spec: SystemSpec, space: DesignSpace, key: int,
 
     X, Y, designs = [], [], []
     history = []
+    inits = ([] if init_design is None else [init_design]) + [
+        repair(d, space) for d in (seed_designs or [])]
 
     def eval_point(d0):
         d_best, o_best = sa_run(int(rng.integers(2 ** 31)), d0, weights)
@@ -316,8 +322,8 @@ def _optimize_impl(spec: SystemSpec, space: DesignSpace, key: int,
     n_bo = _bo_dims(space, bo_fields)
     for i in range(n_init):
         d0 = random_design(int(rng.integers(2 ** 31)), space, device=dev)
-        if i == 0 and init_design is not None:
-            d0 = _on(init_design, dev)
+        if i < len(inits):
+            d0 = _on(inits[i], dev)
         db, ob = eval_point(d0)
         designs.append(db)
         Y.append(ob)
@@ -372,13 +378,16 @@ def _optimize_impl(spec: SystemSpec, space: DesignSpace, key: int,
 def _two_stage_impl(spec: SystemSpec, space: DesignSpace, key: int,
                     n_candidates: int = 3,
                     sa: SAConfig = SAConfig(steps=250, chains=4),
-                    tech=None, archive=None, device="cuda") -> SearchResult:
+                    tech=None, archive=None,
+                    seed_designs: Optional[Sequence[Dict]] = None,
+                    device="cuda") -> SearchResult:
     """Stage 1 (architecture): search arch fields under several objective
     scalarizations, keep the Pareto-optimal candidates over
     (latency, energy, area).  Stage 2 (integration): for each kept
     candidate, open the integration fields (packaging/network/placement)
     and optimize EDP; the best pair wins.  ``key`` is an integer seed;
-    stage runs draw from ``fold_in(key, i)``."""
+    stage runs draw from ``fold_in(key, i)``.  ``seed_designs`` warm-start
+    every stage-1 scalarization's init phase."""
     tech = tech or DEFAULT_TECH
     keys = [fold_in(key, i) for i in range(8)]
 
@@ -390,7 +399,8 @@ def _two_stage_impl(spec: SystemSpec, space: DesignSpace, key: int,
                            bo_fields=("shape", "spatial"),
                            sa_fields=("order", "tiling", "pipe"),
                            n_init=4, n_iter=6, sa=sa, tech=tech,
-                           archive=archive, device=device)
+                           archive=archive, seed_designs=seed_designs,
+                           device=device)
         cands.append(r.design)
         m = r.metrics
         objs.append([float(m["latency_ns"]), float(m["energy_pj"]),

@@ -1,5 +1,5 @@
-"""One front door: the declarative Problem / Query / Session API, as
-``repro.explore.api`` has it, for the NSGA engine and the scalarized
+"""One front door: the declarative Problem / Query / Plan / Session API,
+as ``repro.explore.api`` has it, for the NSGA engine and the scalarized
 engines (re-exported at ``repro_torch.api``).
 
 * ``Problem``  — a canonical, hashable statement of *what* to search:
@@ -9,15 +9,20 @@ engines (re-exported at ``repro_torch.api``).
 * ``Query``    — a request against a problem: evaluation ``budget`` and
   ``engine`` (``"nsga"``, ``"bo_sa"``, ``"two_stage"``, or ``"auto"``:
   ``bo_sa`` with weights, ``nsga`` without).
+* ``Plan``     — what ``Session.plan(query)`` returns before any
+  evaluation is spent: the engine, the cache-hit verdict, the quantized
+  segment schedule, and the predicted transfer neighbors with their seed
+  quotas.
 * ``Session``  — owns an ``ExplorationService`` on a device;
   ``submit(query | [queries])`` returns one ``Result`` per query with a
-  ``Provenance`` record of the cache accounting.  NSGA queries go through
-  the service; scalarized queries run the BO x SA engine
-  (``core.optimizer``) on the service's device and never touch the archive
-  cache.
+  ``Provenance`` record of the cache / transfer / reallocation accounting.
+  NSGA queries go through the service (``transfer``, ``resume``,
+  ``control``); scalarized queries run the BO x SA engine
+  (``core.optimizer``, with ``seed_designs``) on the service's device and
+  never touch the archive cache.  A query's ``tech`` routes it to a
+  sibling session under that tech, on the same cache directory.
 
-``Session.plan``, ``submit_async``, transfer, seed designs, surrogate
-gating, resume, journals and per-query tech overrides are not ported yet:
+``submit_async``, surrogate gating and run journals are not ported yet:
 asking for one raises ``NotImplementedError`` naming it.  Nothing is
 dropped silently.
 """
@@ -27,16 +32,19 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..core.encoding import DesignSpace
 from ..core.evaluate import SystemSpec
-from ..core.optimizer import (METRIC_KEYS, OBJ_EDP, _optimize_impl,
-                              _two_stage_impl)
-from ..core.workload import WorkloadGraph
+from ..core.optimizer import (METRIC_KEYS, OBJ_EDP, SAConfig,
+                              _optimize_impl, _two_stage_impl)
+from ..core.presets import resolve_tech, tech_label
+from ..core.workload import WorkloadGraph, workload_features
 from ..runtime import fold_in
+from . import quantize
 from .archive import ConvergenceTrace, pareto_front, spec_space_key
 from .service import (DEFAULT_OBJECTIVES, BudgetPolicy, ExplorationService,
                       ExploreQuery, ExploreResult, SegmentEvent, not_ported)
@@ -118,12 +126,16 @@ class Query:
     ``"bo_sa"`` (the nested BO x SA engine under ``weights``),
     ``"two_stage"`` (the paper's architecture-then-integration flow) or
     ``"auto"`` (``bo_sa`` when ``weights`` are given, else ``nsga``).
-    ``budget`` and ``policy`` size the nsga engine; ``weights``,
-    ``archive`` and ``engine_opts`` (``n_init``, ``n_iter``, ``sa``,
-    ``bo_fields``, ``sa_fields``, ``init_design`` for ``bo_sa``;
-    ``n_candidates``, ``sa`` for ``two_stage``) the scalarized ones.
-    ``transfer``, ``seed_designs`` and ``tech`` exist for the reference's
-    other options and raise ``NotImplementedError`` when set."""
+    ``budget``, ``policy`` and ``transfer`` (seed from the migrated fronts
+    of the nearest cached problems) apply to the nsga engine; ``weights``,
+    ``seed_designs`` (designs, e.g. migrated ones, that replace the leading
+    random restarts), ``archive`` and ``engine_opts`` (``n_init``,
+    ``n_iter``, ``sa``, ``bo_fields``, ``sa_fields``, ``init_design`` for
+    ``bo_sa``; ``n_candidates``, ``sa`` for ``two_stage``) to the
+    scalarized ones.  ``tech`` (a preset name or artifact path, a
+    ``TechConstants`` or a calibrated tech; ``None`` = the session's)
+    evaluates this query under other constants, in an archive of its
+    own."""
     problem: Problem
     budget: int = 2048
     engine: str = "auto"
@@ -149,10 +161,59 @@ class Query:
 
 
 @dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """One planned scan segment: ``pop`` designs evaluated per generation
+    for ``generations`` generations (``n_evals`` total)."""
+    index: int
+    pop: int
+    generations: int
+    n_evals: int
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborPlan:
+    """One predicted transfer source: the neighbor's archive ``key``, its
+    trust-reweighted embedding ``distance``, and its seed ``quota``."""
+    key: str
+    distance: float
+    quota: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What a query WILL do, before any evaluation is spent.
+
+    ``cache_hit`` is the warm-serve verdict (``segments`` is then empty and
+    submitting costs nothing).  ``segments`` is the quantized schedule the
+    NSGA engine will run (or a scalarized engine's estimated spend, one
+    segment).  ``neighbors`` are the predicted transfer sources with their
+    seed quotas (``seed_cap`` bounds the total).  Advisory on a shared
+    cache: a peer may warm the archive between ``plan`` and ``submit``.
+    ``islands`` is always 1 (the port runs one device).  ``predicted_s``
+    stays ``None`` except on a cache hit (0.0): the reference predicts it
+    from its observability layer's segment-time histograms, which the port
+    does not have yet."""
+    engine: str
+    cache_key: str
+    cache_hit: bool
+    budget: int
+    objectives: Tuple[str, ...]
+    segments: Tuple[SegmentPlan, ...]
+    neighbors: Tuple[NeighborPlan, ...] = ()
+    seed_cap: int = 0
+    islands: int = 1
+    predicted_s: Optional[float] = None
+
+    @property
+    def n_evals_planned(self) -> int:
+        return sum(s.n_evals for s in self.segments)
+
+
+@dataclasses.dataclass(frozen=True)
 class Provenance:
     """Where a ``Result`` came from: the engine, the archive it was served
-    from, and the cache accounting (the reference's fields; transfer and
-    reallocation stay at their zero values in the port)."""
+    from, and the cache / transfer / reallocation accounting; ``tech`` is
+    ``"default"`` or ``"<preset>@<digest12>"`` (``presets.tech_label``)."""
     cache_key: str
     engine: str
     from_cache: bool
@@ -211,10 +272,6 @@ def _check_nsga(q: Query) -> None:
             "weights / seed_designs / archive / engine_opts apply to the "
             "scalarized engines; the nsga engine takes budget / transfer / "
             "policy")
-    if q.transfer:
-        raise not_ported("cross-workload transfer (Query.transfer)")
-    if q.tech is not None:
-        raise not_ported("per-query tech overrides (Query.tech)")
 
 
 def _validate_scalarized(q: Query, engine: str) -> None:
@@ -234,51 +291,163 @@ def _validate_scalarized(q: Query, engine: str) -> None:
     if bad:
         raise ValueError(f"engine_opts {bad} do not apply to the {engine!r} "
                          f"engine; it takes {SCALARIZED_OPTS[engine]}")
-    if q.seed_designs:
-        raise not_ported("seed designs (Query.seed_designs)")
-    if q.tech is not None:
-        raise not_ported("per-query tech overrides (Query.tech)")
 
 
 class Session:
-    """The front door: submit declarative queries.
+    """The front door: plan and submit declarative queries.
 
     Wraps an ``ExplorationService`` (constructed from the given kwargs —
-    ``cache_dir``, ``capacity``, ``nsga``, ``tech``, ``policy`` — when not
-    supplied) that runs on ``device`` (default ``"cuda"``; without a card
-    it raises unless ``device="cpu"`` is passed)."""
+    ``cache_dir``, ``capacity``, ``nsga``, ``tech``, ``policy``,
+    ``transfer_k``, ``manifest_policy`` — when not supplied) that runs on
+    ``device`` (default ``"cuda"``; without a card it raises unless
+    ``device="cpu"`` is passed).  ``tech`` may be a preset name, an
+    artifact path, a ``TechConstants`` or a calibrated tech."""
 
     def __init__(self, service: Optional[ExplorationService] = None,
                  journal=None, device="cuda", **service_kwargs):
         if journal:
             raise not_ported("run journals (Session(journal=...))")
         if service is None:
+            tech = service_kwargs.get("tech")
+            if tech is not None:
+                service_kwargs["tech"] = resolve_tech(tech)[1]
             service = ExplorationService(device=device, **service_kwargs)
+            self.tech_label = tech_label(tech)
+        else:
+            self.tech_label = tech_label(service.tech)
         self.service = service
+        self._tech_sessions: Dict[str, "Session"] = {}
 
-    def plan(self, query: Query):
-        raise not_ported("Session.plan")
+    @property
+    def tech(self):
+        return self.service.tech
+
+    def _service_config(self) -> Dict:
+        """What a sibling session needs to share this one's cache
+        directory, engines and policies."""
+        s = self.service
+        return dict(cache_dir=s.cache_dir, capacity=s.capacity, nsga=s.nsga,
+                    tech=s.tech, policy=s.policy, transfer_k=s.transfer_k,
+                    manifest_policy=s.manifest_policy, device=s.device)
+
+    def _cache_key(self, p: Problem) -> str:
+        """The archive identity of ``p`` under this session's tech."""
+        return self.service.problem_key(p.spec, p.space)
+
+    def _session_for(self, tech) -> "Session":
+        """The session answering queries under ``tech``: this one when the
+        labels match, else a cached sibling on the same cache directory —
+        distinct tech digests key distinct archives."""
+        if tech is None:
+            return self
+        label = tech_label(tech)
+        if label == self.tech_label:
+            return self
+        if label not in self._tech_sessions:
+            cfg = self._service_config()
+            cfg["tech"] = tech
+            self._tech_sessions[label] = Session(**cfg)
+        return self._tech_sessions[label]
+
+    # ---- planning ----------------------------------------------------------
+    def plan(self, query: Query) -> Plan:
+        """What ``submit`` would do for one query, spending no evaluations:
+        resolved engine, archive cache key and warm-serve verdict, the
+        quantized segment schedule, and — for transfer queries — the
+        predicted neighbors with their seed quotas."""
+        sub = self._session_for(query.tech)
+        if sub is not self:
+            return sub.plan(query)
+        engine = query.resolved_engine()
+        p = query.problem
+        ck = self._cache_key(p)
+        if engine in ("bo_sa", "two_stage"):
+            _validate_scalarized(query, engine)
+            n = _scalarized_evals(query)
+            return Plan(engine=engine, cache_key=ck, cache_hit=False,
+                        budget=n, objectives=p.objectives,
+                        segments=(SegmentPlan(0, 1, 1, n),))
+        _check_nsga(query)
+        svc = self.service
+        arc = svc.archive_for(p.spec, p.space, key=ck)
+        budget = int(query.budget)
+        if svc.warm_verdict(arc, p.objectives, budget):
+            return Plan(engine=engine, cache_key=ck, cache_hit=True,
+                        budget=budget, objectives=p.objectives,
+                        segments=(), predicted_s=0.0)
+        policy = query.policy or svc.policy
+        sched = quantize.schedule(budget, svc.nsga.pop,
+                                  policy.chunk_generations)
+        pop, chunk = sched.pop, sched.chunk
+        segments = tuple(SegmentPlan(i, pop, chunk, pop * chunk)
+                         for i in range(sched.n_seg))
+        neighbors, cap = (), 0
+        if query.transfer:
+            cap = pop if len(arc) == 0 else max(pop // 2, 1)
+            m, neigh, quotas = svc._transfer_plan(
+                ck, workload_features(p.spec.graph), cap)
+            neighbors = tuple(
+                NeighborPlan(nk, float(dist), int(quotas.get(nk, 1)))
+                for nk, dist in neigh
+                if m.entries[nk].get("digest") is not None)
+        return Plan(engine=engine, cache_key=ck, cache_hit=False,
+                    budget=budget, objectives=p.objectives,
+                    segments=segments, neighbors=neighbors, seed_cap=cap)
 
     def submit_async(self, query: Query, key=None, deadline_s=None):
         raise not_ported("Session.submit_async")
 
+    # ---- execution ---------------------------------------------------------
     def submit(self, queries: Union[Query, Sequence[Query]], key: int = 0,
                on_segment=None, resume: bool = False,
                control=None) -> Union[Result, List[Result]]:
         """Execute one query (returns its ``Result``) or a batch (returns a
         ``Result`` per query, in order).  Same-problem nsga queries of a
-        batch merge into one run; scalarized queries run one by one after
-        them.  ``key`` is the integer seed of the submission;
-        ``on_segment`` streams every nsga scan segment's ``SegmentEvent``
-        as it completes, and one completion event per scalarized query."""
-        if resume:
-            raise not_ported("checkpoint resume (submit(resume=True))")
-        if control is not None:
-            raise not_ported("cooperative stop (submit(control=...))")
+        batch merge into one run and banked budget reallocates across the
+        batch; scalarized queries run one by one after them.  ``key`` is
+        the integer seed of the submission; ``on_segment`` streams every
+        nsga scan segment's ``SegmentEvent`` as it completes, and one
+        completion event per scalarized query.  ``resume=True`` checkpoints
+        every nsga segment and restores a matching checkpoint on entry: a
+        stopped or killed submission re-submitted with the same queries and
+        ``key`` spends only the residual budget and lands on the
+        bit-identical front.  ``control`` (a ``service.RunControl``) stops
+        at the next segment boundary; those results carry
+        ``provenance.interrupted=True``."""
         single = isinstance(queries, Query)
         qs: List[Query] = [queries] if single else list(queries)
         if not qs:
             return []
+        out = self._submit_impl(qs, int(key), on_segment, single, resume,
+                                control)
+        return out[0] if single else out
+
+    def _submit_impl(self, qs: List[Query], key: int, on_segment,
+                     single: bool, resume: bool, control) -> List[Result]:
+        # per-query tech overrides route to sibling sessions (same cache
+        # directory, distinct tech digests, so distinct archives); each
+        # routed group's stream domain-separates on its label
+        routed: Dict[str, Tuple["Session", List[int]]] = {}
+        for i, q in enumerate(qs):
+            s = self._session_for(q.tech)
+            if s is not self:
+                routed.setdefault(s.tech_label, (s, []))[1].append(i)
+        if routed:
+            results: Dict[int, Result] = {}
+            mine = [i for i, q in enumerate(qs)
+                    if self._session_for(q.tech) is self]
+            if mine:
+                for i, r in zip(mine, self._submit_impl(
+                        [qs[i] for i in mine], key, on_segment, False,
+                        resume, control)):
+                    results[i] = r
+            for label, (s, idxs) in routed.items():
+                k2 = fold_in(key, zlib.crc32(label.encode()) & 0x7FFFFFFF)
+                for i, r in zip(idxs, s._submit_impl(
+                        [qs[i] for i in idxs], k2, on_segment,
+                        single and len(idxs) == len(qs), resume, control)):
+                    results[i] = r
+            return [results[i] for i in range(len(qs))]
         nsga_idx = [i for i, q in enumerate(qs)
                     if q.resolved_engine() == "nsga"]
         for i, q in enumerate(qs):          # validate the whole batch first
@@ -299,7 +468,8 @@ class Session:
             try:
                 ers = svc.run_queries(
                     [self._to_explore_query(qs[i]) for i in nsga_idx],
-                    key=int(key), on_segment=on_segment)
+                    key=key, on_segment=on_segment, resume=resume,
+                    control=control)
             finally:
                 svc.policy = saved
             for i, er in zip(nsga_idx, ers):
@@ -310,20 +480,19 @@ class Session:
             # a single query takes the caller's key verbatim; batched
             # scalarized queries draw from a domain-separated stream so
             # they never collide with run_queries' per-group folds
-            k = int(key) if single else fold_in(fold_in(key, 0x5ca1a2), i)
+            k = key if single else fold_in(fold_in(key, 0x5ca1a2), i)
             results[i] = self._run_scalarized(q, q.resolved_engine(), k,
                                               on_segment)
-        out = [results[i] for i in range(len(qs))]
-        return out[0] if single else out
+        return [results[i] for i in range(len(qs))]
 
     @staticmethod
     def _to_explore_query(q: Query) -> ExploreQuery:
         p = q.problem
         return ExploreQuery(p.graph, p.objectives, int(q.budget), p.ch_max,
-                            p.space_kwargs, spec=p.spec, space=p.space)
+                            p.space_kwargs, q.transfer, spec=p.spec,
+                            space=p.space)
 
-    @staticmethod
-    def _wrap(er: ExploreResult) -> Result:
+    def _wrap(self, er: ExploreResult) -> Result:
         return Result(
             objectives=er.objectives,
             front_objs=er.front_objs, front_metrics=er.front_metrics,
@@ -331,9 +500,12 @@ class Session:
             provenance=Provenance(
                 cache_key=er.cache_key, engine="nsga",
                 from_cache=er.from_cache, n_evals_run=er.n_evals_run,
-                n_evals_banked=er.n_evals_banked, n_evals_realloc=0,
-                transferred_from=(), n_transfer_seeds=0,
-                plateaued=er.plateaued, elapsed_s=er.elapsed_s),
+                n_evals_banked=er.n_evals_banked,
+                n_evals_realloc=er.n_evals_realloc,
+                transferred_from=er.transferred_from,
+                n_transfer_seeds=er.n_transfer_seeds,
+                plateaued=er.plateaued, elapsed_s=er.elapsed_s,
+                interrupted=er.interrupted, tech=self.tech_label),
             raw=er)
 
     def _run_scalarized(self, q: Query, engine: str, key: int,
@@ -349,12 +521,14 @@ class Session:
         t0 = time.perf_counter()
         if engine == "two_stage":
             sr = _two_stage_impl(p.spec, p.space, key, tech=svc.tech,
-                                 archive=q.archive, device=svc.device,
-                                 **opts)
+                                 archive=q.archive,
+                                 seed_designs=q.seed_designs,
+                                 device=svc.device, **opts)
         else:
             sr = _optimize_impl(p.spec, p.space, key,
                                 weights=q.weights or OBJ_EDP,
                                 tech=svc.tech, archive=q.archive,
+                                seed_designs=q.seed_designs,
                                 device=svc.device, **opts)
         elapsed = time.perf_counter() - t0
         if on_segment is not None:
@@ -383,11 +557,54 @@ class Session:
             provenance=Provenance(
                 cache_key=ck, engine=engine, from_cache=False,
                 n_evals_run=n_evals, n_evals_banked=0, n_evals_realloc=0,
-                transferred_from=(), n_transfer_seeds=0, plateaued=False,
-                elapsed_s=elapsed),
+                transferred_from=(),
+                n_transfer_seeds=len(q.seed_designs or ()),
+                plateaued=False, elapsed_s=elapsed, tech=self.tech_label),
             best_design={k: v.cpu().numpy() for k, v in sr.design.items()},
             best_objective=sr.objective, best_metrics=sr.metrics, raw=sr)
 
 
-__all__ = ["ENGINES", "Problem", "Provenance", "Query", "Result",
-           "SegmentEvent", "Session"]
+def _scalarized_evals(query: Query) -> int:
+    """Planned evaluation spend of a scalarized query (an estimate: the
+    two-stage selector's stage-2 count depends on the data)."""
+    opts = dict(query.engine_opts or {})
+    if query.resolved_engine() == "two_stage":
+        sa = opts.get("sa", SAConfig(steps=250, chains=4))
+        n_scal = max(int(opts.get("n_candidates", 3)), 2)
+        return n_scal * (4 + 6) * sa.steps * sa.chains  # n_init=4, n_iter=6
+    sa = opts.get("sa", SAConfig())
+    n_init = int(opts.get("n_init", 8))
+    n_iter = int(opts.get("n_iter", 24))
+    bo = opts.get("bo_fields", None)
+    has_bo = True if bo is None else len(tuple(bo)) > 0
+    return (n_init + (n_iter if has_bo else 0)) * sa.steps * sa.chains
+
+
+# ---------------------------------------------------------------------------
+# module-level conveniences over a process-wide default session
+# ---------------------------------------------------------------------------
+_DEFAULT_SESSION: Optional[Session] = None
+
+
+def session(**kwargs) -> Session:
+    """The process-wide default ``Session`` (kwargs only on first
+    construction)."""
+    global _DEFAULT_SESSION
+    if _DEFAULT_SESSION is None:
+        _DEFAULT_SESSION = Session(**kwargs)
+    elif kwargs:
+        raise RuntimeError(
+            "the default session is already initialized; construct "
+            "Session(...) directly for a custom configuration")
+    return _DEFAULT_SESSION
+
+
+def plan(query: Query) -> Plan:
+    """``session().plan(query)``."""
+    return session().plan(query)
+
+
+__all__ = [
+    "ENGINES", "NeighborPlan", "Plan", "Problem", "Provenance", "Query",
+    "Result", "SegmentEvent", "SegmentPlan", "Session", "plan", "session",
+]

@@ -15,9 +15,15 @@ search-path half of ``repro.explore.archive``).
   ``insert`` runs its merge / rank / prune there.  The npz format
   (``__meta``, ``objs``, ``valid``, ``d_<field>``) is the reference's, so
   the port loads archives the reference wrote.
+  ``merge`` folds a peer process's copy of the same archive in (the
+  reload-under-lock half of the shared-cache write path).
 * ``spec_space_key`` — the content hash of a (SystemSpec, DesignSpace)
   pair; the service salts it so the port's fronts never share a cache file
   with the reference's.
+* ``ArchiveManifest`` — the nearest-neighbor index over every archived
+  problem of a cache directory (workload embeddings, migration digests,
+  LRU / dedup growth policy, the transfer trust table), host-side numpy in
+  the reference's file format.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import hashlib
 import json
 import os
 import threading
+import warnings
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -298,6 +305,19 @@ def _archive_update(objs, valid, designs, new_objs, new_valid, new_designs):
              for k in designs})
 
 
+def flatten_design(design: Dict) -> torch.Tensor:
+    """One design (arrays or tensors) -> a flat float32 feature vector,
+    leaves raveled in canonical sorted-key order: the layout of
+    ``ParetoArchive.export_rows``."""
+    return torch.cat([torch.as_tensor(design[k]).reshape(-1).to(F)
+                      for k in sorted(design)])
+
+
+def design_encoding_dim(template: Dict) -> int:
+    """Length of ``flatten_design`` output for one design template."""
+    return int(sum(int(np.prod(np.shape(v))) for v in template.values()))
+
+
 class ParetoArchive:
     """Fixed-capacity nondominated archive over stacked design tensors, on
     one device.
@@ -351,6 +371,52 @@ class ParetoArchive:
         if count_evals:
             self.n_evals += int(m)
         return self
+
+    def merge(self, other: "ParetoArchive") -> "ParetoArchive":
+        """Fold another archive of the SAME problem into this one — the
+        reload-under-lock half of the shared-cache write path: a writer
+        about to ``save`` merges what a peer process put on disk since it
+        last loaded, so concurrent refinements union instead of
+        last-``os.replace``-wins.
+
+        Only rows not already present are inserted (exact objective-row
+        bytes), through ``insert`` on this archive's device with
+        ``count_evals=False``: the peer counted its own evaluations.
+        Counters take the element-wise max, ``searched`` the union."""
+        if set(other.designs) != set(self.designs):
+            raise ValueError("cannot merge archives of different design "
+                             "templates")
+        have = {r.tobytes()
+                for r in self.objs[self.valid].cpu().numpy()}
+        o_objs = other.objs.cpu().numpy()
+        sel = [int(i) for i in np.flatnonzero(other.valid.cpu().numpy())
+               if o_objs[i].tobytes() not in have]
+        if sel:
+            idx = torch.as_tensor(sel, device=other.objs.device)
+            self.insert({k: v[idx] for k, v in other.designs.items()},
+                        other.objs[idx], count_evals=False)
+        self.n_evals = max(self.n_evals, other.n_evals)
+        self.budget_covered = max(self.budget_covered, other.budget_covered)
+        self.searched = tuple(sorted(set(self.searched)
+                                     | set(other.searched)))
+        if not self.trace_summary:
+            self.trace_summary = dict(other.trace_summary)
+        return self
+
+    def export_rows(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Training rows of this archive: ``(X, Y)`` with ``X`` the (n, D)
+        float32 ``flatten_design`` encodings of the valid rows and ``Y``
+        their (n, n_obj) float64 raw metrics; an empty archive exports
+        ``(0, D)`` / ``(0, n_obj)``."""
+        D = design_encoding_dim({k: v[0] for k, v in self.designs.items()})
+        sel = torch.nonzero(self.valid).flatten()
+        if not len(sel):
+            return (np.zeros((0, D), np.float32),
+                    np.zeros((0, self.n_obj), np.float64))
+        X = torch.cat([self.designs[k][sel].reshape(len(sel), -1).to(F)
+                       for k in sorted(self.designs)], dim=1)
+        return (X.cpu().numpy(),
+                self.objs[sel].cpu().numpy().astype(np.float64))
 
     def front(self) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
         """(stacked designs of the valid rows, their (n, n_obj) float64
@@ -432,3 +498,397 @@ def spec_space_key(spec, space, extra=None) -> str:
                    int(space.fixed_family),
                    bool(space.allow_pipeline))).encode())
     return h.hexdigest()[:20]
+
+
+
+# ---------------------------------------------------------------------------
+# cross-spec archive manifest: the nearest-neighbor index over every cached
+# exploration problem, keyed by workload-feature embedding
+# ---------------------------------------------------------------------------
+MANIFEST_NAME = "manifest.npz"
+
+
+@dataclasses.dataclass(frozen=True)
+class ManifestPolicy:
+    """Growth policy of the manifest index.
+
+    ``max_entries`` bounds the index: past it, the least-recently-used
+    entry (lowest ``last_used`` tick) is evicted — the index entry only;
+    its archive npz stays on disk.  ``dedup_radius`` > 0 merges entries
+    whose embeddings are within that Euclidean distance (the
+    better-explored twin survives).  ``max_trust_records`` bounds the
+    transfer-outcome table (oldest dropped first).  ``reap_evicted_after``
+    > 0 deletes the archive npz of an entry that stayed evicted for that
+    many LRU ticks (at the next ``reap_evicted`` sweep)."""
+    max_entries: int = 64
+    dedup_radius: float = 0.0
+    max_trust_records: int = 256
+    reap_evicted_after: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrustModel:
+    """Ridge regression ``lift ~ w0 + w . |embedding delta|`` over recorded
+    transfer outcomes.  ``predict`` returns the expected lift for a
+    candidate (src, dst) pair, clamped at 0."""
+    weights: np.ndarray                # (D + 1,) intercept first
+
+    def predict(self, delta) -> float:
+        d = np.abs(np.asarray(delta, np.float64).ravel())
+        if d.shape[0] + 1 != self.weights.shape[0]:
+            return 0.0                 # embedding layout drifted: neutral
+        return float(max(self.weights[0] + self.weights[1:] @ d, 0.0))
+
+
+def fit_trust_model(records: Sequence[Dict], dim: Optional[int] = None,
+                    ridge: float = 1.0,
+                    min_records: int = 3) -> Optional[TrustModel]:
+    """Fit a ``TrustModel`` over transfer-outcome records (dicts with
+    ``delta`` (D,) and ``lift``).  Records whose delta dimension differs
+    from ``dim`` (default: the modal dimension, the freshest layout winning
+    ties) are skipped; fewer than ``min_records`` usable records yield
+    ``None``."""
+    usable = [r for r in records
+              if np.all(np.isfinite(np.asarray(r["delta"], np.float64)))
+              and np.isfinite(r["lift"])]
+    if not usable:
+        return None
+    if dim is None:
+        sizes = [np.asarray(r["delta"]).size for r in usable]
+        counts: Dict[int, int] = {}
+        for sz in sizes:
+            counts[sz] = counts.get(sz, 0) + 1
+        dim = max(counts, key=lambda sz: (counts[sz],
+                                          max(i for i, x in enumerate(sizes)
+                                              if x == sz)))
+    usable = [r for r in usable if np.asarray(r["delta"]).size == dim]
+    if len(usable) < max(int(min_records), 1):
+        return None
+    X = np.stack([np.concatenate(
+        [[1.0], np.abs(np.asarray(r["delta"], np.float64).ravel())])
+        for r in usable])
+    y = np.asarray([float(r["lift"]) for r in usable])
+    A = X.T @ X + ridge * np.eye(X.shape[1])
+    A[0, 0] -= ridge                   # don't shrink the intercept
+    try:
+        w = np.linalg.solve(A, X.T @ y)
+    except np.linalg.LinAlgError:
+        return None
+    return TrustModel(weights=w)
+
+
+class ArchiveManifest:
+    """Index of an explore cache directory: one entry per archived problem
+    key, carrying the problem's workload-feature embedding, its padded
+    dims, freshness counters, an LRU ``last_used`` tick and a JSON-portable
+    space digest (what ``core.encoding.migrate`` needs to move designs OUT
+    of that archive).  A ``ManifestPolicy`` bounds growth, and a trust
+    table of per-(src, dst) transfer outcomes feeds ``fit_trust_model``.
+
+    ``nearest(embedding, k)`` ranks cached problems by Euclidean distance
+    in embedding space, optionally reweighted by a ``TrustModel``.  The
+    file is the reference's (one atomically written npz, ``__meta`` JSON
+    plus one ``emb_<i>`` array per entry; the stacked pre-v2 layout loads
+    too); a damaged file loads as an empty manifest, with a warning."""
+
+    def __init__(self, path=None, policy: ManifestPolicy = ManifestPolicy()):
+        self.path = Path(path) if path is not None else None
+        self.policy = policy
+        self.entries: Dict[str, Dict] = {}
+        self.trust: List[Dict] = []    # per-(src, dst) transfer outcomes
+        self.clock = 0                 # monotone LRU tick
+        self.evicted: Dict[str, int] = {}   # key -> tick it left the index
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def _tick(self) -> int:
+        self.clock += 1
+        return self.clock
+
+    def touch(self, key: str):
+        """Mark one entry as just used."""
+        if key in self.entries:
+            self.entries[key]["last_used"] = self._tick()
+        return self
+
+    def update(self, key: str, embedding, dims: Tuple[int, int, int],
+               n_evals: int, budget_covered: int,
+               searched: Sequence[str], digest: Optional[Dict] = None):
+        """Insert or refresh one problem's entry (the previous digest kept
+        when not re-supplied), then enforce the growth policy; the entry
+        being written is never the one evicted or merged away."""
+        prev = self.entries.get(key, {})
+        self.evicted.pop(key, None)
+        self.entries[key] = dict(
+            embedding=np.asarray(embedding, np.float64),
+            dims=tuple(int(v) for v in dims),
+            n_evals=int(n_evals), budget_covered=int(budget_covered),
+            searched=tuple(searched),
+            digest=digest if digest is not None else prev.get("digest"),
+            last_used=self._tick())
+        self.enforce(protect=(key,))
+        return self
+
+    # ---- growth policy -----------------------------------------------------
+    def enforce(self, protect: Sequence[str] = ()):
+        """Dedup first, then LRU eviction down to ``max_entries``;
+        ``protect`` keys are never removed."""
+        self.dedup(protect=protect)
+        prot = set(protect)
+        while len(self.entries) > max(int(self.policy.max_entries), 1):
+            victims = [k for k in self.entries if k not in prot]
+            if not victims:
+                break
+            victim = min(victims, key=lambda k: (
+                self.entries[k].get("last_used", 0), k))
+            del self.entries[victim]
+            self.evicted[victim] = self.clock
+        return self
+
+    def reap_evicted(self, cache_dir=None) -> Tuple[str, ...]:
+        """Opt-in archive-file GC (``policy.reap_evicted_after`` > 0):
+        delete the npz of every key that left the index at least that many
+        ticks ago and was never re-indexed.  Returns the reaped keys."""
+        after = int(self.policy.reap_evicted_after)
+        if after <= 0 or not self.evicted:
+            return ()
+        root = Path(cache_dir) if cache_dir is not None else (
+            self.path.parent if self.path is not None else None)
+        if root is None:
+            return ()
+        reaped = []
+        for key, tick in list(self.evicted.items()):
+            if key in self.entries:
+                self.evicted.pop(key)
+                continue
+            if self.clock - int(tick) < after:
+                continue
+            (root / f"{key}.npz").unlink(missing_ok=True)
+            self.evicted.pop(key)
+            reaped.append(key)
+        return tuple(reaped)
+
+    def _survivor(self, a: str, b: str, protect: Sequence[str]) -> str:
+        """Which of two near-identical entries survives a merge: protected
+        keys, then the better-explored one, ties broken on the key — so
+        merging is commutative."""
+        if (a in protect) != (b in protect):
+            return a if a in protect else b
+        score = lambda k: (self.entries[k]["n_evals"],
+                           self.entries[k]["budget_covered"], k)
+        return max((a, b), key=score)
+
+    def dedup(self, protect: Sequence[str] = ()):
+        """Merge entries whose embeddings lie within ``dedup_radius``: the
+        survivor keeps its key/embedding/digest and absorbs the max of the
+        counters and the union of the searched objectives.  Key-sorted
+        pairs with a symmetric survivor rule: idempotent and commutative."""
+        radius = float(self.policy.dedup_radius)
+        if radius <= 0 or len(self.entries) < 2:
+            return self
+        keys = sorted(self.entries)
+        gone: set = set()
+        for i, a in enumerate(keys):
+            if a in gone:
+                continue
+            for b in keys[i + 1:]:
+                if a in gone:
+                    break
+                if b in gone:
+                    continue
+                ea, eb = self.entries[a], self.entries[b]
+                if ea["embedding"].shape != eb["embedding"].shape:
+                    continue
+                if np.linalg.norm(ea["embedding"]
+                                  - eb["embedding"]) > radius:
+                    continue
+                keep = self._survivor(a, b, protect)
+                drop = b if keep == a else a
+                ek, ed = self.entries[keep], self.entries[drop]
+                ek["n_evals"] = max(ek["n_evals"], ed["n_evals"])
+                ek["budget_covered"] = max(ek["budget_covered"],
+                                           ed["budget_covered"])
+                ek["searched"] = tuple(sorted(
+                    set(ek["searched"]) | set(ed["searched"])))
+                ek["last_used"] = max(ek.get("last_used", 0),
+                                      ed.get("last_used", 0))
+                gone.add(drop)
+        for k in gone:
+            del self.entries[k]
+            self.evicted[k] = self.clock
+        return self
+
+    def merge(self, other: "ArchiveManifest") -> "ArchiveManifest":
+        """Fold another manifest into this one (typically ``self`` is the
+        copy just re-read from disk under the lock and ``other`` this
+        process's pending state): entries union by key (counters and LRU
+        tick take the max, ``searched`` the union), trust records union
+        without duplicates, the max clock wins.  Enforcing the growth
+        policy is the caller's job."""
+        for key, e in other.entries.items():
+            mine = self.entries.get(key)
+            if mine is None:
+                self.entries[key] = dict(
+                    e, embedding=np.asarray(e["embedding"], np.float64),
+                    searched=tuple(e["searched"]))
+                continue
+            mine["n_evals"] = max(mine["n_evals"], e["n_evals"])
+            mine["budget_covered"] = max(mine["budget_covered"],
+                                         e["budget_covered"])
+            mine["searched"] = tuple(sorted(set(mine["searched"])
+                                            | set(e["searched"])))
+            mine["last_used"] = max(mine.get("last_used", 0),
+                                    e.get("last_used", 0))
+            if mine.get("digest") is None:
+                mine["digest"] = e.get("digest")
+        seen = {(r["src"], r["dst"], r["lift"], r["delta"].tobytes())
+                for r in self.trust}
+        for r in other.trust:
+            ident = (r["src"], r["dst"], r["lift"], r["delta"].tobytes())
+            if ident not in seen:
+                seen.add(ident)
+                self.trust.append(dict(r))
+        keep = max(int(self.policy.max_trust_records), 1)
+        if len(self.trust) > keep:
+            self.trust = self.trust[-keep:]
+        self.clock = max(self.clock, other.clock)
+        for k, t in other.evicted.items():
+            self.evicted[k] = max(self.evicted.get(k, 0), int(t))
+        for k in list(self.evicted):
+            if k in self.entries:
+                del self.evicted[k]
+        return self
+
+    # ---- trust table -------------------------------------------------------
+    def record_transfer(self, src: str, dst: str, delta, lift: float):
+        """Append one observed transfer outcome: seeds from ``src`` in
+        ``dst``'s run, embeddings differing by ``delta``, with ``lift``
+        the run's front-loadedness.  Oldest records roll off."""
+        self.trust.append(dict(
+            src=str(src), dst=str(dst),
+            delta=np.asarray(delta, np.float64).ravel(),
+            lift=float(lift)))
+        keep = max(int(self.policy.max_trust_records), 1)
+        if len(self.trust) > keep:
+            self.trust = self.trust[-keep:]
+        return self
+
+    def export_index(self, exclude: Sequence[str] = ()
+                     ) -> List[Tuple[str, np.ndarray]]:
+        """``(key, embedding)`` for every indexed problem with paid
+        evaluations and a digest, sorted by key, minus ``exclude``."""
+        skip = set(exclude)
+        return [(k, e["embedding"]) for k, e in sorted(self.entries.items())
+                if k not in skip and e["n_evals"] > 0
+                and e.get("digest") is not None]
+
+    def trust_model(self, dim: Optional[int] = None
+                    ) -> Optional[TrustModel]:
+        """The ridge ``TrustModel`` over this manifest's recorded outcomes
+        (``None`` until enough records accumulate).  The reference switches
+        to a non-linear head from its surrogate module at 32 records; that
+        module is not ported, so the port fits the ridge model at every
+        depth (the two agree below 32 records)."""
+        return fit_trust_model(self.trust, dim=dim)
+
+    def nearest(self, embedding, k: int = 3,
+                exclude: Sequence[str] = (),
+                trust: Optional[TrustModel] = None
+                ) -> List[Tuple[str, float]]:
+        """The ``k`` cached problems closest to ``embedding`` (ascending
+        distance), skipping excluded keys, empty archives and mismatched
+        embedding dimensions; with ``trust``, each distance is divided by
+        ``1 + max(predicted lift, 0)``.  Ties break on key."""
+        q = np.asarray(embedding, np.float64).ravel()
+        out = []
+        for key, e in self.entries.items():
+            if key in exclude or e["n_evals"] <= 0:
+                continue
+            emb = e["embedding"]
+            if emb.shape != q.shape:
+                continue
+            dist = float(np.linalg.norm(emb - q))
+            if trust is not None:
+                dist = dist / (1.0 + max(trust.predict(q - emb), 0.0))
+            out.append((key, dist))
+        out.sort(key=lambda t: (t[1], t[0]))
+        return out[:max(int(k), 0)]
+
+    # ---- persistence -------------------------------------------------------
+    def save(self, path=None) -> Path:
+        path = Path(path) if path is not None else self.path
+        if path is None:
+            raise ValueError("manifest has no path")
+        keys = sorted(self.entries)
+        meta = dict(
+            version=3,
+            keys=keys,
+            clock=int(self.clock),
+            evicted={k: int(t) for k, t in self.evicted.items()},
+            entries={k: dict(
+                dims=list(self.entries[k]["dims"]),
+                n_evals=self.entries[k]["n_evals"],
+                budget_covered=self.entries[k]["budget_covered"],
+                searched=list(self.entries[k]["searched"]),
+                last_used=int(self.entries[k].get("last_used", 0)),
+                digest=self.entries[k]["digest"]) for k in keys},
+            trust=[dict(src=r["src"], dst=r["dst"], lift=r["lift"],
+                        delta=[float(v) for v in r["delta"]])
+                   for r in self.trust])
+        # one array per entry: entries of different embedding layouts save
+        # side by side
+        emb = {f"emb_{i}": np.asarray(self.entries[k]["embedding"],
+                                      np.float64)
+               for i, k in enumerate(keys)}
+        return atomic_savez(
+            path, __meta=np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8),
+            **emb)
+
+    @classmethod
+    def load(cls, path,
+             policy: ManifestPolicy = ManifestPolicy()) -> "ArchiveManifest":
+        """Load a manifest, tolerating absence and damage (an unreadable
+        file yields an EMPTY manifest with a warning).  Files without LRU
+        ticks or a trust table load with zeroed ``last_used`` and an empty
+        table.  This reader's policy is enforced at once."""
+        path = Path(path)
+        m = cls(path, policy=policy)
+        if not path.exists():
+            return m
+        try:
+            with np.load(path) as z:
+                meta = json.loads(bytes(z["__meta"]).decode())
+                if "embeddings" in z.files:     # stacked pre-v2 layout
+                    stacked = np.asarray(z["embeddings"], np.float64)
+                    emb = [stacked[i] for i in range(len(meta["keys"]))]
+                else:
+                    emb = [np.asarray(z[f"emb_{i}"], np.float64)
+                           for i in range(len(meta["keys"]))]
+            for i, k in enumerate(meta["keys"]):
+                e = meta["entries"][k]
+                m.entries[k] = dict(
+                    embedding=emb[i],
+                    dims=tuple(e["dims"]),
+                    n_evals=int(e["n_evals"]),
+                    budget_covered=int(e["budget_covered"]),
+                    searched=tuple(e["searched"]),
+                    digest=e.get("digest"),
+                    last_used=int(e.get("last_used", 0)))
+            m.clock = int(meta.get("clock", 0))
+            m.evicted = {str(k): int(t)
+                         for k, t in meta.get("evicted", {}).items()}
+            m.trust = [dict(src=r["src"], dst=r["dst"],
+                            delta=np.asarray(r["delta"], np.float64),
+                            lift=float(r["lift"]))
+                       for r in meta.get("trust", [])]
+        except Exception as exc:        # a disposable index: never fatal
+            warnings.warn(f"discarding unreadable explore manifest "
+                          f"{path}: {exc}")
+            m.entries = {}
+            m.trust = []
+            m.clock = 0
+            m.evicted = {}
+        m.enforce()
+        return m

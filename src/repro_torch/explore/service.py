@@ -1,6 +1,5 @@
 """The exploration *service*: the NSGA engine backend behind
-``repro_torch.api.Session.submit`` — the path a default query takes in
-``repro.explore.service``:
+``repro_torch.api.Session.submit`` — the port of ``repro.explore.service``:
 
 * **Archive cache** — before spending compute, the service consults the
   per-problem ``ParetoArchive`` (in memory, then on disk under
@@ -15,24 +14,42 @@
   scan *segments*; once the archive-projected hypervolume of every queried
   objective pair improved by less than ``plateau_rel`` for ``patience``
   segments, refinement stops early and the unspent evaluations are banked
-  in the per-problem ledger.
+  in the per-problem ledger, which ``reallocate`` spends on the batch's
+  still-improving groups.
+* **Cross-workload transfer** — ``transfer=True`` seeds cold starts and
+  budget-increase refinements from the migrated fronts of the nearest
+  cached neighbors (``ArchiveManifest.nearest``, trust-reweighted once the
+  manifest's outcome table supports a fit); seeds that duplicate the
+  destination's own front are dropped, a cold start with no neighbor gets
+  one ``balanced_init`` design, and every seeded run books its observed
+  hypervolume lift into the trust table.
+* **A fleet-shared cache** — archive and manifest writes run lock → reload
+  → merge → replace under ``locks.file_lock``, so services in several
+  processes pointed at one directory union their results.
+* **Resume** — ``run_queries(resume=True)`` checkpoints every segment
+  beside the archive; a stopped (``RunControl``) or killed run re-submitted
+  with the same queries and key restores the last completed segment and
+  lands on the bit-identical front.
 
 Archives live on the service's device and every insert runs there.  The
-archive cache key is salted with ``CACHE_SALT``, so fronts of the port and
-of the reference never share an archive file.  Cross-workload transfer,
-the manifest, surrogate gating, megabatching, budget reallocation,
-checkpoint/resume and observability are not ported yet: asking for one
-raises ``NotImplementedError`` naming it.
+archive cache key and the checkpoint signature are salted with
+``CACHE_SALT``, so the port and the reference never share an archive file
+or a checkpoint.  Surrogate gating and megabatching are not ported:
+asking for one raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
+import json
 import os
+import threading
 import time
 import warnings
 import zipfile
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -40,14 +57,20 @@ import numpy as np
 import torch
 
 from ..core.constants import DEFAULT_TECH, TechConstants, tech_key
-from ..core.encoding import DesignSpace, random_design
+from ..core.encoding import (DesignSpace, balanced_init, migrate,
+                             portable_signature, random_design, repair,
+                             space_digest)
 from ..core.evaluate import SystemSpec
 from ..core.optimizer import METRIC_KEYS
-from ..core.workload import WorkloadGraph
+from ..core.presets import resolve_tech
+from ..core.workload import (WorkloadGraph, embedding_delta,
+                             workload_features)
 from ..runtime import fold_in, resolve_device
 from . import quantize
-from .archive import (ConvergenceTrace, ParetoArchive, objective_pairs,
-                      pareto_front, spec_space_key)
+from .archive import (MANIFEST_NAME, ArchiveManifest, ConvergenceTrace,
+                      ManifestPolicy, ParetoArchive, atomic_savez,
+                      objective_pairs, pareto_front, spec_space_key)
+from .locks import LockTimeout, file_lock, lock_path
 from .nsga import NSGAConfig, make_nsga
 
 # the default archive cache is anchored to the repo root (four levels above
@@ -55,8 +78,8 @@ from .nsga import NSGAConfig, make_nsga
 DEFAULT_CACHE_DIR = (Path(__file__).resolve().parents[3]
                      / "artifacts" / "explore_cache")
 DEFAULT_OBJECTIVES = ("latency_ns", "cost_usd")
-# folded into every archive key: the port's evaluator never serves a front
-# the reference's wrote, nor the other way round
+# folded into every archive key and checkpoint signature: the port's
+# evaluator never serves a front, nor resumes a run, the reference wrote
 CACHE_SALT = "repro_torch"
 
 
@@ -83,6 +106,20 @@ def resolve_cache_dir(cache_dir=None) -> Path:
     return p
 
 
+def _transfer_lift(trace: ConvergenceTrace) -> float:
+    """Front-loadedness of one seeded run, in [0, 1]: the mean of the
+    per-generation front hypervolume (``hv_gen``) normalized into the run's
+    own [min, max] range.  A flat trajectory records a neutral 0.5."""
+    hv = trace.hv_gen if trace.hv_gen is not None else trace.hypervolume
+    if hv is None or hv.size == 0:
+        return 0.0
+    col = np.asarray(hv[:, 0], np.float64)
+    lo, hi = float(col.min()), float(col.max())
+    if hi - lo <= 1e-9 * max(abs(hi), 1.0):
+        return 0.5
+    return float(np.clip(np.mean((col - lo) / (hi - lo)), 0.0, 1.0))
+
+
 @dataclasses.dataclass(frozen=True)
 class BudgetPolicy:
     """How a query's evaluation budget is spent (see the reference's
@@ -90,19 +127,18 @@ class BudgetPolicy:
     segments of that many generations (quantized to a power of two); with
     ``adaptive`` on, refinement stops once EVERY queried objective pair's
     archive-projected hypervolume improved by less than ``plateau_rel``
-    for ``patience`` consecutive segments.  Cross-batch reallocation of
-    banked credit and megabatching are not ported: their switches default
-    to off here, and turning one on raises ``NotImplementedError``."""
+    for ``patience`` consecutive segments, banking the rest.
+    ``reallocate`` spends banked credit on the batch's under-explored,
+    still-improving archives.  Megabatching is not ported: its switch
+    defaults to off here, and turning it on raises."""
     chunk_generations: int = 8
     plateau_rel: float = 0.005
     patience: int = 2
     adaptive: bool = True
-    reallocate: bool = False
+    reallocate: bool = True
     megabatch: bool = False
 
     def __post_init__(self):
-        if self.reallocate:
-            raise not_ported("budget reallocation (BudgetPolicy.reallocate)")
         if self.megabatch:
             raise not_ported("megabatching (BudgetPolicy.megabatch)")
 
@@ -111,7 +147,9 @@ class BudgetPolicy:
 class PlateauState:
     """The plateau detector's memory across the scan segments refining
     ONE archive: the previous segment's archive-projected hypervolume
-    vector and the current below-threshold streak."""
+    vector and the current below-threshold streak.  Held per problem group,
+    so a resumed run continues the streak where the stopped one left it;
+    ``reset`` forgets it when a reallocation top-up grants fresh budget."""
     last_hv: Optional[np.ndarray] = None
     streak: int = 0
 
@@ -128,6 +166,31 @@ class PlateauState:
         self.last_hv = hv_now
         return self.streak
 
+    def reset(self) -> "PlateauState":
+        self.last_hv = None
+        self.streak = 0
+        return self
+
+
+class RunControl:
+    """Cooperative stop token for a running submission.  ``stop()`` (from
+    any thread, or from an ``on_segment`` callback) makes the engine break
+    at the NEXT segment boundary: the segment in flight completes, the
+    resume checkpoint stays on disk, and the results carry
+    ``interrupted=True`` with ``budget_covered`` NOT bumped."""
+
+    __slots__ = ("_stop",)
+
+    def __init__(self):
+        self._stop = threading.Event()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    @property
+    def stopped(self) -> bool:
+        return self._stop.is_set()
+
 
 @dataclasses.dataclass
 class ExploreQuery:
@@ -138,6 +201,7 @@ class ExploreQuery:
     budget: int = 2048              # total design evaluations (cold)
     ch_max: int = 4
     space_kwargs: Optional[Dict] = None
+    transfer: bool = False          # seed from migrated neighbor fronts
     spec: Optional[SystemSpec] = None
     space: Optional[DesignSpace] = None
 
@@ -162,8 +226,10 @@ class ExploreQuery:
 @dataclasses.dataclass(frozen=True)
 class SegmentEvent:
     """One streamed scan-segment boundary: the archive ``cache_key``, the
-    segment index, the segment's incremental ``ConvergenceTrace`` slice,
-    the phase (``"refine"``), its wall-clock and a stream-monotone ``seq``."""
+    segment index within its phase, the segment's incremental
+    ``ConvergenceTrace`` slice, the phase (``"refine"``, ``"realloc"`` or a
+    scalarized engine's name), its wall-clock and a stream-monotone
+    ``seq``."""
     cache_key: str
     segment: int
     trace: ConvergenceTrace
@@ -185,26 +251,67 @@ class ExploreResult:
     trace: Optional[ConvergenceTrace] = None    # per-generation telemetry
     plateaued: bool = False         # hypervolume plateau => stopped early
     n_evals_banked: int = 0         # evaluations banked by the early stop
+    n_evals_realloc: int = 0        # extra evaluations from banked credit
+    transferred_from: Tuple[str, ...] = ()      # neighbor archive keys whose
+    #                                 migrated fronts seeded this run
+    n_transfer_seeds: int = 0       # seeds injected (migrated or balanced)
+    interrupted: bool = False       # a RunControl stop ended the run early
 
 
 class ExplorationService:
-    """Holds per-problem archives (memory + disk, on ``device``) and runs
-    the NSGA engine on ``device``.  ``ledger`` maps problem key ->
-    evaluations banked by plateau early stops."""
+    """Holds per-problem archives (memory + disk, on ``device``), the
+    cache directory's manifest, and runs the NSGA engine on ``device``.
+    ``ledger`` maps problem key -> evaluations banked by plateau early
+    stops.  ``tech`` is a ``TechConstants``, a preset name or artifact path,
+    or a calibrated tech (see ``core.presets.resolve_tech``)."""
 
     def __init__(self, cache_dir=None, capacity: int = 256,
                  nsga: NSGAConfig = NSGAConfig(), tech=None,
-                 policy: BudgetPolicy = BudgetPolicy(), device="cuda"):
+                 policy: BudgetPolicy = BudgetPolicy(),
+                 transfer_k: int = 3,
+                 manifest_policy: ManifestPolicy = ManifestPolicy(),
+                 device="cuda"):
         self.device = resolve_device(device)
         if tech is not None and not isinstance(tech, TechConstants):
-            raise not_ported("tech presets / calibrated tech artifacts")
+            _, tech = resolve_tech(tech)
         self.cache_dir = resolve_cache_dir(cache_dir)
         self.capacity = int(capacity)
         self.nsga = nsga
         self.tech = tech
         self.policy = policy
+        self.transfer_k = int(transfer_k)
+        self.manifest_policy = manifest_policy
         self.ledger: Dict[str, int] = {}
         self._archives: Dict[str, ParetoArchive] = {}
+        # neighbor archives loaded only to migrate seeds out of: a small
+        # LRU side-cache keyed on the npz mtime (stale fronts re-read)
+        self._neighbor_cache: \
+            "OrderedDict[str, Tuple[int, ParetoArchive]]" = OrderedDict()
+        self._neighbor_cache_cap = max(8, 2 * self.transfer_k)
+        self._manifest: Optional[ArchiveManifest] = None
+        self._manifest_mtime: Optional[int] = None
+        # per-key npz mtime at this service's last load/save: a different
+        # disk mtime at save time means a peer wrote the archive since
+        self._archive_sync: Dict[str, Optional[int]] = {}
+
+    def _manifest_stat(self) -> Optional[int]:
+        try:
+            return (self.cache_dir / MANIFEST_NAME).stat().st_mtime_ns
+        except OSError:
+            return None
+
+    @property
+    def manifest(self) -> ArchiveManifest:
+        """The cache directory's index (lazy-loaded; a damaged or absent
+        file is an empty manifest).  The file's mtime is checked on every
+        access, so a peer's write invalidates this service's copy.
+        Multi-step operations take ONE snapshot and work on it."""
+        mtime = self._manifest_stat()
+        if self._manifest is None or mtime != self._manifest_mtime:
+            self._manifest = ArchiveManifest.load(
+                self.cache_dir / MANIFEST_NAME, policy=self.manifest_policy)
+            self._manifest_mtime = mtime
+        return self._manifest
 
     # ---- cache plumbing ----------------------------------------------------
     def _path(self, key: str) -> Path:
@@ -238,14 +345,66 @@ class ExplorationService:
             arc = ParetoArchive(self.capacity, template,
                                 n_obj=len(METRIC_KEYS), obj_keys=METRIC_KEYS,
                                 device=self.device)
+        else:
+            self._mark_sync(key, p)
         self._archives[key] = arc
         return arc
 
+    def _mark_sync(self, key: str, p: Path) -> None:
+        try:
+            self._archive_sync[key] = p.stat().st_mtime_ns
+        except OSError:
+            self._archive_sync.pop(key, None)
+
+    def _merge_disk(self, key: str, arc: ParetoArchive, p: Path) -> None:
+        """Fold a peer's on-disk archive state into ``arc`` when the npz
+        changed since this service last synced it (unreadable peer state is
+        skipped with a warning)."""
+        try:
+            mt = p.stat().st_mtime_ns
+        except OSError:
+            return
+        if mt == self._archive_sync.get(key):
+            return
+        try:
+            arc.merge(ParetoArchive.load(p, device=self.device))
+            self._archive_sync[key] = mt
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            warnings.warn(f"could not merge peer archive state {p}: {e}")
+
     def save(self, key: str):
-        """Persist one archive (atomically, see ``atomic_savez``)."""
+        """Persist one archive, lock → reload → merge → replace, so
+        concurrent refinements of one problem union.  A lock timeout
+        degrades to an unmerged save with a warning."""
         arc = self._archives.get(key)
-        if arc is not None:
-            arc.save(self._path(key))
+        if arc is None:
+            return
+        p = self._path(key)
+        try:
+            with file_lock(lock_path(p)):
+                self._merge_disk(key, arc, p)
+                arc.save(p)
+                self._mark_sync(key, p)
+        except LockTimeout as e:
+            warnings.warn(f"archive lock busy for {key} ({e}); "
+                          f"saving without peer merge")
+            arc.save(p)
+            self._mark_sync(key, p)
+
+    def refresh_archive(self, spec: SystemSpec, space: DesignSpace,
+                        key: Optional[str] = None) -> ParetoArchive:
+        """The freshest known archive for one problem: the in-memory copy
+        merged with what peer processes have put on disk since."""
+        key = key or self.problem_key(spec, space)
+        arc = self.archive_for(spec, space, key=key)
+        self._merge_disk(key, arc, self._path(key))
+        return arc
+
+    def _ckpt_path(self, key: str) -> Path:
+        """Where a resumable submission checkpoints mid-run state (one
+        atomic npz beside the archive; deleted on normal completion)."""
+        return self.cache_dir / f"{key}.ckpt.npz"
 
     @staticmethod
     def warm_verdict(arc: ParetoArchive, objectives: Sequence[str],
@@ -257,14 +416,58 @@ class ExplorationService:
                 and max(arc.n_evals, arc.budget_covered) >= budget
                 and all(o in arc.searched for o in objectives))
 
+    # ---- deprecated entry points -------------------------------------------
+    def explore(self, graph: WorkloadGraph,
+                objectives: Sequence[str] = DEFAULT_OBJECTIVES,
+                budget: int = 2048, ch_max: int = 4,
+                space_kwargs: Optional[Dict] = None,
+                transfer: bool = False, key=None) -> ExploreResult:
+        """DEPRECATED shim — routes through ``repro_torch.api.Session.
+        submit`` (``Query(Problem(...), engine="nsga")``) and returns the
+        ``ExploreResult`` the NSGA backend produced."""
+        warnings.warn(
+            "legacy entry point ExplorationService.explore() is "
+            "deprecated; use repro_torch.api: Session(...).submit(Query("
+            "Problem(graph, objectives, ...), budget=..., transfer=...))",
+            DeprecationWarning, stacklevel=2)
+        from .api import Problem, Query, Session
+        q = Query(Problem(graph, objectives=tuple(objectives),
+                          ch_max=ch_max, space_kwargs=space_kwargs),
+                  budget=budget, engine="nsga", transfer=transfer)
+        return Session(service=self).submit(
+            q, key=0 if key is None else key).raw
+
+    def explore_batch(self, queries: Sequence[ExploreQuery],
+                      key=None) -> List[ExploreResult]:
+        """DEPRECATED shim — routes through ``repro_torch.api.Session.
+        submit`` with one ``Query`` per ``ExploreQuery``."""
+        warnings.warn(
+            "legacy entry point ExplorationService.explore_batch() is "
+            "deprecated; use repro_torch.api: Session(...).submit("
+            "[Query(...), ...])", DeprecationWarning, stacklevel=2)
+        from .api import Problem, Query, Session
+        qs = [Query(Problem(q.graph, objectives=q.objectives,
+                            ch_max=q.ch_max, space_kwargs=q.space_kwargs),
+                    budget=q.budget, engine="nsga", transfer=q.transfer)
+              for q in queries]
+        return [r.raw for r in Session(service=self).submit(
+            qs, key=0 if key is None else key)]
+
     # ---- the query path ----------------------------------------------------
     def run_queries(self, queries: Sequence[ExploreQuery], key: int = 0,
-                    on_segment=None) -> List[ExploreResult]:
+                    on_segment=None, resume: bool = False,
+                    control: Optional[RunControl] = None
+                    ) -> List[ExploreResult]:
         """Answer a batch of queries, merging same-problem queries into one
-        NSGA run (union objectives, max budget).  ``key`` is the integer
-        seed of the batch; group ``i`` draws from ``fold_in(key, i)``.
-        ``on_segment`` (callable taking one ``SegmentEvent``) streams each
-        segment's incremental trace slice as it finishes."""
+        NSGA run (union objectives, max budget), then reallocating banked
+        credit (``BudgetPolicy.reallocate``) to the batch's still-improving
+        groups, lowest eval-count first.  ``key`` is the integer seed of the
+        batch; group ``i`` draws from ``fold_in(key, i)``.  ``on_segment``
+        (callable taking one ``SegmentEvent``) streams each segment's
+        incremental trace slice as it finishes.  ``resume=True``
+        checkpoints every segment and restores a matching checkpoint on
+        entry (bit-identical final front); ``control`` (a ``RunControl``)
+        stops at the next segment boundary."""
         groups: Dict[str, Dict] = {}
         order: List[Tuple[str, int]] = []      # (cache_key, slot in group)
         for q in queries:
@@ -276,41 +479,300 @@ class ExplorationService:
             g["queries"].append(q)
         seq = itertools.count()
         for i, (ck, g) in enumerate(groups.items()):
-            self._refine_group(ck, g, fold_in(key, i), on_segment, seq)
+            self._refine_group(ck, g, fold_in(key, i), on_segment, seq,
+                               resume=resume, control=control)
+        if self.policy.reallocate:
+            self._reallocate(groups, fold_in(key, len(groups)), on_segment,
+                             seq, control=control)
         group_results = {ck: self._project_group(ck, g)
                          for ck, g in groups.items()}
         return [group_results[ck][slot] for ck, slot in order]
 
-    def _refine_group(self, ck: str, g: Dict, key: int, on_segment,
-                      seq) -> None:
+    @staticmethod
+    def _segment_cb(on_segment, ck: str, phase: str, seq):
+        """The ``_refine`` callback for one group and phase: tags each
+        segment with the archive key, phase and stream sequence number."""
+        if on_segment is None:
+            return None
+
+        def cb(s: int, tr: ConvergenceTrace, elapsed_s: float):
+            on_segment(SegmentEvent(ck, s, tr, phase, elapsed_s=elapsed_s,
+                                    seq=next(seq)))
+        return cb
+
+    def _open_group(self, ck: str, g: Dict) -> bool:
+        """Resolve the group's archive, record the query facts on ``g`` and
+        return the warm verdict (True => served straight from cache)."""
+        arc = g["arc"] = self.archive_for(g["spec"], g["space"], key=ck)
+        g["embedding"] = workload_features(g["spec"].graph)
+        budget = g["budget"] = max(q.budget for q in g["queries"])
+        union = g["union"] = tuple(
+            k for k in METRIC_KEYS
+            if any(k in q.objectives for q in g["queries"]))
+        warm = self.warm_verdict(arc, union, budget)
+        g.update(warm=warm, n_run=0, trace=None, plateaued=False,
+                 banked=0, realloc=0, transferred_from=(), n_seeds=0,
+                 interrupted=False, plateau=PlateauState())
+        if warm and ck not in self.manifest.entries:
+            self._update_manifest(ck, g)     # index caches written before
+        return warm
+
+    def _group_seeds(self, ck: str, g: Dict, key: int) -> Optional[Dict]:
+        """Transfer seeds for one opened group when any of its queries asked
+        for them.  A warm refinement's own front head keeps at least half
+        the population."""
+        if not any(q.transfer for q in g["queries"]):
+            return None
+        arc = g["arc"]
+        pop_eff = quantize.effective_pop(g["budget"], self.nsga.pop)
+        cap = pop_eff if len(arc) == 0 else max(pop_eff // 2, 1)
+        seeds, srcs = self._transfer_seeds(
+            ck, g["space"], g["embedding"], fold_in(key, 0x7e5), arc=arc,
+            cap=cap)
+        g["transferred_from"] = srcs
+        g["n_seeds"] = (int(next(iter(seeds.values())).shape[0])
+                        if seeds else 0)
+        return seeds
+
+    def _refine_group(self, ck: str, g: Dict, key: int, on_segment, seq,
+                      resume: bool = False,
+                      control: Optional[RunControl] = None) -> None:
         """Serve the group from cache, or spend (or bank) its budget."""
         t0 = time.perf_counter()
-        arc = g["arc"] = self.archive_for(g["spec"], g["space"], key=ck)
-        budget = g["budget"] = max(q.budget for q in g["queries"])
-        union = tuple(k for k in METRIC_KEYS
-                      if any(k in q.objectives for q in g["queries"]))
-        g.update(warm=self.warm_verdict(arc, union, budget), n_run=0,
-                 trace=None, plateaued=False, banked=0)
-        if not g["warm"]:
-            cb = None
-            if on_segment is not None:
-                def cb(s, tr, dt):
-                    on_segment(SegmentEvent(ck, s, tr, "refine",
-                                            elapsed_s=dt, seq=next(seq)))
-            n_run, trace, plateaued, banked = self._refine(
-                arc, g["spec"], g["space"], union, budget, key,
-                on_segment=cb)
-            arc.searched = tuple(k for k in METRIC_KEYS
-                                 if k in arc.searched or k in union)
+        if self._open_group(ck, g):
+            g["elapsed"] = time.perf_counter() - t0
+            return
+        arc, union, budget = g["arc"], g["union"], g["budget"]
+        seeds = self._group_seeds(ck, g, key)
+        n_run, trace, plateaued, banked, interrupted = self._refine(
+            arc, g["spec"], g["space"], union, budget, key, seeds=seeds,
+            on_segment=self._segment_cb(on_segment, ck, "refine", seq),
+            plateau=g["plateau"], control=control,
+            checkpoint=self._ckpt_path(ck) if resume else None)
+        arc.searched = tuple(k for k in METRIC_KEYS
+                             if k in arc.searched or k in union)
+        if not interrupted:
+            # an interrupted run still owes its residual segments
             arc.budget_covered = max(arc.budget_covered, budget)
-            if banked:
-                self.ledger[ck] = self.ledger.get(ck, 0) + banked
-            if trace is not None:
-                arc.trace_summary = trace.summary()
-            g.update(n_run=n_run, trace=trace, plateaued=plateaued,
-                     banked=banked)
-            self.save(ck)
+        if banked:
+            self.ledger[ck] = self.ledger.get(ck, 0) + banked
+        g.update(n_run=n_run, trace=trace, plateaued=plateaued,
+                 banked=banked, interrupted=interrupted)
+        if trace is not None:
+            arc.trace_summary = trace.summary()
+        self.save(ck)
+        m = self.manifest               # ONE snapshot for both updates
+        self._record_trust(ck, g, trace, m)
+        self._update_manifest(ck, g, m)
         g["elapsed"] = time.perf_counter() - t0
+
+    def _record_trust(self, ck: str, g: Dict,
+                      trace: Optional[ConvergenceTrace],
+                      m: ArchiveManifest) -> None:
+        """Book one outcome per seeding neighbor: the run's observed lift,
+        keyed by the (src, dst) embedding delta; LRU-touch those neighbors.
+        Single-objective runs carry no lift signal and record nothing."""
+        if not g["transferred_from"] or trace is None or not trace.pairs:
+            return
+        lift = _transfer_lift(trace)
+        for nk in g["transferred_from"]:
+            ent = m.entries.get(nk)
+            if ent is None:
+                continue
+            m.record_transfer(nk, ck, embedding_delta(g["embedding"],
+                                                      ent["embedding"]),
+                              lift)
+            m.touch(nk)
+
+    def _update_manifest(self, ck: str, g: Dict,
+                         m: Optional[ArchiveManifest] = None) -> None:
+        """Refresh one problem's index entry (embedding, counters,
+        migration digest) and persist the manifest under its file lock:
+        when a peer committed since this snapshot was read, the snapshot is
+        merged into a fresh read of the disk state instead of replacing
+        it.  A lock timeout degrades to an unmerged save with a warning."""
+        arc, spec = g["arc"], g["spec"]
+        m = m if m is not None else self.manifest
+        m.update(ck, embedding=g["embedding"],
+                 dims=(spec.W, spec.CH, spec.E),
+                 n_evals=arc.n_evals, budget_covered=arc.budget_covered,
+                 searched=arc.searched,
+                 digest=space_digest(g["space"]).to_json_dict())
+        path = self.cache_dir / MANIFEST_NAME
+        try:
+            with file_lock(lock_path(path)):
+                if self._manifest_stat() != self._manifest_mtime:
+                    disk = ArchiveManifest.load(
+                        path, policy=self.manifest_policy)
+                    disk.merge(m)
+                    disk.enforce(protect=(ck,))
+                    m = disk
+                m.reap_evicted(self.cache_dir)
+                m.save(path)
+        except LockTimeout as e:
+            warnings.warn(f"manifest lock busy ({e}); saving unmerged")
+            m.save(path)
+        self._manifest = m              # what was just saved IS current
+        self._manifest_mtime = self._manifest_stat()
+
+    def _load_neighbor(self, nk: str) -> Optional[ParetoArchive]:
+        """A neighbor archive for seed migration, through the LRU
+        side-cache keyed on the npz mtime; ``None`` for an absent or
+        unreadable file."""
+        p = self._path(nk)
+        try:
+            mt = p.stat().st_mtime_ns
+        except OSError:
+            return None
+        hit = self._neighbor_cache.get(nk)
+        if hit is not None and hit[0] == mt:
+            self._neighbor_cache.move_to_end(nk)
+            return hit[1]
+        try:
+            arc = ParetoArchive.load(p, device=self.device)
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            warnings.warn(f"skipping unreadable neighbor archive {p}: {e}")
+            return None
+        self._neighbor_cache[nk] = (mt, arc)
+        self._neighbor_cache.move_to_end(nk)
+        while len(self._neighbor_cache) > self._neighbor_cache_cap:
+            self._neighbor_cache.popitem(last=False)
+        return arc
+
+    def _transfer_plan(self, ck: str, embedding, cap: int
+                       ) -> Tuple[ArchiveManifest,
+                                  List[Tuple[str, float]], Dict[str, int]]:
+        """The evaluation-free half of transfer seeding: one manifest
+        snapshot, the trust-reweighted ``transfer_k`` nearest neighbors of
+        ``embedding`` (``ck`` excluded), and each neighbor's seed quota out
+        of ``cap``.  ``_transfer_seeds`` executes this plan;
+        ``Session.plan`` reports it."""
+        m = self.manifest
+        trust = m.trust_model(dim=int(np.asarray(embedding).size))
+        neigh = m.nearest(embedding, k=self.transfer_k, exclude=(ck,),
+                          trust=trust)
+        cap = max(int(cap), 1)
+        if trust is not None and neigh:
+            w = [1.0 + max(trust.predict(embedding_delta(
+                embedding, m.entries[nk]["embedding"])), 0.0)
+                for nk, _ in neigh]
+            quotas = {nk: max(1, int(round(cap * wi / sum(w))))
+                      for (nk, _), wi in zip(neigh, w)}
+        else:
+            quota = max(1, cap // max(self.transfer_k, 1))
+            quotas = {nk: quota for nk, _ in neigh}
+        return m, neigh, quotas
+
+    def _transfer_seeds(self, ck: str, space: DesignSpace, embedding,
+                        key: int, arc: Optional[ParetoArchive] = None,
+                        cap: Optional[int] = None
+                        ) -> Tuple[Optional[Dict], Tuple[str, ...]]:
+        """Seed designs (stacked numpy) for a cold or resumed query: the
+        migrated, repaired fronts of the best cached neighbors, capped at
+        ``cap``, minus seeds the destination front already holds
+        (``portable_signature``).  With no usable neighbor a COLD start
+        gets one repaired ``balanced_init`` design drawn from ``key``; a
+        resumed archive gets nothing."""
+        dst = space_digest(space)
+        cap = max(self.nsga.pop, 1) if cap is None else max(int(cap), 1)
+        n_front = len(arc) if arc is not None else 0
+        m, neigh, quotas = self._transfer_plan(ck, embedding, cap)
+        taken: set = set()
+        if n_front and neigh:
+            fr_designs, _ = arc.front()
+            for i in range(n_front):
+                d = {k2: v[i] for k2, v in fr_designs.items()}
+                taken.add(portable_signature(d, dst))
+        seeds: List[Dict] = []
+        srcs: List[str] = []
+        for nk, _dist in neigh:
+            ent = m.entries[nk]
+            if ent.get("digest") is None:
+                continue
+            n_arc = self._archives.get(nk)
+            if n_arc is None:
+                n_arc = self._load_neighbor(nk)
+            if n_arc is None:
+                continue
+            migrated: List[Dict] = []
+            designs, objs = n_arc.front()
+            for i in range(len(objs)):
+                if len(migrated) >= quotas.get(nk, 1):
+                    break
+                d = {k2: v[i] for k2, v in designs.items()}
+                md = migrate(d, ent["digest"], dst)
+                sig = portable_signature(md, dst)
+                if sig in taken:        # already on the destination front
+                    continue            # (or offered by a closer neighbor)
+                taken.add(sig)
+                migrated.append(md)
+            if migrated:                # nk is credited iff its designs
+                seeds.extend(migrated)  # were injected
+                srcs.append(nk)
+            if len(seeds) >= cap:
+                break
+        if not seeds:
+            if n_front:
+                return None, ()
+            seeds = [repair(balanced_init(key, space, device=self.device),
+                            dst)]
+        seeds = seeds[:cap]
+        return ({k2: np.stack([s[k2] for s in seeds])
+                 for k2 in seeds[0]}, tuple(srcs))
+
+    def _reallocate(self, groups: Dict[str, Dict], key: int, on_segment,
+                    seq, control: Optional[RunControl] = None) -> None:
+        """Spend the ledger on this batch's under-explored archives —
+        groups that ran their whole budget WITHOUT plateauing — lowest
+        eval-count first.  Spent credit drains FIFO from the ledger;
+        credit no group can use stays banked.  Interrupted groups take no
+        top-up, and a stopped control ends the phase."""
+        pool = sum(self.ledger.values())
+        takers = sorted(
+            ((ck, g) for ck, g in groups.items()
+             if not g["warm"] and g["n_run"] and not g["plateaued"]
+             and not g["interrupted"]),
+            key=lambda item: item[1]["arc"].n_evals)
+        for i, (ck, g) in enumerate(takers):
+            if control is not None and control.stopped:
+                break
+            if pool < quantize.MIN_POP:     # below the smallest population
+                break
+            arc = g["arc"]
+            t0 = time.perf_counter()
+            g["plateau"].reset()            # a top-up is FRESH budget
+            # quantize_down: the ledger is never overdrawn by rounding
+            n_run, trace, plateaued, _, interrupted = self._refine(
+                arc, g["spec"], g["space"], g["union"], pool,
+                fold_in(key, i), quantize_down=True,
+                on_segment=self._segment_cb(on_segment, ck, "realloc",
+                                            seq),
+                plateau=g["plateau"], control=control)
+            pool -= n_run
+            self._drain_ledger(n_run)
+            g["elapsed"] += time.perf_counter() - t0
+            g["n_run"] += n_run
+            g["realloc"] += n_run
+            g["plateaued"] = plateaued
+            g["interrupted"] = g["interrupted"] or interrupted
+            if trace is not None:
+                g["trace"] = (g["trace"].extend(trace)
+                              if g["trace"] is not None else trace)
+            if g["trace"] is not None:
+                arc.trace_summary = g["trace"].summary()
+            self.save(ck)
+            self._update_manifest(ck, g)
+
+    def _drain_ledger(self, spent: int) -> None:
+        for ck in list(self.ledger):
+            if spent <= 0:
+                break
+            take = min(self.ledger[ck], spent)
+            self.ledger[ck] -= take
+            spent -= take
+            if self.ledger[ck] <= 0:
+                del self.ledger[ck]
 
     def _project_group(self, ck: str, g: Dict) -> List[ExploreResult]:
         """Project every query's front out of the group archive."""
@@ -329,24 +791,155 @@ class ExplorationService:
                 from_cache=g["warm"], n_evals_run=g["n_run"],
                 elapsed_s=g["elapsed"], cache_key=ck,
                 trace=g["trace"], plateaued=g["plateaued"],
-                n_evals_banked=g["banked"]))
+                n_evals_banked=g["banked"], n_evals_realloc=g["realloc"],
+                transferred_from=g["transferred_from"],
+                n_transfer_seeds=g["n_seeds"],
+                interrupted=g["interrupted"]))
         return results
 
+    # ---- checkpoints -------------------------------------------------------
+    def _ckpt_signature(self, objectives: Tuple[str, ...], budget: int,
+                        pop: int, generations: int, chunk: int, key: int,
+                        seeds: Optional[Dict]) -> str:
+        """Identity of one deterministic refinement: everything that fixes
+        the port's segment-by-segment numeric stream (salted with
+        ``CACHE_SALT``).  A checkpoint of another signature answers a
+        different run and is ignored."""
+        h = hashlib.sha256()
+        h.update(repr((CACHE_SALT, tuple(objectives), int(budget), int(pop),
+                       int(generations), int(chunk), int(self.capacity),
+                       repr(self.nsga),
+                       tech_key(self.tech or DEFAULT_TECH),
+                       int(key))).encode())
+        if seeds is not None:
+            for k in sorted(seeds):
+                h.update(k.encode())
+                h.update(np.asarray(seeds[k]).tobytes())
+        return h.hexdigest()[:16]
+
+    @staticmethod
+    def _save_ckpt(path, sig: str, s_next: int, spent_g: int,
+                   arc: ParetoArchive, filler: Dict,
+                   trace: ConvergenceTrace, st: PlateauState) -> None:
+        """One atomic npz holding a consistent mid-run snapshot: the
+        archive after segment ``s_next - 1``'s insert, the evolving
+        population that segment produced, the accumulated trace and the
+        plateau detector's memory.  A write failure is a warning."""
+        try:
+            meta = dict(
+                sig=sig, s_next=int(s_next), spent_g=int(spent_g),
+                streak=int(st.streak),
+                last_hv=([float(v) for v in st.last_hv]
+                         if st.last_hv is not None else None),
+                arc=dict(n_evals=arc.n_evals,
+                         budget_covered=arc.budget_covered,
+                         searched=list(arc.searched)),
+                trace=dict(objectives=list(trace.objectives),
+                           pairs=[list(p) for p in trace.pairs],
+                           has_archive_hv=trace.archive_hv is not None,
+                           has_hv_gen=trace.hv_gen is not None))
+            arrays = dict(
+                objs=arc.objs.cpu().numpy(), valid=arc.valid.cpu().numpy(),
+                t_front_size=np.asarray(trace.front_size),
+                t_hypervolume=np.asarray(trace.hypervolume),
+                t_best=np.asarray(trace.best),
+                t_feasible_frac=np.asarray(trace.feasible_frac),
+                t_n_evals=np.asarray(trace.n_evals))
+            if trace.archive_hv is not None:
+                arrays["t_archive_hv"] = np.asarray(trace.archive_hv)
+            if trace.hv_gen is not None:
+                arrays["t_hv_gen"] = np.asarray(trace.hv_gen)
+            arrays.update({f"d_{k}": v.cpu().numpy()
+                           for k, v in arc.designs.items()})
+            arrays.update({f"f_{k}": v.cpu().numpy()
+                           for k, v in filler.items()})
+            atomic_savez(path, __meta=np.frombuffer(
+                json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+        except OSError as e:
+            warnings.warn(f"resume checkpoint write failed ({path}): {e}")
+
+    @staticmethod
+    def _load_ckpt(path, sig: str, arc: ParetoArchive, st: PlateauState
+                   ) -> Optional[Tuple[int, int, Dict, ConvergenceTrace]]:
+        """Restore a mid-run snapshot into ``arc``/``st`` if ``path`` holds
+        a checkpoint of THIS run (signature match, compatible shapes).
+        Returns ``(s_next, spent_g, filler, trace)``, or ``None`` (no,
+        foreign or damaged checkpoint: start from scratch)."""
+        path = Path(path)
+        if not path.exists():
+            return None
+        try:
+            with np.load(path) as z:
+                meta = json.loads(bytes(z["__meta"]).decode())
+                if meta["sig"] != sig:
+                    return None
+                objs, valid = z["objs"], z["valid"]
+                designs = {k[2:]: z[k].copy() for k in z.files
+                           if k.startswith("d_")}
+                if (tuple(objs.shape) != tuple(arc.objs.shape)
+                        or set(designs) != set(arc.designs)):
+                    return None
+                filler = {k[2:]: z[k].copy() for k in z.files
+                          if k.startswith("f_")}
+                tm = meta["trace"]
+                trace = ConvergenceTrace(
+                    objectives=tuple(tm["objectives"]),
+                    pairs=tuple(tuple(p) for p in tm["pairs"]),
+                    front_size=z["t_front_size"].copy(),
+                    hypervolume=z["t_hypervolume"].copy(),
+                    best=z["t_best"].copy(),
+                    feasible_frac=z["t_feasible_frac"].copy(),
+                    n_evals=z["t_n_evals"].copy(),
+                    archive_hv=(z["t_archive_hv"].copy()
+                                if tm["has_archive_hv"] else None),
+                    hv_gen=(z["t_hv_gen"].copy()
+                            if tm["has_hv_gen"] else None))
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            warnings.warn(f"discarding unreadable resume checkpoint "
+                          f"{path}: {e}")
+            return None
+        dev = arc.device
+        arc.objs = torch.as_tensor(objs, device=dev)
+        arc.valid = torch.as_tensor(valid, device=dev)
+        arc.designs = {k: torch.as_tensor(v, device=dev)
+                       for k, v in designs.items()}
+        arc.n_evals = int(meta["arc"]["n_evals"])
+        arc.budget_covered = int(meta["arc"]["budget_covered"])
+        arc.searched = tuple(meta["arc"]["searched"])
+        st.streak = int(meta["streak"])
+        st.last_hv = (np.asarray(meta["last_hv"], np.float64)
+                      if meta["last_hv"] is not None else None)
+        filler = {k: torch.as_tensor(v, device=dev)
+                  for k, v in filler.items()}
+        return int(meta["s_next"]), int(meta["spent_g"]), filler, trace
+
+    # ---- one refinement ----------------------------------------------------
     def _refine(self, arc: ParetoArchive, spec: SystemSpec,
                 space: DesignSpace, objectives: Tuple[str, ...],
-                budget: int, key: int, on_segment=None
-                ) -> Tuple[int, Optional[ConvergenceTrace], bool, int]:
+                budget: int, key: int, quantize_down: bool = False,
+                seeds: Optional[Dict] = None, on_segment=None,
+                plateau: Optional[PlateauState] = None,
+                control: Optional[RunControl] = None, checkpoint=None
+                ) -> Tuple[int, Optional[ConvergenceTrace], bool, int, bool]:
         """Spend up to ~``budget`` evaluations improving the archive:
-        warm-start the population from the cached front, evolve in
-        segments, insert every feasible evaluation, stop early on plateau.
+        warm-start the population from the cached front (and ``seeds``, a
+        stacked numpy design dict, in segment 0), evolve in segments,
+        insert every feasible evaluation, stop early on plateau.
 
         The population (for sub-``nsga.pop`` budgets), the generation count
         and the per-segment chunk are quantized to powers of two, as in the
-        reference.  Returns ``(n_run, trace, plateaued, banked)``."""
+        reference; ``quantize_down`` floors instead (ledger credit must not
+        be overdrawn).  ``checkpoint`` (a path) turns on per-segment
+        checkpointing and resume-on-entry; ``control`` is polled at each
+        segment boundary.  Returns ``(n_run, trace, plateaued, banked,
+        interrupted)``: ``n_run`` counts THIS attempt's evaluations (a
+        resumed run reports its residual spend)."""
         policy = self.policy
         sched = quantize.schedule(budget, self.nsga.pop,
-                                  policy.chunk_generations)
-        pop, chunk, n_seg = sched.pop, sched.chunk, sched.n_seg
+                                  policy.chunk_generations, quantize_down)
+        pop, generations = sched.pop, sched.generations
+        chunk, n_seg = sched.chunk, sched.n_seg
         cfg = dataclasses.replace(self.nsga, pop=pop, generations=chunk)
         run = make_nsga(spec, space, objectives, cfg, tech=self.tech,
                         device=self.device)
@@ -356,12 +949,23 @@ class ExplorationService:
                     for i, j in objective_pairs(len(objectives))]
         k_init, k_run = fold_in(key, 0), fold_in(key, 1)
         filler = random_design(k_init, space, n=pop, device=self.device)
-        st = PlateauState()
-        trace, plateaued, spent_g = None, False, 0
-        for s in range(n_seg):
+        st = plateau if plateau is not None else PlateauState()
+        trace, plateaued, interrupted, spent_g = None, False, False, 0
+        s0, spent0, sig = 0, 0, None    # spent0: a stopped attempt's chunks
+        if checkpoint is not None:
+            sig = self._ckpt_signature(objectives, budget, pop, generations,
+                                       chunk, key, seeds)
+            rest = self._load_ckpt(checkpoint, sig, arc, st)
+            if rest is not None:
+                s0, spent0, filler, trace = rest
+        for s in range(s0, n_seg):
+            if control is not None and control.stopped:
+                interrupted = True      # the checkpoint stays for a resume
+                break
             t_seg = time.perf_counter()
             pop_s, _raw, _sel, ev_designs, ev_raw, ev_feas, tr = run(
-                fold_in(k_run, s), _seed_population(arc, pop, filler))
+                fold_in(k_run, s), _seed_population(
+                    arc, pop, filler, seeds if s == 0 else None))
             # archive EVERY evaluation of the segment, masked to feasible
             # designs so no served front carries a constraint violation
             arc.insert({k: v.reshape((-1,) + v.shape[2:])
@@ -386,18 +990,43 @@ class ExplorationService:
                 if streak >= policy.patience and s + 1 < n_seg:
                     plateaued = True
                     break
+            if checkpoint is not None:  # after the plateau observation, so
+                #                         a resume judges the seam alike
+                self._save_ckpt(checkpoint, sig, s + 1, spent0 + spent_g,
+                                arc, filler, trace, st)
         n_run = spent_g * pop
-        banked = max(0, budget - n_run) if plateaued else 0
-        return n_run, trace, plateaued, banked
+        # only budget the caller offered and ALL attempts left unspent is
+        # credit: never the pow2 headroom above the requested budget
+        banked = max(0, budget - (spent0 + spent_g) * pop) \
+            if plateaued else 0
+        if checkpoint is not None and not interrupted:
+            Path(checkpoint).unlink(missing_ok=True)
+        return n_run, trace, plateaued, banked, interrupted
 
 
-def _seed_population(arc: ParetoArchive, pop: int, filler: Dict) -> Dict:
+def _seed_population(arc: ParetoArchive, pop: int, filler: Dict,
+                     extra: Optional[Dict] = None) -> Dict:
     """Population for the next segment: the archive front head (the
-    all-time best designs), then the ``filler`` tail (fresh random samples
-    for segment 0, then the carried evolving population)."""
-    n_warm = min(len(arc), pop)
-    if n_warm == 0:
+    all-time best designs), then any transfer ``extra`` seeds (numpy,
+    capped by the caller), then the ``filler`` tail (fresh random samples
+    for segment 0, then the carried evolving population).  Seeds reserve
+    their slots first, so a large front head cannot crowd them out."""
+    n_ext = 0
+    if extra is not None:
+        n_ext = min(int(next(iter(extra.values())).shape[0]), pop)
+    n_warm = min(len(arc), pop - n_ext)
+    if n_warm + n_ext == 0:
         return filler
     sel = torch.nonzero(arc.valid).flatten()[:n_warm]
-    return {k: torch.cat([arc.designs[k][sel], v[n_warm:]])
-            for k, v in filler.items()}
+
+    def leaf(k, v):
+        parts = []
+        if n_warm:
+            parts.append(arc.designs[k][sel])
+        if n_ext:
+            parts.append(torch.as_tensor(
+                np.asarray(extra[k][:n_ext]), device=v.device).to(v.dtype))
+        parts.append(v[n_warm + n_ext:])
+        return torch.cat(parts)
+
+    return {k: leaf(k, v) for k, v in filler.items()}

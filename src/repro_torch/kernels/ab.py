@@ -5,6 +5,7 @@ kernel wrapper's launch.
     python -m repro_torch.kernels.ab pareto_rank DIR [DIR ...]
     python -m repro_torch.kernels.ab flash_attention DIR [DIR ...]
     python -m repro_torch.kernels.ab wrapper
+    python -m repro_torch.kernels.ab evaluate ROOT [ROOT ...]
 
 Each DIR holds another version's ``csrc`` files under the kernel's own file
 names (for example the parent commit's, unpacked with ``git archive``) and
@@ -23,6 +24,14 @@ launch its stream and device differ (``torch.cuda.current_stream(dev)
 ``torch.cuda.device`` on every call or only off the current device), and
 whole ``pareto_rank`` wrapper calls at the search path's pools.
 
+``evaluate`` times one evaluation of the NSGA main path's population (64
+random designs of the Fig. 4a transformer block, ``ch_max=4``) with this
+checkout's ``src/`` and with each ROOT's (another checkout, e.g. the parent
+commit unpacked with ``git archive``), each in its own process, in turns
+(this checkout, the ROOTs, then the same in reverse order, a round); it
+also counts the repeated evaluations whose metrics differ in any bit from
+the first.
+
 Every reading is one JSON object a line.
 """
 
@@ -32,7 +41,10 @@ import argparse
 import contextlib
 import ctypes
 import json
+import os
 import re
+import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -254,9 +266,56 @@ def wrapper(rounds: int):
              max_us=max(us))
 
 
+# run in a fresh process against one source tree's ``repro_torch``: uses
+# only what every version of the port has (the evaluator and the sampler)
+EVALUATE_SNIPPET = r"""
+import json, torch
+from repro_torch.core import presets
+from repro_torch.core.encoding import DesignSpace, random_design
+from repro_torch.core.evaluate import SystemSpec, make_batch_evaluator
+spec = SystemSpec.build(presets.transformer_block(), ch_max=4)
+pop = random_design(7, DesignSpace(spec), n=64, device="cuda")
+ev = make_batch_evaluator(spec, device="cuda")
+first = ev(pop)
+differ = sum(any(not torch.equal(first[k], m[k]) for k in first)
+             for m in [ev(pop) for _ in range(20)])
+for _ in range(3):
+    ev(pop)
+a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+    enable_timing=True)
+torch.cuda.synchronize()
+a.record()
+for _ in range(20):
+    ev(pop)
+b.record()
+torch.cuda.synchronize()
+print(json.dumps(dict(ms=a.elapsed_time(b) / 20, differing_of_20=differ)))
+"""
+
+
+def evaluate(roots, rounds: int):
+    here = Path(__file__).resolve().parents[3]
+    trees = [here] + [Path(r).resolve() for r in roots]
+    readings = {str(t): [] for t in trees}
+    for r in range(rounds):
+        for tree in (trees if r % 2 == 0 else trees[::-1]):
+            env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+            out = subprocess.run([sys.executable, "-c", EVALUATE_SNIPPET],
+                                 env=env, capture_output=True, text=True,
+                                 check=True, cwd=tree)
+            row = json.loads(out.stdout.strip().splitlines()[-1])
+            readings[str(tree)].append(row)
+            emit(evaluate=str(tree), round=r, **row)
+    for tree, rows in readings.items():
+        ms = [x["ms"] for x in rows]
+        emit(evaluate=tree, ms_per_evaluation=ms, min_ms=min(ms),
+             max_ms=max(ms),
+             differing_of_20=[x["differing_of_20"] for x in rows])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=KERNELS + ("wrapper",))
+    ap.add_argument("what", choices=KERNELS + ("wrapper", "evaluate"))
     ap.add_argument("dirs", nargs="*", type=Path)
     ap.add_argument("--rounds", type=int, default=4)
     args = ap.parse_args()
@@ -265,6 +324,8 @@ def main():
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
     if args.what == "wrapper":
         wrapper(args.rounds)
+    elif args.what == "evaluate":
+        evaluate(args.dirs, args.rounds)
     else:
         compare(args.what, args.dirs, args.rounds)
 

@@ -137,6 +137,75 @@ def test_short_search_goes_through_the_kernel(cuda, tmp_path):
     assert len(r.front_objs) and np.all(np.isfinite(r.front_objs))
 
 
+def test_evaluator_on_card_is_deterministic(cuda):
+    """The network load and inbound-bandwidth sums add in a fixed order
+    on the card (a one-hot GEMM and a reduction, no atomics): one
+    population, the same bits on every call."""
+    from repro_torch.core import presets
+    from repro_torch.core.encoding import DesignSpace, random_design
+    from repro_torch.core.evaluate import SystemSpec, make_batch_evaluator
+    spec = SystemSpec.build(presets.transformer_block(), ch_max=4)
+    d = random_design(7, DesignSpace(spec), n=64, device=cuda)
+    ev = make_batch_evaluator(spec, device=cuda)
+    first = ev(d)
+    for _ in range(10):
+        again = ev(d)
+        for k in first:
+            assert torch.equal(first[k], again[k]), k
+
+
+def _front_bytes(r):
+    return (r.front_objs.tobytes(), r.front_metrics.tobytes(),
+            r.trace.archive_hv.tobytes(), r.trace.hypervolume.tobytes())
+
+
+def test_two_runs_of_one_query_give_identical_fronts(cuda, tmp_path):
+    from repro_torch.api import Problem, Query, Session
+    from repro_torch.core import presets
+    q = Query(Problem(presets.transformer_block(), ch_max=4), budget=512)
+    a = Session(cache_dir=tmp_path / "a").submit(q, key=5)
+    b = Session(cache_dir=tmp_path / "b").submit(q, key=5)
+    assert _front_bytes(a) == _front_bytes(b)
+
+
+def test_resume_on_the_card_is_bit_identical(cuda, tmp_path):
+    from repro_torch.api import Problem, Query, RunControl, Session
+    from repro_torch.core import presets
+    from repro_torch.explore.service import BudgetPolicy
+    q = Query(Problem(presets.transformer_block(), ch_max=4), budget=512,
+              policy=BudgetPolicy(chunk_generations=2))
+    full = Session(cache_dir=tmp_path / "full").submit(q, key=2)
+    ctl = RunControl()
+    cut = Session(cache_dir=tmp_path / "cut").submit(
+        q, key=2, resume=True, control=ctl,
+        on_segment=lambda ev: ev.segment == 1 and ctl.stop())
+    assert cut.provenance.interrupted
+    rest = Session(cache_dir=tmp_path / "cut").submit(q, key=2, resume=True)
+    assert cut.provenance.n_evals_run + rest.provenance.n_evals_run \
+        == full.provenance.n_evals_run
+    assert _front_bytes(rest) == _front_bytes(full)
+
+
+def test_archive_merge_on_the_card_equals_the_cpu_merge(cuda):
+    from repro_torch.explore.archive import ParetoArchive
+    template = {"d": np.zeros((3,), np.int32)}
+
+    def filled(dev, seed):
+        r = np.random.default_rng(seed)
+        arc = ParetoArchive(32, template, n_obj=2, device=dev)
+        arc.insert({"d": r.integers(0, 9, (40, 3))},
+                   r.integers(0, 12, (40, 2)).astype(np.float32))
+        return arc
+    for seed in range(3):
+        got = filled(cuda, seed).merge(filled(cuda, seed + 10))
+        want = filled("cpu", seed).merge(filled("cpu", seed + 10))
+        gd, go = got.front()
+        wd, wo = want.front()
+        np.testing.assert_array_equal(go, wo)
+        np.testing.assert_array_equal(gd["d"], wd["d"])
+        assert got.n_evals == want.n_evals == 40
+
+
 # gp_cov: the reference kernel test's shapes, the BO engine's shapes
 # (quickstart d = 62, two_stage d = 60 and 2), a ragged tile edge, d = 1,
 # the kernel's edges (m = 64 the last thin tile, m = 65 the first wide

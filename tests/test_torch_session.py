@@ -4,7 +4,12 @@
   att2 and returns a finite, feasible, nondominated front;
 * a second submit (same session, and a fresh session on the same cache
   directory) is served from cache with the identical front;
-* options that are not ported raise ``NotImplementedError``;
+* options that are not ported (surrogate gating, ``submit_async``,
+  megabatching, journals) raise ``NotImplementedError``;
+* tech presets (their ``tech_key`` equal to the reference's), per-query
+  ``tech`` in an archive of its own, ``Session.plan`` against what
+  ``submit`` then does, budget reallocation, and seed designs in both
+  scalarized engines;
 * ``Session()`` without ``device=`` refuses to run on a card-less host;
 * the scalarized engines (``bo_sa``, ``two_stage``) answer through the
   same ``submit``: ``best_*``, provenance, one completion event, the
@@ -15,6 +20,9 @@
   0.95x the reference's on the same problem.  The two packages draw from
   different random streams, so the gate is statistical, not bitwise.
 """
+
+import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -112,27 +120,11 @@ def test_same_problem_queries_share_one_run(tmp_path):
 
 
 UNPORTED = [
-    ("bo_sa seed_designs", lambda s, p: s.submit(
-        Query(p, engine="bo_sa", seed_designs=[{}]))),
-    ("bo_sa tech", lambda s, p: s.submit(Query(p, weights=(1, 1, 0, 0),
-                                               tech="calibrated"))),
-    ("two_stage tech", lambda s, p: s.submit(Query(p, engine="two_stage",
-                                                   tech="calibrated"))),
-    ("transfer", lambda s, p: s.submit(Query(p, transfer=True))),
-    ("two_stage seed_designs", lambda s, p: s.submit(
-        Query(p, engine="two_stage", seed_designs=[{}]))),
     ("surrogate", lambda s, p: s.submit(
         Query(p, engine_opts={"surrogate": True}))),
-    ("query tech", lambda s, p: s.submit(Query(p, tech="calibrated"))),
-    ("resume", lambda s, p: s.submit(Query(p), resume=True)),
-    ("control", lambda s, p: s.submit(Query(p), control=object())),
-    ("plan", lambda s, p: s.plan(Query(p))),
     ("submit_async", lambda s, p: s.submit_async(Query(p))),
-    ("reallocate", lambda s, p: BudgetPolicy(reallocate=True)),
     ("megabatch", lambda s, p: BudgetPolicy(megabatch=True)),
     ("journal", lambda s, p: Session(journal="j.jsonl", device="cpu")),
-    ("tech preset", lambda s, p: ExplorationService(tech="preset",
-                                                    device="cpu")),
 ]
 
 
@@ -143,6 +135,118 @@ def test_unported_options_raise(tmp_path, what, call):
         call(s, _problem())
     assert what.split()[-1] in str(e.value)       # the error names it
     assert not list(tmp_path.glob("*.npz"))        # nothing ran
+
+
+# ---------------------------------------------------------------------------
+# tech presets, per-query tech, plans, reallocation
+# ---------------------------------------------------------------------------
+def _hot_tech(mod):
+    """DEFAULT_TECH with one documented field changed (the router delay)."""
+    return dataclasses.replace(mod.DEFAULT_TECH, router_delay_ns=2.5)
+
+
+def test_tech_presets_match_the_reference(tmp_path, monkeypatch):
+    from repro.core import constants as rc
+    from repro.core import presets as rp
+    from repro_torch.core import constants as tc
+    for name in rp.tech_preset_names():
+        if name in tp.tech_preset_names():
+            assert tc.tech_key(tp.tech_preset(name)) \
+                == rc.tech_key(rp.tech_preset(name))
+    tp.register_tech("hot_router", _hot_tech(tc))
+    rp.register_tech("hot_router", _hot_tech(rc))
+    assert tc.tech_key(tp.tech_preset("hot_router")) \
+        == rc.tech_key(rp.tech_preset("hot_router"))
+    assert tp.tech_label("hot_router") == rp.tech_label("hot_router") \
+        == f"hot_router@{tc.tech_key(_hot_tech(tc))[:12]}"
+    assert tp.tech_label(None) == "default"
+    with pytest.raises(ValueError):
+        tp.register_tech("hot_router", tc.DEFAULT_TECH)
+    # an artifact file through $REPRO_CALIB_DIR, in both artifact layouts
+    doc = tc.tech_to_dict(dataclasses.replace(tc.DEFAULT_TECH,
+                                              dram_bw=300.0))
+    (tmp_path / "bare_art.json").write_text(json.dumps(doc))
+    (tmp_path / "named_art.json").write_text(json.dumps(
+        {"name": "named", "tech": doc}))
+    monkeypatch.setenv("REPRO_CALIB_DIR", str(tmp_path))
+    for name in ("bare_art", "named_art"):
+        assert tc.tech_key(tp.tech_preset(name)) \
+            == rc.tech_key(rp.tech_preset(name))
+    assert tp.resolve_tech(str(tmp_path / "bare_art.json"))[1] \
+        == tp.tech_preset("bare_art")
+    with pytest.raises(KeyError):
+        tp.tech_preset("no_such_preset")
+
+
+def test_query_tech_lands_in_its_own_archive(tmp_path):
+    from repro_torch.core import constants as tc
+    tp.register_tech("hot_router", _hot_tech(tc))
+    s = Session(cache_dir=tmp_path, device="cpu", nsga=NSGAConfig(pop=16))
+    base = s.submit(Query(_problem(), budget=32))
+    hot = s.submit(Query(_problem(), budget=32, tech="hot_router"))
+    assert hot.provenance.cache_key != base.provenance.cache_key
+    assert base.provenance.tech == "default"
+    assert hot.provenance.tech \
+        == f"hot_router@{tc.tech_key(_hot_tech(tc))[:12]}"
+    assert not hot.provenance.from_cache
+    # the preset's own session sees the same archive, warm
+    again = Session(cache_dir=tmp_path, device="cpu", tech="hot_router",
+                    nsga=NSGAConfig(pop=16)).submit(Query(_problem(),
+                                                          budget=32))
+    assert again.provenance.from_cache
+    assert again.provenance.cache_key == hot.provenance.cache_key
+    assert ExplorationService(cache_dir=tmp_path, tech="hot_router",
+                              device="cpu").tech == _hot_tech(tc)
+    # a scalarized query under the preset evaluates under its constants
+    r = s.submit(Query(_scalar_problem(), engine="bo_sa", weights=OBJ_EDP,
+                       engine_opts=BO_SA, tech="hot_router"), key=1)
+    assert r.provenance.tech == hot.provenance.tech
+
+
+def test_plan_predicts_what_submit_does(tmp_path):
+    s = Session(cache_dir=tmp_path, device="cpu", nsga=NSGAConfig(pop=16))
+    q = Query(_problem(), budget=128,
+              policy=BudgetPolicy(chunk_generations=2))
+    pl = s.plan(q)
+    assert not pl.cache_hit and pl.engine == "nsga"
+    assert [(g.index, g.pop, g.generations) for g in pl.segments] \
+        == [(i, 16, 2) for i in range(4)]
+    assert pl.predicted_s is None and pl.islands == 1
+    events = []
+    r = s.submit(q, on_segment=events.append)
+    assert r.provenance.cache_key == pl.cache_key
+    assert r.provenance.n_evals_run <= pl.n_evals_planned == 128
+    assert len(events) <= len(pl.segments)
+    hit = s.plan(q)
+    assert hit.cache_hit and hit.segments == () and hit.predicted_s == 0.0
+    scal = s.plan(Query(_scalar_problem(), engine="bo_sa", weights=OBJ_EDP,
+                        engine_opts=BO_SA))
+    assert scal.n_evals_planned == 4 * 6 * 2
+
+
+def test_reallocation_spends_banked_credit(tmp_path):
+    s = Session(cache_dir=tmp_path, device="cpu", nsga=NSGAConfig(pop=16),
+                policy=BudgetPolicy(adaptive=False, reallocate=True))
+    s.service.ledger["banked-by-an-earlier-query"] = 64
+    r = s.submit(Query(_problem(), budget=32))
+    pv = r.provenance
+    assert pv.n_evals_realloc == 64 and pv.n_evals_run == 32 + 64
+    assert s.service.ledger == {}
+    assert r.trace.n_evals[-1] == 96
+
+
+def test_scalarized_engines_take_seed_designs(tmp_path):
+    from repro_torch.core.encoding import migrate, repair
+    p = _scalar_problem()
+    src = Problem(tp.bert_mms()["att3"], p.objectives, ch_max=36)
+    seeds = [migrate(repair(random_design(s, src.space, device="cpu"),
+                            src.space), src.space, p.space) for s in (0, 1)]
+    s = Session(cache_dir=tmp_path, device="cpu")
+    for engine, opts in (("bo_sa", BO_SA), ("two_stage", TWO_STAGE)):
+        r = s.submit(Query(p, engine=engine, weights=OBJ_EDP,
+                           seed_designs=seeds, engine_opts=opts), key=1)
+        assert r.provenance.n_transfer_seeds == 2
+        _check_best(p, r)
 
 
 BO_SA = dict(n_init=2, n_iter=2, sa=SAConfig(steps=6, chains=2))
