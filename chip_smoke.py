@@ -6,7 +6,8 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
 
 1. the card: ``torch.cuda.get_device_name(0)`` and the name and power limit
    as ``nvidia-smi`` reports them;
-2. build every kernel of the driven paths from its sources (``pareto_rank``,
+2. build every kernel of the driven paths from its sources (``pareto_rank``
+   with its lane axis,
    ``gp_cov``, ``flash_attention`` — its float32 SIMT kernel and its
    bfloat16 tensor-core kernel in one library — and ``mamba_scan``), all
    ``nvcc`` processes started together; print the build seconds, the
@@ -112,7 +113,35 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     "<name>@<digest12>"``, and the quickstart ``bo_sa`` query, SA steps cut
     250 -> 10 as in phase 9, seeded with designs migrated out of (a)'s
     front, launches ``gp_cov`` 16 times and returns a feasible best design;
-    the device busy share of the preset's query from ``torch.profiler``.
+    the device busy share of the preset's query from ``torch.profiler``;
+13. megabatched and surrogate-gated search on the card:
+    (a) the batched ``pareto_rank`` (L lanes of one shape in one launch)
+    against its plain version, exactly, at a fused run's pools — 8 lanes
+    of NSGA selection at pop 64 (8, 128, 2) and of its telemetry (8, 64,
+    2), (3, 768, 4), lanes with NaN and +-inf, and one lane (against the
+    single-pool entry too) — timed beside L single-pool launches, L times
+    one pool's bound and the plain version; ``make_nsga_fused`` over the
+    reference's megabatch benchmark problems (``benchmarks/bench_scale.py``:
+    the BERT attention blocks att1-att4, ``ch_max=2``), each lane's designs
+    bit-identical to its unbatched run and its raw metrics within rtol
+    1e-6; that benchmark's gate, distinct-problem throughput >= 0.8 x the
+    same-problem fused batch at 8 lanes, with evaluations/s fused and
+    sequential, kernels and ``pareto_rank`` launches a generation and the
+    device busy share at L = 1, 4 and 8; one ``Session.submit`` of the
+    four problems at the default query (budget 2048, pop 64) fused
+    (``BudgetPolicy()``) against ``megabatch=False``: the same fronts
+    (designs bit-identical, metrics rtol 1e-6, equal spend), with the
+    counts set to 0 just before each and read just after;
+    (b) the reference's surrogate benchmark (``benchmarks/
+    bench_surrogate.py``) at its full budget: in phase 12's space, train on
+    the ``attn_qwen2_72b`` and ``attn_internlm2`` blocks exactly at B, then
+    search the held-out ``attn_qwen2_5_32b`` exact at B and gated at 2B
+    (``exact_frac=0.25``, its own key excluded), at keys 100-119, one
+    process a key, all started together; at every key the gate is used,
+    never falls back, spends <= 50% of the exact arm's evaluations and
+    evaluations + hits equal the 2B schedule; over the keys the mean gated
+    hypervolume is >= 0.960 x the mean exact one (see ``SUR_POOLED_HV``);
+    and gating asked for on an empty cache is the exact path bit for bit.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -158,7 +187,9 @@ from repro_torch.explore.archive import (HV_LOG_REF,  # noqa: E402
                                          MANIFEST_NAME, ArchiveManifest,
                                          ManifestPolicy, ParetoArchive,
                                          hypervolume_2d, pareto_front)
-from repro_torch.explore.nsga import NSGAConfig, make_nsga  # noqa: E402
+from repro_torch.explore.nsga import (NSGAConfig, make_nsga,  # noqa: E402
+                                      make_nsga_fused)
+from repro_torch.explore import quantize  # noqa: E402
 from repro_torch.explore.service import BudgetPolicy  # noqa: E402
 from repro_torch.kernels.gp_cov import ops as gp_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -971,14 +1002,18 @@ def check_front(problem, result):
                                err_msg="front metrics do not re-evaluate")
 
 
-def device_by_kernel(fn) -> tuple:
+def device_by_kernel(fn, host: bool = True) -> tuple:
     """(device seconds, kernel count, {kernel name: (device seconds,
     count)}) of one synchronized call of ``fn`` under ``torch.profiler``;
-    (0, 0, {}) when it sees no device events."""
+    (0, 0, {}) when it sees no device events.  ``host=False`` traces the
+    device alone (far lighter on a call of tens of thousands of
+    launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
@@ -1749,6 +1784,461 @@ def transfer_phase(problem, cold) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: megabatched and surrogate-gated search on the card
+# ---------------------------------------------------------------------------
+# (a) the reference's megabatch benchmark (benchmarks/bench_scale.py:76-103):
+# four distinct BERT attention problems of one padded shape as lanes
+MB_NAMES = ("att1", "att2", "att3", "att4")
+MB_SPACE_KW = dict(max_shape=(16, 16, 4, 4, 1, 2))
+MB_CH_MAX = 2
+MB_POP, MB_GENS = 64, 8                 # the default query's pop, a segment
+MB_LANES = (1, 4, 8)
+MB_REPEAT = 3                           # min over repeats (200-400 ms runs)
+MB_RATIO_GATE = 0.8                     # distinct >= 0.8 x same, 8 lanes
+# the batched dominance count at the fused run's pools: selection and
+# telemetry of 8 lanes at pop 64, three lanes of 768, lanes with NaN and
+# +-inf, one lane (held against the single-pool entry too)
+PARETO_LANE_SHAPES = ((8, 128, 2, "fused selection"),
+                      (8, 64, 2, "fused telemetry"),
+                      (3, 768, 4, "lanes of 768"),
+                      (4, 200, 3, "nan/inf lanes"),
+                      (1, 128, 2, "one lane"))
+# (b) the reference's surrogate benchmark (benchmarks/bench_surrogate.py):
+# train on the two attention neighbors of phase 12's space, search the
+# held-out block exact at B and gated at 2B with a quarter exact
+SUR_OPTS = dict(exact_frac=0.25, min_rows=16, epochs=300, beta=1.5, tau=0.5)
+SUR_BUDGET = TR_BUDGET
+SUR_HV_GATE = 0.99
+SUR_SPEND_GATE = 0.50
+# The benchmark holds the gated hypervolume at >= 0.99 x the exact arm's
+# at one key.  On the CPU the reference itself meets that at 7 of 20 keys
+# (keys 100-119 at B = 4096: per-key ratio mean 0.9763, sd 0.0254; pooled,
+# mean gated over mean exact hypervolume, 0.9761; the port 4 of 20, mean
+# 0.9710, sd 0.0228; ``tests/torch_surrogate_gates.py``), so one key is a
+# draw the reference fails more often than not.  The card runs the same
+# 20 keys, one process a key, all at once, and holds the pooled ratio to
+# the reference's pooled ratio less two standard errors of a difference of
+# two 20-key means (0.9761 - 2 x 0.0255 x sqrt(2 / 20) = 0.960).  Spend,
+# accounting and no fallback are held at every key
+SUR_KEYS = tuple(range(100, 120))
+SUR_POOLED_HV = 0.960
+
+
+def surrogate_arms(root: Path, key: int, budget: int = SUR_BUDGET,
+                   pkg: Package = CARD) -> dict:
+    """The surrogate benchmark's arms at one key: the exact arm (the
+    held-out block on a fresh cache at B), the training arms (the two
+    neighbors exact at B) and the gated arm (the held-out block at 2B,
+    gated, its own key excluded from training).  Returns each arm's
+    record and the gate's readings."""
+    arms = {}
+
+    def arm(tag, session, name, b, surrogate=None):
+        q = pkg.Query(tr_problem(name, pkg), budget=b, engine_opts=(
+            None if surrogate is None else {"surrogate": surrogate}))
+        r, rec = timed_submit(session, q, pkg.sync, key=pkg.key(key))
+        if r.provenance.from_cache:
+            fail(f"phase 13 {tag} was served from cache")
+        pv = r.provenance
+        rec.update(graph=name, budget=b, hv=float(r.trace.archive_hv[-1, 0]),
+                   surrogate_used=pv.surrogate_used,
+                   hits=pv.surrogate_hits, fallbacks=pv.surrogate_fallbacks)
+        arms[tag] = rec
+        print(f"phase 13 key {key} {tag}: {rec['evals']} exact evaluations "
+              f"in {rec['wall_s']:.3f} s, hv {rec['hv']:.6f}, surrogate "
+              f"used {pv.surrogate_used}, hits {pv.surrogate_hits}, "
+              f"fallbacks {pv.surrogate_fallbacks}, pareto_rank launches "
+              f"{rec['launches']['pareto_rank']}")
+        return r
+
+    exact = arm("exact", tr_session(root / "exact", pkg), TR_HELD_OUT,
+                budget)
+    svc = tr_session(root / "gated", pkg)
+    for name in TR_NEIGHBORS:
+        arm(f"train {name}", svc, name, budget)
+    held = svc.plan(pkg.Query(tr_problem(TR_HELD_OUT, pkg),
+                              budget=budget)).cache_key
+    gated = arm("gated", svc, TR_HELD_OUT, 2 * budget,
+                surrogate=dict(SUR_OPTS, exclude=[held]))
+    sched = quantize.schedule(2 * budget, TR_NSGA_KW["pop"],
+                              BudgetPolicy().chunk_generations)
+    total = sched.pop * sched.chunk * sched.n_seg
+    pv = gated.provenance
+    gate = dict(key=key, hv_exact=arms["exact"]["hv"],
+                hv_gated=arms["gated"]["hv"],
+                evals_exact=exact.provenance.n_evals_run,
+                evals_gated=pv.n_evals_run, hits=pv.surrogate_hits,
+                fallbacks=pv.surrogate_fallbacks, used=pv.surrogate_used,
+                schedule=total)
+    gate["hv_ratio"] = gate["hv_gated"] / max(gate["hv_exact"], 1e-12)
+    gate["evals_frac"] = gate["evals_gated"] / max(gate["evals_exact"], 1)
+    gate["accounted"] = gate["evals_gated"] + gate["hits"] == total
+    gate["passes_alone"] = bool(gate["hv_ratio"] >= SUR_HV_GATE
+                                and gate["evals_frac"] <= SUR_SPEND_GATE
+                                and gate["accounted"] and gate["used"])
+    return dict(key=key, arms=arms, gate=gate)
+
+
+def pooled_surrogate_gate(runs: list) -> dict:
+    """The surrogate benchmark's gates on ``surrogate_arms`` readings
+    pooled over their keys: at every key the gate was used, never fell
+    back, spent <= ``SUR_SPEND_GATE`` of the exact arm's evaluations and
+    accounted for every skipped candidate; over the keys, the mean gated
+    hypervolume is at least ``SUR_POOLED_HV`` times the mean exact one."""
+    g = [v["gate"] for v in runs]
+    out = dict(keys=[v["key"] for v in runs],
+               hv_exact_mean=float(np.mean([x["hv_exact"] for x in g])),
+               hv_gated_mean=float(np.mean([x["hv_gated"] for x in g])),
+               evals_frac_max=max(x["evals_frac"] for x in g),
+               accounted=all(x["accounted"] for x in g),
+               used=all(x["used"] for x in g),
+               fallbacks=sum(x["fallbacks"] for x in g),
+               alone=[x["passes_alone"] for x in g])
+    out["hv_ratio"] = out["hv_gated_mean"] / out["hv_exact_mean"]
+    out["passes"] = bool(out["hv_ratio"] >= SUR_POOLED_HV
+                         and out["evals_frac_max"] <= SUR_SPEND_GATE
+                         and out["accounted"] and out["used"]
+                         and out["fallbacks"] == 0)
+    return out
+
+
+SUR_CHILD = r"""
+import json, sys
+from pathlib import Path
+repo, root, keys = sys.argv[1:4]
+sys.path.insert(0, repo)
+import chip_smoke
+chip_smoke.torch.set_num_threads(1)    # the workers share the host's cores
+for key in keys.split(","):
+    print(json.dumps(chip_smoke.surrogate_arms(Path(root) / key, int(key))),
+          flush=True)
+"""
+SUR_WORKERS = 8                        # one a host core
+
+
+def surrogate_phase(root: Path) -> dict:
+    """(b): the surrogate benchmark at each of ``SUR_KEYS`` — the keys dealt
+    round-robin to ``SUR_WORKERS`` processes started together — held as
+    ``pooled_surrogate_gate`` holds them; then the identity arm: gating
+    asked for on an empty cache runs the exact path bit for bit."""
+    repo = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    deal = [SUR_KEYS[i::SUR_WORKERS] for i in range(SUR_WORKERS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SUR_CHILD, repo, str(root),
+         ",".join(map(str, keys))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for keys in deal if keys]
+    per_key = {}
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=TR_TIMEOUT_S)
+            if proc.returncode != 0:
+                fail(f"phase 13 worker exited {proc.returncode}: "
+                     f"{err[-2000:]}")
+            for line in out.strip().splitlines():
+                if line.startswith("{"):
+                    v = json.loads(line)
+                    per_key[v["key"]] = v
+                else:
+                    print(line)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if sorted(per_key) != sorted(SUR_KEYS):
+        fail(f"phase 13 surrogate keys read {sorted(per_key)}")
+    per_key = {k: per_key[k] for k in SUR_KEYS}
+    wall = time.perf_counter() - t0
+    gate = pooled_surrogate_gate(list(per_key.values()))
+    for key, v in per_key.items():
+        x = v["gate"]
+        print(f"phase 13 surrogate key {key}: gated hv {x['hv_gated']:.6f} "
+              f"against exact {x['hv_exact']:.6f} (ratio "
+              f"{x['hv_ratio']:.4f}), exact spend {x['evals_frac']:.3f} of "
+              f"the exact arm's, {x['evals_gated']} + {x['hits']} hits of a "
+              f"{x['schedule']} schedule, fallbacks {x['fallbacks']} (the "
+              f"reference's gate at this key alone: {x['passes_alone']})")
+    print(f"phase 13 surrogate gate over keys {SUR_KEYS[0]}-{SUR_KEYS[-1]} "
+          f"({len(procs)} processes at once, {wall:.1f} s): mean gated hv "
+          f"{gate['hv_gated_mean']:.6f} against exact "
+          f"{gate['hv_exact_mean']:.6f} (ratio {gate['hv_ratio']:.4f}, >= "
+          f"{SUR_POOLED_HV}), spend <= {gate['evals_frac_max']:.3f} (<= "
+          f"{SUR_SPEND_GATE}), accounted {gate['accounted']}, fallbacks "
+          f"{gate['fallbacks']}; each key alone at 0.99 {gate['alone']}")
+    if not gate["passes"]:
+        fail(f"surrogate gate: {gate}")
+    # identity: gating on an EMPTY cache is the exact path, bit for bit
+    small = SUR_BUDGET // 4
+    ra, rec_a = timed_submit(
+        tr_session(root / "ident_a"),
+        Query(tr_problem(TR_HELD_OUT), budget=small,
+              engine_opts={"surrogate": dict(SUR_OPTS)}), key=SUR_KEYS[0])
+    rb, _ = timed_submit(tr_session(root / "ident_b"),
+                         Query(tr_problem(TR_HELD_OUT), budget=small),
+                         key=SUR_KEYS[0])
+    ident = (not ra.provenance.surrogate_used
+             and ra.provenance.n_evals_run == rb.provenance.n_evals_run
+             and ra.front_objs.tobytes() == rb.front_objs.tobytes()
+             and ra.front_metrics.tobytes() == rb.front_metrics.tobytes())
+    print(f"phase 13 surrogate identity: gating on an empty cache at "
+          f"{small} evaluations is the exact path bit for bit: {ident}")
+    if not ident:
+        fail("a gated query on an empty cache diverged from the exact path")
+    return dict(per_key=per_key, gate=gate, keys_wall_s=wall,
+                identity=dict(bit_identical=ident, **rec_a))
+
+
+def mb_problems() -> list:
+    """The megabatch benchmark's problems: (spec, space) of each of
+    ``MB_NAMES`` (one padded shape)."""
+    out = []
+    for name in MB_NAMES:
+        spec = SystemSpec.build(presets.bert_mms()[name], ch_max=MB_CH_MAX)
+        out.append((spec, DesignSpace(spec, **MB_SPACE_KW)))
+    return out
+
+
+def check_pareto_lanes() -> list:
+    """The batched dominance count against its plain version, exactly, at
+    the fused run's pools, one launch a call and lane for lane equal to
+    the single-pool entry; timed beside the L single-pool launches of the
+    same lanes, L times one pool's bound and the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for L, n, k, tag in PARETO_LANE_SHAPES:
+        pools = [pareto_pool(n, k, 0.9, tag, gen) for _ in range(L)]
+        objs = torch.stack([o for o, _ in pools])
+        valid = torch.stack([v for _, v in pools])
+        before = pareto_ops.dominance_counts.launches
+        got = pareto_ops.dominance_counts(objs, valid)
+        torch.cuda.synchronize()
+        if pareto_ops.dominance_counts.launches - before != 1:
+            fail(f"pareto_rank {L} lanes of ({n}, {k}) took "
+                 f"{pareto_ops.dominance_counts.launches - before} launches")
+        want = dominance_counts_ref(objs, valid)
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"pareto_rank lanes disagree with the plain version at "
+                 f"({L}, {n}, {k}): max abs err {err}")
+        singles = torch.stack([pareto_ops.dominance_counts(objs[i], valid[i])
+                               for i in range(L)])
+        if not torch.equal(singles, got):
+            fail(f"pareto_rank lanes differ from single-pool launches at "
+                 f"({L}, {n}, {k})")
+        call = lambda: pareto_ops.dominance_counts(objs, valid)
+        one_by_one = lambda: [pareto_ops.dominance_counts(objs[i], valid[i])
+                              for i in range(L)]
+        k_ms = cuda_ms(call, 200)
+        s_ms = cuda_ms(one_by_one, 200)
+        dev_ms = device_ms_per_launch(call, "rank_kernel")
+        # the device time of L single launches at the selection's pools
+        dev_one = (device_ms_per_launch(one_by_one, "rank_kernel")
+                   if tag == "fused selection" else None)
+        p_ms = cuda_ms(lambda: dominance_counts_ref(objs, valid), 20)
+        b_one, b_by = pareto_bound_ms(n, k)
+        rows.append(dict(lanes=L, n=n, k=k, tag=tag, exact=True,
+                         max_abs_err=err, ms=k_ms, device_ms=dev_ms,
+                         singles_ms=s_ms,
+                         singles_device_ms=(None if dev_one is None
+                                            else dev_one * L),
+                         plain_ms=p_ms, bound_ms=L * b_one, bound_by=b_by))
+        dev = ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.3f} us"
+               + ("" if dev_one is None else
+                  f", {L} single launches {dev_one * L * 1e3:.3f} us"))
+        print(f"pareto_rank lanes ({L}, {n}, {k}) {tag}: exact, one launch,"
+              f" wrapper {k_ms * 1e3:.2f} us per call ({L} single calls "
+              f"{s_ms * 1e3:.2f} us), device {dev}, plain "
+              f"{p_ms * 1e3:.2f} us, bound {L * b_one * 1e3:.4f} us "
+              f"({b_by})")
+    return rows
+
+
+def fused_lanes_check(problems) -> dict:
+    """``make_nsga_fused`` over the distinct problems against each lane's
+    unbatched ``make_nsga`` run on the card: designs bit-identical, raw
+    metrics within rtol 1e-6."""
+    spec0, space0 = problems[0]
+    cfg = NSGAConfig(pop=MB_POP, generations=MB_GENS)
+    seeds = list(range(1, len(problems) + 1))
+    pops = [random_design(30 + i, sp, n=MB_POP, device="cuda")
+            for i, (_, sp) in enumerate(problems)]
+    fused = make_nsga_fused(spec0, space0, TR_OBJ, cfg, lanes=len(problems),
+                            device="cuda")(
+        seeds, {k: torch.stack([p[k] for p in pops]) for k in pops[0]},
+        [spec.arrays for spec, _ in problems])
+    worst = 0.0
+    for j, (spec, _) in enumerate(problems):
+        single = make_nsga(spec0, space0, TR_OBJ, cfg, device="cuda")(
+            seeds[j], pops[j], arrays=spec.arrays)
+        same = (all(torch.equal(single[0][k], fused[0][k][j])
+                    for k in single[0])
+                and all(torch.equal(single[3][k], fused[3][k][j])
+                        for k in single[3]))
+        if not same:
+            fail(f"fused lane {j} ({MB_NAMES[j]}) evolved other designs "
+                 f"than its unbatched run")
+        for a, b in ((fused[1][j], single[1]), (fused[4][j], single[4])):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-6, err_msg=f"lane {j} raw")
+            worst = max(worst, float(((a - b).abs() / b.abs().clamp_min(
+                1e-30)).max()))
+    print(f"phase 13 fused lanes: {len(problems)} distinct problems "
+          f"({', '.join(MB_NAMES)}) at pop {MB_POP} x {MB_GENS} generations"
+          f", each lane's designs bit-identical to its unbatched run, raw "
+          f"metrics max rel diff {worst:.3g} (<= 1e-6)")
+    return dict(lanes=len(problems), designs_identical=True,
+                raw_max_rel=worst)
+
+
+def megabatch_throughput(problems) -> dict:
+    """bench_scale's megabatch arm on the card: fused runs of L lanes of
+    distinct problems against L lanes of the same problem (min wall of
+    ``MB_REPEAT`` runs), against L sequential ``make_nsga`` runs, with the
+    kernels and ``pareto_rank`` launches a generation and the device busy
+    share of the distinct run."""
+    spec0, space0 = problems[0]
+    cfg = NSGAConfig(pop=MB_POP, generations=MB_GENS)
+    out = {}
+    for L in MB_LANES:
+        probs = [problems[i % len(problems)] for i in range(L)]
+        run = make_nsga_fused(spec0, space0, TR_OBJ, cfg, lanes=L,
+                              device="cuda")
+        pops = [random_design(100 + i, space0, n=MB_POP, device="cuda")
+                for i in range(L)]
+        stack = {k: torch.stack([p[k] for p in pops]) for k in pops[0]}
+        seeds = list(range(L))
+        distinct = [spec.arrays for spec, _ in probs]
+
+        def best_of(fn, repeat=MB_REPEAT, warm=True):
+            if warm:
+                fn()
+                torch.cuda.synchronize()
+            best = float("inf")
+            for _ in range(repeat):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            return best
+        t_same = best_of(lambda: run(seeds, stack, [spec0.arrays] * L))
+        t_dist = best_of(lambda: run(seeds, stack, distinct))
+        singles = [make_nsga(spec0, space0, TR_OBJ, cfg, device="cuda")
+                   for _ in range(L)]
+        t_seq = best_of(lambda: [singles[i](seeds[i], pops[i],
+                                            arrays=distinct[i])
+                                 for i in range(L)], repeat=1, warm=False)
+        before = launch_counts()["pareto_rank"]
+        run(seeds, stack, distinct)
+        torch.cuda.synchronize()
+        pr = (launch_counts()["pareto_rank"] - before) / MB_GENS
+        dev_s, n_k = device_by_kernel(lambda: run(seeds, stack, distinct),
+                                      host=False)[:2]
+        evals = L * MB_POP * MB_GENS
+        rec = dict(lanes=L, evals=evals, same_s=t_same, distinct_s=t_dist,
+                   sequential_s=t_seq, evals_per_s=evals / t_dist,
+                   same_evals_per_s=evals / t_same,
+                   sequential_evals_per_s=evals / t_seq,
+                   ratio=t_same / t_dist,
+                   pareto_rank_per_generation=pr)
+        if dev_s > 0:
+            rec.update(kernels_per_generation=n_k / MB_GENS,
+                       device_s=dev_s, device_busy_share=dev_s / t_dist)
+        out[L] = rec
+        dev = ("device not measured" if dev_s <= 0 else
+               f"{rec['kernels_per_generation']:.0f} kernels a generation, "
+               f"device busy {rec['device_busy_share']:.1%}")
+        print(f"phase 13 megabatch L={L}: distinct {evals / t_dist:.1f} "
+              f"evaluations/s ({t_dist * 1e3:.1f} ms), same problem "
+              f"{evals / t_same:.1f} (ratio {rec['ratio']:.3f}), "
+              f"sequential {evals / t_seq:.1f} ({t_seq * 1e3:.1f} ms); "
+              f"{pr:.0f} pareto_rank launches a generation; {dev}")
+    ratio = out[max(MB_LANES)]["ratio"]
+    if ratio < MB_RATIO_GATE:
+        fail(f"megabatched distinct problems reached {ratio:.3f} x the "
+             f"same-problem fused throughput at {max(MB_LANES)} lanes "
+             f"(gate >= {MB_RATIO_GATE})")
+    return out
+
+
+def megabatch_submit() -> dict:
+    """One ``Session.submit`` of the distinct problems at the default query
+    (budget 2048, pop 64), fused (``BudgetPolicy()``) against
+    ``megabatch=False``: the same fronts (designs bit-identical, metrics
+    rtol 1e-6, spend equal).  The fused submission is this phase's main
+    path: the kernel counts are set to 0 just before it and read just
+    after."""
+    def queries():
+        return [Query(Problem(presets.bert_mms()[n], TR_OBJ,
+                              ch_max=MB_CH_MAX, space_kwargs=MB_SPACE_KW),
+                      budget=2048) for n in MB_NAMES]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, policy in (("fused", BudgetPolicy()),
+                            ("sequential", BudgetPolicy(megabatch=False))):
+            s = Session(cache_dir=Path(tmp) / tag, policy=policy,
+                        device="cuda")
+            pareto_ops.dominance_counts.launches = 0
+            pareto_ops.dominance_counts.launches_lanes = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = s.submit(queries(), key=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = sum(r.provenance.n_evals_run for r in rs)
+            out[tag] = dict(wall_s=wall, evals=n, evals_per_s=n / wall,
+                            launches=pareto_ops.dominance_counts.launches,
+                            launches_lanes=pareto_ops.dominance_counts
+                            .launches_lanes, results=rs)
+            print(f"phase 13 submit {tag}: {len(rs)} problems, {n} "
+                  f"evaluations in {wall:.3f} s ({n / wall:.1f} "
+                  f"evaluations/s), pareto_rank launches "
+                  f"{out[tag]['launches']} ({out[tag]['launches_lanes']} "
+                  f"of several lanes)")
+    fused, seq = out["fused"].pop("results"), out["sequential"].pop("results")
+    if out["fused"]["launches_lanes"] == 0:
+        fail("the fused submission launched no batched pareto_rank")
+    for rf, rq in zip(fused, seq):
+        if (rf.provenance.n_evals_run != rq.provenance.n_evals_run
+                or len(rf.front_designs) != len(rq.front_designs)
+                or not all(np.array_equal(a[k], b[k])
+                           for a, b in zip(rf.front_designs,
+                                           rq.front_designs) for k in a)):
+            fail(f"fused front of {rf.provenance.cache_key} differs from "
+                 f"its sequential front")
+        np.testing.assert_allclose(rf.front_metrics, rq.front_metrics,
+                                   rtol=1e-6)
+    print(f"phase 13 submit: fused fronts equal the sequential fronts "
+          f"(designs bit-identical, metrics rtol 1e-6, spend equal)")
+    return out
+
+
+def megabatch_phase() -> dict:
+    """Phase 13: (a) megabatching — the batched kernel, the fused lanes
+    against their unbatched runs, bench_scale's throughput gate and the
+    fused submission against the sequential one — then (b) the surrogate
+    benchmark."""
+    t0 = time.perf_counter()
+    problems = mb_problems()
+    out, walls = {}, {}
+    for part, fn in (("lane_shapes", check_pareto_lanes),
+                     ("fused_lanes", lambda: fused_lanes_check(problems)),
+                     ("throughput", lambda: megabatch_throughput(problems)),
+                     ("submit", megabatch_submit)):
+        t1 = time.perf_counter()
+        out[part] = fn()
+        walls[part] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["surrogate"] = surrogate_phase(Path(tmp))
+    walls["surrogate"] = time.perf_counter() - t1
+    out.update(wall_s=time.perf_counter() - t0, part_walls_s=walls)
+    print(f"phase 13: {out['wall_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1847,6 +2337,9 @@ def main():
     # ---- 12. transfer, fleet cache and resume on the card -----------------
     transfer = transfer_phase(problem, cold)
 
+    # ---- 13. megabatched and surrogate-gated search on the card -----------
+    fused = megabatch_phase()
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -1924,8 +2417,22 @@ def main():
         decode_device_ms_per_launch=served.get("scan_decode_device_ms"),
         prefill_device_ms=served.get("scan_prefill_device_ms"),
         build=ms_build, shapes=ms_rows)
+    lane_rows = fused["lane_shapes"]
+    lane_main = next(r for r in lane_rows if r["tag"] == "fused selection")
+    lanes_record = dict(
+        name="pareto_rank_lanes", route="cuda", source=record["source"],
+        replaces=record["replaces"],
+        launches=fused["submit"]["fused"]["launches_lanes"],
+        max_abs_err=max(r["max_abs_err"] for r in lane_rows),
+        ms=lane_main["ms"], plain_ms=lane_main["plain_ms"],
+        bound_ms=lane_main["bound_ms"], bound_by=lane_main["bound_by"],
+        library_ms=None, exact=True,
+        device_ms_per_launch=lane_main["device_ms"],
+        singles_ms=lane_main["singles_ms"],
+        singles_device_ms=lane_main["singles_device_ms"], shapes=lane_rows,
+        main_path=fused)
     print(json.dumps({"kernels": [record, gp_record, fa_record,
-                                  fa_f32_record, ms_record]}))
+                                  fa_f32_record, ms_record, lanes_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

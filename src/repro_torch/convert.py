@@ -14,11 +14,16 @@ JAX arrays that ``np.asarray`` accepts):
   ``tech_to_dict``;
 * ``load_reference_params`` / ``lm_params_from_reference`` — a reference
   LM parameter pytree (nested dicts of arrays, ``blocks`` stacked on a
-  leading layer axis) as the port's parameter modules.
+  leading layer axis) as the port's parameter modules;
+* ``surrogate_from_reference`` — a reference ``Surrogate`` or
+  ``NonlinearTrustModel`` as the port's (the ensemble weights and
+  normalization statistics as numpy), so both packages compute the same
+  function.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -27,6 +32,8 @@ import torch
 from .core.constants import TechConstants, tech_from_dict, tech_to_dict
 from .core.evaluate import SystemSpec
 from .core.workload import Edge, TensorRef, Workload, WorkloadGraph
+from .explore.surrogate import (NonlinearTrustModel, Surrogate,
+                                SurrogateConfig)
 from .models.config import ModelConfig
 from .models.model import HybridLM
 from .runtime import resolve_device
@@ -109,3 +116,22 @@ def lm_params_from_reference(params: Dict, cfg: ModelConfig,
     blocks = tree.pop("blocks")
     tree["blocks"] = {str(i): _layer(blocks, i) for i in range(cfg.n_layers)}
     return load_reference_params(HybridLM(cfg, dev), tree)
+
+
+def surrogate_from_reference(model):
+    """A reference ``Surrogate`` (or ``NonlinearTrustModel``) as the
+    port's: the same ensemble weights (leading member axis) and
+    normalization statistics, as numpy."""
+    params = {k: np.array(v, np.float32) for k, v in model.params.items()}
+    if hasattr(model, "config"):
+        return Surrogate(
+            params=params, x_mean=np.array(model.x_mean, np.float32),
+            x_std=np.array(model.x_std, np.float32),
+            y_mean=np.array(model.y_mean, np.float32),
+            y_std=np.array(model.y_std, np.float32),
+            config=SurrogateConfig(**dataclasses.asdict(model.config)),
+            n_rows=int(model.n_rows))
+    return NonlinearTrustModel(
+        params=params, x_mean=np.array(model.x_mean, np.float32),
+        x_std=np.array(model.x_std, np.float32), y_mean=float(model.y_mean),
+        y_std=float(model.y_std), dim=int(model.dim))

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..runtime import generator, resolve_device
+from ..runtime import LaneGenerators, generator, rand, resolve_device
 from .evaluate import SystemSpec
 from .network import MAX_NODES, N_FAMILIES
 from .workload import MAX_LOOPS, graph_feature_rows, workload_signature
@@ -76,7 +76,7 @@ class DesignSpace:
 def _randint(gen, shape, low, high, device):
     """Uniform integers in [low, high); ``high`` may be a tensor that
     broadcasts against ``shape`` (per-element upper bounds)."""
-    u = torch.rand(shape, generator=gen, device=device)
+    u = rand(gen, shape, device)
     v = low + torch.floor(u * (high - low)).to(torch.int64)
     top = high - 1
     return (torch.minimum(v, top) if torch.is_tensor(top)
@@ -93,7 +93,7 @@ def _const(values: tuple, device: torch.device, dtype=None) -> torch.Tensor:
 
 def _rand_perm_rows(gen, shape, device):
     """Independent uniform permutations of the last axis of ``shape``."""
-    return torch.argsort(torch.rand(shape, generator=gen, device=device),
+    return torch.argsort(rand(gen, shape, device),
                          dim=-1).to(I32)
 
 
@@ -103,11 +103,15 @@ def random_design(key, space: DesignSpace, n: Optional[int] = None,
     population of ``n`` designs (fields with a leading dim n), or one
     design without the leading dim when ``n`` is None.
 
-    ``key`` is an integer seed or a ``torch.Generator`` on ``device``;
-    ``nl``/``bounds`` may be passed as tensors (the workload's loop counts
-    and bounds), as in the reference."""
+    ``key`` is an integer seed or a ``torch.Generator`` on ``device``, or
+    a ``runtime.LaneGenerators`` (``n`` rows lane by lane, each lane's
+    rows drawn from its own generator); ``nl``/``bounds`` may be passed as
+    tensors (the workload's loop counts (W,) and bounds (W, L), as in the
+    reference), or per row ((n, W) and (n, W, L)), so the rows of a fused
+    run each sample their own problem."""
     dev = resolve_device(device)
-    gen = key if isinstance(key, torch.Generator) else generator(key, dev)
+    gen = (key if isinstance(key, (torch.Generator, LaneGenerators))
+           else generator(key, dev))
     m = 1 if n is None else int(n)
     W, CH, L = space.W, space.CH, MAX_LOOPS
     mx = torch.as_tensor(space.max_shape, device=dev)
@@ -115,14 +119,14 @@ def random_design(key, space: DesignSpace, n: Optional[int] = None,
     nl = torch.as_tensor(space.n_loops if nl is None else nl,
                          device=dev).long()
     nl1 = nl.clamp_min(1)
-    spatial = _randint(gen, (m, W, 6), 0, nl1[:, None], dev)
+    spatial = _randint(gen, (m, W, 6), 0, nl1[..., None], dev)
     order = _rand_perm_rows(gen, (m, W, 3, L), dev)
     bounds = torch.as_tensor(space.bounds if bounds is None else bounds,
                              device=dev)
     tmax = bounds.clamp_min(1).to(torch.float32)
-    u = torch.rand((m, W, 2, L), generator=gen, device=dev)
-    tiling = (tmax[:, None, :] ** u).clamp_min(1.0).to(I32)
-    on = torch.rand((m, W), generator=gen, device=dev) < 0.5
+    u = rand(gen, (m, W, 2, L), dev)
+    tiling = (tmax[..., None, :] ** u).clamp_min(1.0).to(I32)
+    on = rand(gen, (m, W), dev) < 0.5
     pipe_loop = _randint(gen, (m, W), 0, nl1, dev)
     pipe = torch.where(on & space.allow_pipeline, pipe_loop,
                        torch.full_like(pipe_loop, L))
@@ -183,7 +187,9 @@ def mutate(gen: torch.Generator, design: Dict, space: DesignSpace,
     ``design`` is a population (fields with a leading dim P) on the
     generator's device.  Each design draws its workload and its move; every
     move of ``fields`` is computed for the whole population and each design
-    keeps the one it drew."""
+    keeps the one it drew.  ``gen`` may be a ``runtime.LaneGenerators``,
+    and ``nl`` / ``bounds`` per row ((P, W) and (P, W, L)), as
+    ``random_design`` takes them."""
     dev = design["shape"].device
     P = design["shape"].shape[0]
     W, CH, L = space.W, space.CH, MAX_LOOPS
@@ -194,7 +200,7 @@ def mutate(gen: torch.Generator, design: Dict, space: DesignSpace,
     ar = torch.arange(P, device=dev)
     wsel = _randint(gen, (P,), 0, W, dev).long()
     mid = _randint(gen, (P,), 0, len(fields), dev)
-    nl_w = nl[wsel]
+    nl_w = nl[ar, wsel] if nl.dim() == 2 else nl[wsel]
 
     def pick(values):
         idx = _randint(gen, (P,), 0, len(values), dev).long()
@@ -230,7 +236,8 @@ def mutate(gen: torch.Generator, design: Dict, space: DesignSpace,
         lvl = _randint(gen, (P,), 0, 2, dev).long()
         i = _randint(gen, (P,), 0, nl_w, dev).long()
         f = pick([0.25, 0.5, 2.0, 4.0])
-        bmax = bounds_arr[wsel, i].to(I32)
+        bmax = (bounds_arr[ar, wsel, i] if bounds_arr.dim() == 3
+                else bounds_arr[wsel, i]).to(I32)
         t = design["tiling"][ar, wsel, lvl, i].to(torch.float32) * f
         t = torch.minimum(t.to(I32).clamp_min(1), bmax)
         tl = design["tiling"].clone()
@@ -238,7 +245,7 @@ def mutate(gen: torch.Generator, design: Dict, space: DesignSpace,
         return dict(tiling=tl)
 
     def mv_pipe():
-        on = torch.rand((P,), generator=gen, device=dev) < (
+        on = rand(gen, (P,), dev) < (
             0.7 if space.allow_pipeline else 0.0)
         loop = _randint(gen, (P,), 0, nl_w, dev)
         step = _randint(gen, (P,), -1, 2, dev)

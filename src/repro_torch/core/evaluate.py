@@ -123,13 +123,30 @@ def evaluate_system(spec: SystemSpec, design: Dict,
 
 
 def evaluate_arrays(arr: Dict, design: Dict, dims: Tuple[int, int, int],
-                    tech: TechConstants = DEFAULT_TECH) -> Dict:
+                    tech: TechConstants = DEFAULT_TECH,
+                    lanes: int = 1) -> Dict:
     """Evaluate a population: ``arr`` are the spec tensors (see
     ``spec_tensors``), ``design`` a dict of (P, ...) int tensors.  Returns
-    a dict of (P,)-shaped metrics (plus per-stage/per-edge delays)."""
+    a dict of (P,)-shaped metrics (plus per-stage/per-edge delays).
+
+    The spec tensors are either shared by the whole population (``bounds``
+    (W, L), the reference's layout) or given per row (every tensor with a
+    leading P axis, ``bounds`` (P, W, L)): then each design is evaluated
+    against its own problem, as a fused run's ``lanes`` need.  Its rows
+    are ``lanes`` equal blocks, one problem each; the card's one float
+    product (the link loads) runs block by block at the unfused shape, so
+    every lane sums in the order its unfused run does."""
     W, CH, E = dims
     dev = design["shape"].device
     P = design["shape"].shape[0]
+
+    def cols(x, idx):                # x[:, idx]; idx shared or per row
+        return x[:, idx] if idx.dim() == 1 else x.gather(1, idx)
+
+    def cat_idx(*parts):             # concatenated column indices
+        if all(p.dim() == 1 for p in parts):
+            return torch.cat(parts)
+        return torch.cat([p.expand(P, -1) for p in parts], 1)
     wl = {k: arr[k] for k in
           ("bounds", "loopmask", "A", "tmask", "dmask", "is_out")}
 
@@ -159,8 +176,8 @@ def evaluate_arrays(arr: Dict, design: Dict, dims: Tuple[int, int, int],
     # block A: DRAM->chiplet external-input streams  (W*CH flows)
     # block B: chiplet->DRAM final-output writebacks (W*CH flows)
     # block C: producer->consumer intermediate flows (E*CH flows)
-    def chip_node(wi, j):                    # wi: (K,); j: (P, K)
-        g = base[:, wi] + j
+    def chip_node(wi, j):                    # wi: (K,) or (P, K); j: (P, K)
+        g = cols(base, wi) + j
         return placement.gather(1, g.clamp(0, W * CH - 1))
 
     wgrid = torch.arange(W, device=dev).repeat_interleave(CH)    # (W*CH,)
@@ -181,28 +198,31 @@ def evaluate_arrays(arr: Dict, design: Dict, dims: Tuple[int, int, int],
 
     egrid = torch.arange(E, device=dev).repeat_interleave(CH)    # (E*CH,)
     jg = torch.arange(CH, device=dev).repeat(E)
-    w1 = arr["esrc"].long()[egrid]
-    w2 = arr["edst"].long()[egrid]
-    mC = arr["emask"][egrid] & (jg < n_chips[:, w2])
-    t_dst = arr["edst_tensor"].long()[egrid].clamp(0, MAX_TENSORS - 1)
-    volC = ein[:, w2, t_dst]                      # per consumer chiplet
-    srcC = chip_node(w1, jg % n_chips[:, w1].clamp_min(1))
+    w1 = arr["esrc"].long()[..., egrid]          # (E*CH,) or (P, E*CH)
+    w2 = arr["edst"].long()[..., egrid]
+    mC = arr["emask"][..., egrid] & (jg < cols(n_chips, w2))
+    t_dst = arr["edst_tensor"].long()[..., egrid].clamp(0, MAX_TENSORS - 1)
+    if w2.dim() == 1:
+        volC = ein[:, w2, t_dst]                  # per consumer chiplet
+    else:
+        volC = ein[torch.arange(P, device=dev)[:, None], w2, t_dst]
+    srcC = chip_node(w1, jg % cols(n_chips, w1).clamp_min(1))
     dstC = chip_node(w2, jg.expand(P, E * CH))
 
     src = torch.cat([srcA, srcB, srcC], 1)
     dst = torch.cat([dstA, dstB, dstC], 1)
     vol = torch.cat([volA, volB, volC], 1)
     fmask = torch.cat([mA, mB, mC], 1)
-    fw_src = torch.cat([wgrid, wgrid, w1])                       # stage of src
-    fw_dst = torch.cat([wgrid, wgrid, w2])
+    fw_src = cat_idx(wgrid, wgrid, w1)                           # stage of src
+    fw_dst = cat_idx(wgrid, wgrid, w2)
     is_dram_f = torch.cat([torch.ones(2 * W * CH, dtype=torch.bool,
                                       device=dev),
                            torch.zeros(E * CH, dtype=torch.bool,
                                        device=dev)])
 
     # bwr_{i,j} = |Omega| / min(D(v_i), D(v_j))  (DRAM side: consumer delay)
-    d_src = torch.where(is_dram_f, BIG, d_stage0[:, fw_src])
-    d_min = torch.minimum(d_src, d_stage0[:, fw_dst])
+    d_src = torch.where(is_dram_f, BIG, cols(d_stage0, fw_src))
+    d_min = torch.minimum(d_src, cols(d_stage0, fw_dst))
     bwr = vol / d_min.clamp_min(1.0)
 
     # ---- network: provision at hotspot, cap by packaging -------------------
@@ -212,10 +232,10 @@ def evaluate_arrays(arr: Dict, design: Dict, dims: Tuple[int, int, int],
     nh = nh_all[tcode.clamp(0, nh_all.shape[0] - 1)]             # (P, N, N)
     route = route_links(nh, src, dst)        # routing is shared by both passes
     pre = evaluate_network(route, bwr, vol, fmask, cap, tech.dram_bw,
-                           tech.router_delay_ns, n_nodes)
+                           tech.router_delay_ns, n_nodes, lanes)
     link_bw = torch.minimum(pre["hotspot"].clamp_min(1.0), cap)
     net = evaluate_network(route, bwr, vol, fmask, link_bw, tech.dram_bw,
-                           tech.router_delay_ns, n_nodes)
+                           tech.router_delay_ns, n_nodes, lanes)
 
     # ---- fixed-point pass: refine stage delays with achieved inbound bw ----
     # DRAM streaming overlaps compute INSIDE the stage (max(D_C, D_B, D_A),
@@ -242,8 +262,7 @@ def evaluate_arrays(arr: Dict, design: Dict, dims: Tuple[int, int, int],
     fdel = torch.where(fmask, net["delay_ns"], 0.0)
     hop_lat = net["hops"] * tech.router_delay_ns
     tiles_w = an["ext_tiles"].clamp_min(1.0)                     # (P, W)
-    first_fill = hop_lat + (fdel - hop_lat) / tiles_w[
-        :, torch.cat([wgrid, wgrid, w1])]
+    first_fill = hop_lat + (fdel - hop_lat) / cols(tiles_w, fw_src)
 
     def scatter_max(n, index, values):       # zeros(n).at[index].max(values)
         out = torch.zeros(P, n, dtype=F, device=dev)
@@ -262,7 +281,7 @@ def evaluate_arrays(arr: Dict, design: Dict, dims: Tuple[int, int, int],
     emask = arr["emask"]
     dist = d_in + d_stage                                        # (P, W)
     for _ in range(W):
-        upd = dist[:, esrc] + d_edge + d_stage[:, edst]
+        upd = cols(dist, esrc) + d_edge + cols(d_stage, edst)
         upd = torch.where(emask, upd, -BIG)
         dist = dist.scatter_reduce(1, edst.expand(P, -1), upd, "amax",
                                    include_self=True)

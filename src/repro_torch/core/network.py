@@ -150,7 +150,7 @@ def route_links(nh, src, dst):
     return u, v, hops
 
 
-def link_load_dense(u, v, w):
+def link_load_dense(u, v, w, lanes: int = 1):
     """Per-link sums of ``w`` over the links (u, v) its entries take, as a
     product of one-hot matrices: (P, N_TOT * N_TOT), link id u * N_TOT + v.
 
@@ -159,8 +159,19 @@ def link_load_dense(u, v, w):
     so rounding) changes from call to call; a batched GEMM adds in a fixed
     order, so one population sums to the same bits on every call.  Each
     product is a requirement times 1 or 0, so the requirements must be
-    finite (they are volumes over delays of at least 1 ns)."""
+    finite (they are volumes over delays of at least 1 ns).
+
+    ``lanes`` > 1 splits the population into that many equal blocks (a
+    fused run's problems) and takes each block's product on its own, at
+    the unfused shape: a batched GEMM of another batch count may pick
+    another algorithm, and so another order of the sum."""
     H, P, Fl = u.shape
+    if lanes > 1:
+        n = P // lanes
+        return torch.cat([link_load_dense(u[:, i * n:(i + 1) * n],
+                                          v[:, i * n:(i + 1) * n],
+                                          w[:, i * n:(i + 1) * n])
+                          for i in range(lanes)])
     nodes = torch.arange(N_TOT, device=u.device)
 
     def rows(x):                                 # (H, P, F) -> (P, H * F)
@@ -171,7 +182,7 @@ def link_load_dense(u, v, w):
 
 
 def evaluate_network(route, bwr, vol_bytes, fmask, link_bw, dram_bw,
-                     router_delay_ns, n_nodes):
+                     router_delay_ns, n_nodes, lanes: int = 1):
     """Contention-aware per-flow delay (paper Sec. III-C last equation).
 
     route:     ``route_links`` output (u, v, hops) for the flows
@@ -180,6 +191,8 @@ def evaluate_network(route, bwr, vol_bytes, fmask, link_bw, dram_bw,
     fmask:     (P, F) bool valid-flow mask
     link_bw:   (P,) provisioned chiplet-link bandwidth (GB/s)
     n_nodes:   (P,) chiplet node count (= the DRAM node id)
+    lanes:     equal blocks of the population summed apart on the card
+               (see ``link_load_dense``)
     Returns dict(delay_ns (P, F), hops (P, F), hotspot (P,),
     d2d_byte_hops, dram_bytes, router_byte_hops (P,)).
     """
@@ -194,7 +207,7 @@ def evaluate_network(route, bwr, vol_bytes, fmask, link_bw, dram_bw,
     inb = lid < n_links
     w = torch.where(active & inb, bwr[None], 0.0)
     if bwr.device.type == "cuda":
-        load = link_load_dense(u, v, w)
+        load = link_load_dense(u, v, w, lanes)
     else:
         load = torch.zeros(P, n_links, dtype=F, device=bwr.device)
         load.scatter_add_(

@@ -22,9 +22,12 @@ engines (re-exported at ``repro_torch.api``).
   never touch the archive cache.  A query's ``tech`` routes it to a
   sibling session under that tech, on the same cache directory.
 
-``submit_async``, surrogate gating and run journals are not ported yet:
-asking for one raises ``NotImplementedError`` naming it.  Nothing is
-dropped silently.
+Distinct cold nsga problems of one padded shape fuse into the lanes of one
+run (``BudgetPolicy.megabatch``, on by default; ``Query.megabatch=False``
+opts out), and ``engine_opts={"surrogate": ...}`` gates an nsga query's
+evaluations on a surrogate fit from the fleet cache.  ``submit_async``
+and run journals are not ported yet: asking for one raises
+``NotImplementedError`` naming it.  Nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from . import quantize
 from .archive import ConvergenceTrace, pareto_front, spec_space_key
 from .service import (DEFAULT_OBJECTIVES, BudgetPolicy, ExplorationService,
                       ExploreQuery, ExploreResult, SegmentEvent, not_ported)
+from .surrogate import SurrogateConfig
 
 ENGINES = ("nsga", "bo_sa", "two_stage", "auto")
 
@@ -126,8 +130,11 @@ class Query:
     ``"bo_sa"`` (the nested BO x SA engine under ``weights``),
     ``"two_stage"`` (the paper's architecture-then-integration flow) or
     ``"auto"`` (``bo_sa`` when ``weights`` are given, else ``nsga``).
-    ``budget``, ``policy`` and ``transfer`` (seed from the migrated fronts
-    of the nearest cached problems) apply to the nsga engine; ``weights``,
+    ``budget``, ``policy``, ``transfer`` (seed from the migrated fronts
+    of the nearest cached problems), ``megabatch`` and
+    ``engine_opts={"surrogate": ...}`` (surrogate-gated evaluation: ``True``
+    or a dict of ``SurrogateConfig`` overrides, with ``exclude`` keys held
+    out of training) apply to the nsga engine; ``weights``,
     ``seed_designs`` (designs, e.g. migrated ones, that replace the leading
     random restarts), ``archive`` and ``engine_opts`` (``n_init``,
     ``n_iter``, ``sa``, ``bo_fields``, ``sa_fields``, ``init_design`` for
@@ -145,6 +152,9 @@ class Query:
     policy: Optional[BudgetPolicy] = None
     archive: Optional[object] = None
     engine_opts: Optional[Dict] = None
+    megabatch: bool = True          # allow this nsga query to fuse with
+    #                                 OTHER problems of equal padded shape
+    #                                 (see BudgetPolicy.megabatch)
     tech: Optional[object] = None
 
     def __post_init__(self):
@@ -192,7 +202,9 @@ class Plan:
     ``islands`` is always 1 (the port runs one device).  ``predicted_s``
     stays ``None`` except on a cache hit (0.0): the reference predicts it
     from its observability layer's segment-time histograms, which the port
-    does not have yet."""
+    does not have yet.  ``surrogate`` says the query asked for gating, and
+    ``predicted_eval_savings`` counts the evaluations the gate would skip
+    if the fleet cache yields a fit."""
     engine: str
     cache_key: str
     cache_hit: bool
@@ -203,6 +215,8 @@ class Plan:
     seed_cap: int = 0
     islands: int = 1
     predicted_s: Optional[float] = None
+    surrogate: bool = False
+    predicted_eval_savings: int = 0
 
     @property
     def n_evals_planned(self) -> int:
@@ -261,17 +275,17 @@ SCALARIZED_OPTS = {
 
 
 def _check_nsga(q: Query) -> None:
-    """Raise for an option the nsga engine does not take (``ValueError``,
-    as the reference) or the port does not run yet."""
+    """Raise (``ValueError``, as the reference) for an option the nsga
+    engine does not take: its one ``engine_opts`` key is ``surrogate``
+    (``True`` or a dict of ``SurrogateConfig`` overrides)."""
     opts = dict(q.engine_opts or {})
-    if "surrogate" in opts:
-        raise not_ported("surrogate gating (engine_opts['surrogate'])")
+    opts.pop("surrogate", None)
     if q.weights is not None or q.seed_designs or q.archive is not None \
             or opts:
         raise ValueError(
             "weights / seed_designs / archive / engine_opts apply to the "
             "scalarized engines; the nsga engine takes budget / transfer / "
-            "policy")
+            "policy / engine_opts={'surrogate': ...}")
 
 
 def _validate_scalarized(q: Query, engine: str) -> None:
@@ -390,9 +404,18 @@ class Session:
                 NeighborPlan(nk, float(dist), int(quotas.get(nk, 1)))
                 for nk, dist in neigh
                 if m.entries[nk].get("digest") is not None)
+        sur_req = dict(query.engine_opts or {}).get("surrogate", None)
+        savings = 0
+        if sur_req is not None:
+            s_opts = {} if sur_req is True else dict(sur_req)
+            s_opts.pop("exclude", None)
+            scfg = SurrogateConfig(**s_opts)
+            savings = (pop - scfg.n_exact(pop)) * chunk * sched.n_seg
         return Plan(engine=engine, cache_key=ck, cache_hit=False,
                     budget=budget, objectives=p.objectives,
-                    segments=segments, neighbors=neighbors, seed_cap=cap)
+                    segments=segments, neighbors=neighbors, seed_cap=cap,
+                    surrogate=sur_req is not None,
+                    predicted_eval_savings=savings)
 
     def submit_async(self, query: Query, key=None, deadline_s=None):
         raise not_ported("Session.submit_async")
@@ -490,7 +513,9 @@ class Session:
         p = q.problem
         return ExploreQuery(p.graph, p.objectives, int(q.budget), p.ch_max,
                             p.space_kwargs, q.transfer, spec=p.spec,
-                            space=p.space)
+                            space=p.space, megabatch=q.megabatch,
+                            surrogate=dict(q.engine_opts or {}).get(
+                                "surrogate"))
 
     def _wrap(self, er: ExploreResult) -> Result:
         return Result(
@@ -505,7 +530,11 @@ class Session:
                 transferred_from=er.transferred_from,
                 n_transfer_seeds=er.n_transfer_seeds,
                 plateaued=er.plateaued, elapsed_s=er.elapsed_s,
-                interrupted=er.interrupted, tech=self.tech_label),
+                interrupted=er.interrupted,
+                surrogate_used=er.surrogate_used,
+                surrogate_hits=er.surrogate_hits,
+                surrogate_fallbacks=er.surrogate_fallbacks,
+                tech=self.tech_label),
             raw=er)
 
     def _run_scalarized(self, q: Query, engine: str, key: int,

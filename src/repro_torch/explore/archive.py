@@ -71,7 +71,9 @@ def pareto_front(points) -> List[int]:
 
 def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(n,) int32 number of *valid* points dominating each row of ``objs``
-    (n, k).  Zero => nondominated.  Routed to the ``pareto_rank`` kernel."""
+    (n, k).  Zero => nondominated.  Routed to the ``pareto_rank`` kernel;
+    a leading lane axis ((L, n, k) and (L, n) -> (L, n)) ranks every lane
+    on its own in the same one launch."""
     return _kernel_counts(objs.to(F).contiguous(),
                           valid.to(torch.bool).contiguous())
 
@@ -79,26 +81,28 @@ def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def crowding_distance(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """NSGA-II crowding distance over the ``valid`` subset of ``objs``
     (n, k).  Boundary points (per-objective min/max among valid rows) get
-    +inf; invalid rows get 0."""
-    n = objs.shape[0]
+    +inf; invalid rows get 0.  Leading lane axes ((L, n, k) and (L, n))
+    give one distance vector per lane."""
+    n, k = objs.shape[-2:]
+    lead = objs.shape[:-2]
     dev = objs.device
-    nv = valid.sum()
-    c = torch.where(valid[:, None], objs.to(F), torch.inf)  # invalid sort last
-    order = torch.argsort(c, dim=0, stable=True)            # (n, k)
-    s = c.gather(0, order)
-    lo = s[0]
-    hi = s.gather(0, (nv - 1).clamp(0, n - 1).expand(1, s.shape[1]))[0]
+    nv = valid.sum(-1)[..., None, None]                     # (..., 1, 1)
+    c = torch.where(valid[..., None], objs.to(F), torch.inf)  # invalid last
+    order = torch.argsort(c, dim=-2, stable=True)           # (..., n, k)
+    s = c.gather(-2, order)
+    lo = s[..., :1, :]
+    hi = s.gather(-2, (nv - 1).clamp(0, n - 1).expand(*lead, 1, k))
     rng = (hi - lo).clamp_min(1e-12)
-    prev = torch.cat([s[:1], s[:-1]])
-    nxt = torch.cat([s[1:], s[-1:]])
+    prev = torch.cat([s[..., :1, :], s[..., :-1, :]], -2)
+    nxt = torch.cat([s[..., 1:, :], s[..., -1:, :]], -2)
     i = torch.arange(n, device=dev)[:, None]
     gap = (nxt - prev) / rng
     gap = torch.where((i == 0) | (i == nv - 1), torch.inf, gap)
     gap = torch.where(i < nv, gap, 0.0)
-    cd = torch.zeros_like(gap).scatter_(0, order, gap)
-    out = cd[:, 0]
-    for j in range(1, cd.shape[1]):
-        out = out + cd[:, j]
+    cd = torch.zeros_like(gap).scatter_(-2, order, gap)
+    out = cd[..., 0]
+    for j in range(1, k):
+        out = out + cd[..., j]
     return out
 
 
@@ -126,19 +130,23 @@ def hypervolume_2d_jit(points: torch.Tensor, ref, valid=None) -> torch.Tensor:
     float32 tensor).  Filtered points (non-finite, not dominating ``ref``,
     or masked out by ``valid``) move onto the reference point, where they
     contribute zero area.  Used by the NSGA telemetry with no host
-    round-trip."""
-    pts = points.to(F).reshape(-1, 2)
+    round-trip.  ``points`` (L, m, 2) with ``valid`` (L, m) gives one
+    hypervolume per lane, (L,)."""
+    pts = points.to(F)
+    if pts.dim() < 3:
+        pts = pts.reshape(-1, 2)
     ref = torch.as_tensor(ref, dtype=F, device=pts.device).reshape(2)
-    ok = torch.isfinite(pts).all(1) & (pts < ref[None, :]).all(1)
+    ok = torch.isfinite(pts).all(-1) & (pts < ref).all(-1)
     if valid is not None:
         ok = ok & valid.to(torch.bool)
-    x = torch.where(ok, pts[:, 0], ref[0])
-    y = torch.where(ok, pts[:, 1], ref[1])
-    order = torch.argsort(x, stable=True)
-    xs, ys = x[order], y[order]
+    x = torch.where(ok, pts[..., 0], ref[0])
+    y = torch.where(ok, pts[..., 1], ref[1])
+    order = torch.argsort(x, dim=-1, stable=True)
+    xs, ys = x.gather(-1, order), y.gather(-1, order)
     # running staircase minimum BEFORE each point (ref height to start)
-    ymin_prev = torch.cat([ref[1:2], torch.cummin(ys, 0).values[:-1]])
-    return ((ref[0] - xs) * (ymin_prev - ys).clamp_min(0.0)).sum()
+    ymin_prev = torch.cat([ref[1:2].expand(*ys.shape[:-1], 1),
+                           torch.cummin(ys, -1).values[..., :-1]], -1)
+    return ((ref[0] - xs) * (ymin_prev - ys).clamp_min(0.0)).sum(-1)
 
 
 def objective_pairs(n: int) -> Tuple[Tuple[int, int], ...]:
@@ -313,6 +321,14 @@ def flatten_design(design: Dict) -> torch.Tensor:
                       for k in sorted(design)])
 
 
+def flatten_rows(designs: Dict) -> torch.Tensor:
+    """A population of designs (leaves with a leading row axis) -> the
+    (n, D) float32 ``flatten_design`` encodings of its rows."""
+    n = next(iter(designs.values())).shape[0]
+    return torch.cat([designs[k].reshape(n, -1).to(F)
+                      for k in sorted(designs)], dim=1)
+
+
 def design_encoding_dim(template: Dict) -> int:
     """Length of ``flatten_design`` output for one design template."""
     return int(sum(int(np.prod(np.shape(v))) for v in template.values()))
@@ -413,8 +429,7 @@ class ParetoArchive:
         if not len(sel):
             return (np.zeros((0, D), np.float32),
                     np.zeros((0, self.n_obj), np.float64))
-        X = torch.cat([self.designs[k][sel].reshape(len(sel), -1).to(F)
-                       for k in sorted(self.designs)], dim=1)
+        X = flatten_rows({k: v[sel] for k, v in self.designs.items()})
         return (X.cpu().numpy(),
                 self.objs[sel].cpu().numpy().astype(np.float64))
 
@@ -783,13 +798,18 @@ class ArchiveManifest:
                 if k not in skip and e["n_evals"] > 0
                 and e.get("digest") is not None]
 
-    def trust_model(self, dim: Optional[int] = None
-                    ) -> Optional[TrustModel]:
-        """The ridge ``TrustModel`` over this manifest's recorded outcomes
-        (``None`` until enough records accumulate).  The reference switches
-        to a non-linear head from its surrogate module at 32 records; that
-        module is not ported, so the port fits the ridge model at every
-        depth (the two agree below 32 records)."""
+    def trust_model(self, dim: Optional[int] = None):
+        """The fitted trust model over this manifest's recorded outcomes
+        (``None`` until enough records accumulate).  With a deep record
+        table (>= ``surrogate.NONLINEAR_TRUST_MIN``) the non-linear MLP
+        head takes over from the ridge ``TrustModel`` (same ``predict(delta)
+        -> lift >= 0`` contract); the ridge fit stays the answer whenever
+        the MLP cannot be fit."""
+        from .surrogate import NONLINEAR_TRUST_MIN, fit_nonlinear_trust
+        if len(self.trust) >= NONLINEAR_TRUST_MIN:
+            tm = fit_nonlinear_trust(self.trust, dim=dim)
+            if tm is not None:
+                return tm
         return fit_trust_model(self.trust, dim=dim)
 
     def nearest(self, embedding, k: int = 3,

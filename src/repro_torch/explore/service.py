@@ -30,12 +30,23 @@
   beside the archive; a stopped (``RunControl``) or killed run re-submitted
   with the same queries and key restores the last completed segment and
   lands on the bit-identical front.
+* **Megabatching** (``BudgetPolicy.megabatch``, on by default) — cold,
+  distinct problems of one padded shape and one segment schedule run as
+  the lanes of one ``make_nsga_fused`` run (lane counts pow2-padded, at
+  most ``megabatch_lanes``); every lane books its archive, trace, plateau
+  and bank exactly as its sequential run would, and answers with the same
+  front.
+* **Surrogate gating** (``ExploreQuery.surrogate``) — an ensemble MLP fit
+  on every other cached archive's rows ranks each generation's children,
+  and only ``SurrogateConfig.n_exact`` of them are evaluated exactly
+  (``make_nsga_gated``); a segment whose mean ensemble disagreement
+  exceeds ``fallback_tau`` abandons the gate for the rest of the run.
+  With too few rows to fit, the query runs the exact path bit for bit.
 
 Archives live on the service's device and every insert runs there.  The
 archive cache key and the checkpoint signature are salted with
 ``CACHE_SALT``, so the port and the reference never share an archive file
-or a checkpoint.  Surrogate gating and megabatching are not ported:
-asking for one raises ``NotImplementedError`` naming it.
+or a checkpoint.
 """
 
 from __future__ import annotations
@@ -69,9 +80,12 @@ from ..runtime import fold_in, resolve_device
 from . import quantize
 from .archive import (MANIFEST_NAME, ArchiveManifest, ConvergenceTrace,
                       ManifestPolicy, ParetoArchive, atomic_savez,
-                      objective_pairs, pareto_front, spec_space_key)
+                      design_encoding_dim, objective_pairs, pareto_front,
+                      spec_space_key)
 from .locks import LockTimeout, file_lock, lock_path
-from .nsga import NSGAConfig, make_nsga
+from .nsga import NSGAConfig, make_nsga, make_nsga_fused, make_nsga_gated
+from .surrogate import (Surrogate, SurrogateConfig, fit_surrogate,
+                        harvest_rows)
 
 # the default archive cache is anchored to the repo root (four levels above
 # this file: src/repro_torch/explore/service.py), NOT the process CWD
@@ -129,18 +143,19 @@ class BudgetPolicy:
     archive-projected hypervolume improved by less than ``plateau_rel``
     for ``patience`` consecutive segments, banking the rest.
     ``reallocate`` spends banked credit on the batch's under-explored,
-    still-improving archives.  Megabatching is not ported: its switch
-    defaults to off here, and turning it on raises."""
+    still-improving archives.  ``megabatch`` lets ``run_queries`` fuse
+    DIFFERENT cold problems of one padded shape and one schedule into the
+    lanes of one run (lane counts pow2-padded, at most
+    ``megabatch_lanes``); a query opts out with
+    ``ExploreQuery.megabatch=False``, and ``resume`` never fuses
+    (checkpoints stay per group)."""
     chunk_generations: int = 8
     plateau_rel: float = 0.005
     patience: int = 2
     adaptive: bool = True
     reallocate: bool = True
-    megabatch: bool = False
-
-    def __post_init__(self):
-        if self.megabatch:
-            raise not_ported("megabatching (BudgetPolicy.megabatch)")
+    megabatch: bool = True
+    megabatch_lanes: int = 8
 
 
 @dataclasses.dataclass
@@ -204,6 +219,16 @@ class ExploreQuery:
     transfer: bool = False          # seed from migrated neighbor fronts
     spec: Optional[SystemSpec] = None
     space: Optional[DesignSpace] = None
+    megabatch: bool = True          # allow this query's group to fuse with
+    #                                 other problems (BudgetPolicy.megabatch)
+    surrogate: Optional[Dict] = None    # surrogate-gated evaluation: None
+    #                                 (the exact path), or a dict of
+    #                                 ``SurrogateConfig`` overrides (``True``
+    #                                 normalizes to ``{}``); an extra
+    #                                 ``"exclude"`` key lists archive keys
+    #                                 held out of training.  With too few
+    #                                 training rows the query runs exact,
+    #                                 bit-identical to surrogate=None
 
     def __post_init__(self):
         self.objectives = tuple(self.objectives)
@@ -213,6 +238,12 @@ class ExploreQuery:
         if bad:
             raise ValueError(f"unknown objectives {bad}; pick from "
                              f"{METRIC_KEYS}")
+        if self.surrogate is True:
+            self.surrogate = {}
+        if self.surrogate is not None and not isinstance(self.surrogate,
+                                                         dict):
+            raise ValueError("surrogate must be None, True or a dict of "
+                             "SurrogateConfig overrides")
 
     def build(self) -> Tuple[SystemSpec, DesignSpace]:
         """This query's (spec, space), built on demand and memoized."""
@@ -256,6 +287,21 @@ class ExploreResult:
     #                                 migrated fronts seeded this run
     n_transfer_seeds: int = 0       # seeds injected (migrated or balanced)
     interrupted: bool = False       # a RunControl stop ended the run early
+    surrogate_used: bool = False    # a fleet surrogate gated the group's
+    #                                 evaluations (False when not asked for
+    #                                 or when the cache was too cold to fit)
+    surrogate_hits: int = 0         # candidate evaluations the gate skipped
+    surrogate_fallbacks: int = 0    # 1 when ensemble disagreement abandoned
+    #                                 the surrogate mid-run
+
+
+@dataclasses.dataclass
+class SurrogateGate:
+    """A fitted fleet surrogate bound to one group's workload embedding —
+    everything ``_refine`` needs to gate a refinement's evaluations."""
+    model: Surrogate
+    embedding: np.ndarray
+    cfg: SurrogateConfig
 
 
 class ExplorationService:
@@ -478,9 +524,18 @@ class ExplorationService:
             order.append((ck, len(g["queries"])))
             g["queries"].append(q)
         seq = itertools.count()
-        for i, (ck, g) in enumerate(groups.items()):
-            self._refine_group(ck, g, fold_in(key, i), on_segment, seq,
-                               resume=resume, control=control)
+        # per-group seeds are fixed by enumeration order before any fusing,
+        # so a group's stream — and its front — is the same whether it runs
+        # sequentially or as a megabatch lane
+        gkeys = {ck: fold_in(key, i) for i, ck in enumerate(groups)}
+        fused = set()
+        if self.policy.megabatch and not resume and len(groups) > 1:
+            fused = self._megabatch_pass(groups, gkeys, on_segment, seq,
+                                         control)
+        for ck, g in groups.items():
+            if ck not in fused:
+                self._refine_group(ck, g, gkeys[ck], on_segment, seq,
+                                   resume=resume, control=control)
         if self.policy.reallocate:
             self._reallocate(groups, fold_in(key, len(groups)), on_segment,
                              seq, control=control)
@@ -502,7 +557,11 @@ class ExplorationService:
 
     def _open_group(self, ck: str, g: Dict) -> bool:
         """Resolve the group's archive, record the query facts on ``g`` and
-        return the warm verdict (True => served straight from cache)."""
+        return the warm verdict (True => served straight from cache).
+        Idempotent: the megabatch pass may open a group the sequential
+        loop then revisits."""
+        if "warm" in g:
+            return g["warm"]
         arc = g["arc"] = self.archive_for(g["spec"], g["space"], key=ck)
         g["embedding"] = workload_features(g["spec"].graph)
         budget = g["budget"] = max(q.budget for q in g["queries"])
@@ -512,7 +571,12 @@ class ExplorationService:
         warm = self.warm_verdict(arc, union, budget)
         g.update(warm=warm, n_run=0, trace=None, plateaued=False,
                  banked=0, realloc=0, transferred_from=(), n_seeds=0,
-                 interrupted=False, plateau=PlateauState())
+                 interrupted=False, plateau=PlateauState(),
+                 # any member asking for gating turns it on for the shared
+                 # run (like budget: max wins)
+                 surrogate=next((q.surrogate for q in g["queries"]
+                                 if q.surrogate is not None), None),
+                 sur_used=False, sur_hits=0, sur_fallbacks=0)
         if warm and ck not in self.manifest.entries:
             self._update_manifest(ck, g)     # index caches written before
         return warm
@@ -534,21 +598,13 @@ class ExplorationService:
                         if seeds else 0)
         return seeds
 
-    def _refine_group(self, ck: str, g: Dict, key: int, on_segment, seq,
-                      resume: bool = False,
-                      control: Optional[RunControl] = None) -> None:
-        """Serve the group from cache, or spend (or bank) its budget."""
-        t0 = time.perf_counter()
-        if self._open_group(ck, g):
-            g["elapsed"] = time.perf_counter() - t0
-            return
+    def _book_refinement(self, ck: str, g: Dict, n_run: int, trace,
+                         plateaued: bool, banked: int,
+                         interrupted: bool) -> None:
+        """Shared epilogue of one group's refinement (sequential or fused):
+        archive accounting, the ledger, trust calibration, the archive and
+        manifest writes."""
         arc, union, budget = g["arc"], g["union"], g["budget"]
-        seeds = self._group_seeds(ck, g, key)
-        n_run, trace, plateaued, banked, interrupted = self._refine(
-            arc, g["spec"], g["space"], union, budget, key, seeds=seeds,
-            on_segment=self._segment_cb(on_segment, ck, "refine", seq),
-            plateau=g["plateau"], control=control,
-            checkpoint=self._ckpt_path(ck) if resume else None)
         arc.searched = tuple(k for k in METRIC_KEYS
                              if k in arc.searched or k in union)
         if not interrupted:
@@ -564,7 +620,241 @@ class ExplorationService:
         m = self.manifest               # ONE snapshot for both updates
         self._record_trust(ck, g, trace, m)
         self._update_manifest(ck, g, m)
+
+    def _refine_group(self, ck: str, g: Dict, key: int, on_segment, seq,
+                      resume: bool = False,
+                      control: Optional[RunControl] = None) -> None:
+        """Serve the group from cache, or spend (or bank) its budget."""
+        t0 = time.perf_counter()
+        if self._open_group(ck, g):
+            g["elapsed"] = time.perf_counter() - t0
+            return
+        seeds = self._group_seeds(ck, g, key)
+        ckpt = self._ckpt_path(ck) if resume else None
+        gate = None
+        if g["surrogate"] is not None:
+            # a resumed gated run replays the surrogate it started with
+            gate = (self._stored_gate(ckpt, g) if ckpt is not None
+                    else None) or self._fit_gate(ck, g)
+        n_run, trace, plateaued, banked, interrupted, sstats = self._refine(
+            g["arc"], g["spec"], g["space"], g["union"], g["budget"], key,
+            seeds=seeds,
+            on_segment=self._segment_cb(on_segment, ck, "refine", seq),
+            plateau=g["plateau"], control=control, checkpoint=ckpt,
+            gate=gate)
+        g.update(sur_used=sstats["used"], sur_hits=sstats["hits"],
+                 sur_fallbacks=sstats["fallbacks"])
+        self._book_refinement(ck, g, n_run, trace, plateaued, banked,
+                              interrupted)
         g["elapsed"] = time.perf_counter() - t0
+
+    # ---- surrogate gating --------------------------------------------------
+    @staticmethod
+    def _gate_config(g: Dict) -> Tuple[SurrogateConfig, Tuple[str, ...]]:
+        opts = dict(g["surrogate"])
+        exclude = tuple(opts.pop("exclude", ()))
+        try:
+            return SurrogateConfig(**opts), exclude
+        except TypeError as e:
+            raise ValueError(f"bad surrogate options {sorted(opts)}: "
+                             f"{e}") from None
+
+    def _fit_gate(self, ck: str, g: Dict) -> Optional[SurrogateGate]:
+        """Fit the evaluation-gating surrogate for one opened group from
+        every OTHER cached archive the manifest indexes (minus the
+        ``exclude`` keys), plus the group's own archived rows, on the
+        service's device.  ``None`` when the harvest is below
+        ``SurrogateConfig.min_rows``: the caller then runs the exact path,
+        bit-identical to no surrogate."""
+        cfg, exclude = self._gate_config(g)
+        arc = g["arc"]
+        emb = np.asarray(g["embedding"], np.float32).ravel()
+        design_dim = design_encoding_dim(
+            {k: v[0] for k, v in arc.designs.items()})
+        index = self.manifest.export_index(exclude=(ck,) + exclude)
+        X, Y = harvest_rows(index, self._load_neighbor, design_dim,
+                            emb.size)
+        own_X, own_Y = arc.export_rows()
+        if len(own_X):
+            own = np.concatenate([own_X, np.tile(emb, (len(own_X), 1))],
+                                 axis=1)
+            X = np.concatenate([X, own]) if len(X) else own
+            Y = np.concatenate([Y, own_Y]) if len(Y) else own_Y
+        sur = fit_surrogate(X, Y, cfg, device=self.device)
+        if sur is None:
+            return None
+        return SurrogateGate(model=sur, embedding=emb, cfg=cfg)
+
+    def _stored_gate(self, path: Path, g: Dict) -> Optional[SurrogateGate]:
+        """The surrogate a stopped gated run checkpointed, bound to this
+        group, when its config is the one asked for (``_refine`` then holds
+        the rest of the checkpoint's signature); ``None`` otherwise."""
+        if not Path(path).exists():
+            return None
+        cfg, _ = self._gate_config(g)
+        try:
+            with np.load(path) as z:
+                meta = json.loads(bytes(z["__meta"]).decode())
+                sm = meta.get("surrogate")
+                if sm is None or SurrogateConfig(**sm["config"]) != cfg:
+                    return None
+                sur = Surrogate(
+                    params={k[2:]: z[k].copy() for k in z.files
+                            if k.startswith("s_")},
+                    x_mean=z["sx_mean"].copy(), x_std=z["sx_std"].copy(),
+                    y_mean=z["sy_mean"].copy(), y_std=z["sy_std"].copy(),
+                    config=cfg, n_rows=int(sm["n_rows"]))
+        except (OSError, ValueError, KeyError, TypeError, EOFError,
+                zipfile.BadZipFile):
+            return None
+        return SurrogateGate(model=sur, embedding=np.asarray(
+            g["embedding"], np.float32).ravel(), cfg=cfg)
+
+    # ---- cross-problem megabatching ----------------------------------------
+    def _fuse_signature(self, g: Dict):
+        """What two problem groups must share to run as lanes of one
+        fused run: padded dims, the space's bounds, the objective columns
+        and the quantized segment schedule (the service's NSGA config and
+        tech are common to all).  Spec tensor VALUES differ per lane."""
+        spec, space = g["spec"], g["space"]
+        sched = quantize.schedule(g["budget"], self.nsga.pop,
+                                  self.policy.chunk_generations)
+        return ((spec.W, spec.CH, spec.E), g["union"], space.max_shape,
+                space.max_logB, space.max_total_pes, space.fixed_packaging,
+                space.fixed_family, space.allow_pipeline, sched)
+
+    def _megabatch_pass(self, groups: Dict[str, Dict], gkeys, on_segment,
+                        seq, control) -> set:
+        """Bucket this batch's cold, megabatch-willing, ungated groups by
+        fuse signature and answer every bucket of >= 2 problems with one
+        fused refinement.  Returns the keys of the groups handled here
+        (warm groups it served included); the caller runs the rest."""
+        done: set = set()
+        buckets: Dict[tuple, List[Tuple[str, Dict]]] = {}
+        for ck, g in groups.items():
+            if not all(q.megabatch for q in g["queries"]):
+                continue
+            if any(q.surrogate is not None for q in g["queries"]):
+                continue        # gated groups run the sequential loop
+            t0 = time.perf_counter()
+            if self._open_group(ck, g):
+                g["elapsed"] = time.perf_counter() - t0     # warm: served
+                done.add(ck)
+                continue
+            buckets.setdefault(self._fuse_signature(g), []).append((ck, g))
+        cap = max(2, int(self.policy.megabatch_lanes))
+        for bucket in buckets.values():
+            for lo in range(0, len(bucket), cap):
+                part = bucket[lo:lo + cap]
+                if len(part) < 2:       # nothing to fuse with: left to the
+                    continue            # sequential loop
+                self._refine_group_fused(part, gkeys, on_segment, seq,
+                                         control)
+                done.update(ck for ck, _ in part)
+        return done
+
+    def _refine_group_fused(self, bucket: List[Tuple[str, Dict]], gkeys,
+                            on_segment, seq, control) -> None:
+        """Run one bucket of distinct-problem groups as the lanes of one
+        fused run, then book each group as the sequential path would."""
+        t0 = time.perf_counter()
+        lanes = [dict(g=g, key=gkeys[ck],
+                      seeds=self._group_seeds(ck, g, gkeys[ck]),
+                      cb=self._segment_cb(on_segment, ck, "refine", seq))
+                 for ck, g in bucket]
+        results = self._refine_fused(lanes, control=control)
+        for (ck, g), r in zip(bucket, results):
+            self._book_refinement(ck, g, *r)
+        dt = time.perf_counter() - t0
+        for _, g in bucket:     # every lane waited on the same launches
+            g["elapsed"] = dt
+
+    def _refine_fused(self, lanes: List[Dict], control=None) -> List[Tuple]:
+        """The megabatched ``_refine``: every lane (one problem group)
+        shares one quantized schedule and one ``make_nsga_fused`` runner;
+        per-lane archives, seeding, plateau streaks, traces and banking
+        follow the sequential semantics segment by segment.  The lane
+        count is pow2-padded (``quantize.bucket_lanes``): padding slots
+        replay the first live lane and their outputs are discarded, and a
+        lane that plateaus stops booking while the width stays.  Returns
+        ``(n_run, trace, plateaued, banked, interrupted)`` per lane."""
+        policy = self.policy
+        g0 = lanes[0]["g"]
+        union = g0["union"]
+        sched = quantize.schedule(g0["budget"], self.nsga.pop,
+                                  policy.chunk_generations)
+        pop, chunk, n_seg = sched.pop, sched.chunk, sched.n_seg
+        cfg = dataclasses.replace(self.nsga, pop=pop, generations=chunk)
+        lanes_pad = quantize.bucket_lanes(len(lanes))
+        run = make_nsga_fused(g0["spec"], g0["space"], union, cfg,
+                              tech=self.tech, lanes=lanes_pad,
+                              device=self.device)
+        hv_pairs = [(METRIC_KEYS.index(union[i]),
+                     METRIC_KEYS.index(union[j]))
+                    for i, j in objective_pairs(len(union))]
+        for ln in lanes:
+            ln.update(k_run=fold_in(ln["key"], 1), trace=None,
+                      plateaued=False, interrupted=False, spent_g=0,
+                      live=True, st=ln["g"]["plateau"],
+                      filler=random_design(fold_in(ln["key"], 0),
+                                           ln["g"]["space"], n=pop,
+                                           device=self.device))
+        for s in range(n_seg):
+            live = [ln for ln in lanes if ln["live"]]
+            if not live:
+                break
+            if control is not None and control.stopped:
+                for ln in live:
+                    ln["interrupted"] = True
+                break
+            t_seg = time.perf_counter()
+            slots = live + [live[0]] * (lanes_pad - len(live))
+            pops = [_seed_population(ln["g"]["arc"], pop, ln["filler"],
+                                     ln["seeds"] if s == 0 else None)
+                    for ln in slots]
+            pop_s, _raw, _sel, ev_d, ev_r, ev_f, tr = run(
+                [fold_in(ln["k_run"], s) for ln in slots],
+                {k: torch.stack([p[k] for p in pops]) for k in pops[0]},
+                [ln["g"]["spec"].arrays for ln in slots])
+            # per-lane booking, as one sequential segment; padding slots
+            # (j >= len(live)) book nothing
+            staged = []
+            for j, ln in enumerate(live):
+                arc = ln["g"]["arc"]
+                arc.insert({k: v[j].reshape((-1,) + v.shape[3:])
+                            for k, v in ev_d.items()},
+                           ev_r[j].reshape(-1, ev_r.shape[-1]),
+                           mask=ev_f[j].reshape(-1), count_evals=False)
+                arc.n_evals += pop * chunk
+                ln["spent_g"] += chunk
+                ln["filler"] = {k: v[j] for k, v in pop_s.items()}
+                seg_trace = ConvergenceTrace.from_scan(
+                    union, {k: v[j] for k, v in tr.items()}, pop)
+                hv_now = np.asarray([arc.projected_hypervolume(p)
+                                     for p in hv_pairs])
+                seg_trace.archive_hv = hv_now[None, :]
+                ln["trace"] = (seg_trace if ln["trace"] is None
+                               else ln["trace"].extend(seg_trace))
+                staged.append((ln, seg_trace, hv_now))
+            dt = time.perf_counter() - t_seg    # shared by every lane
+            for ln, seg_trace, hv_now in staged:
+                if ln["cb"] is not None:
+                    ln["cb"](s, seg_trace, dt)
+                if policy.adaptive and hv_pairs:
+                    streak = ln["st"].observe(
+                        hv_now, policy.plateau_rel,
+                        count=bool(len(ln["g"]["arc"])))
+                    if streak >= policy.patience and s + 1 < n_seg:
+                        ln["plateaued"] = True
+                        ln["live"] = False
+        out = []
+        for ln in lanes:
+            n_run = ln["spent_g"] * pop
+            banked = (max(0, ln["g"]["budget"] - n_run)
+                      if ln["plateaued"] else 0)
+            out.append((n_run, ln["trace"], ln["plateaued"], banked,
+                        ln["interrupted"]))
+        return out
 
     def _record_trust(self, ck: str, g: Dict,
                       trace: Optional[ConvergenceTrace],
@@ -743,7 +1033,7 @@ class ExplorationService:
             t0 = time.perf_counter()
             g["plateau"].reset()            # a top-up is FRESH budget
             # quantize_down: the ledger is never overdrawn by rounding
-            n_run, trace, plateaued, _, interrupted = self._refine(
+            n_run, trace, plateaued, _, interrupted, _ = self._refine(
                 arc, g["spec"], g["space"], g["union"], pool,
                 fold_in(key, i), quantize_down=True,
                 on_segment=self._segment_cb(on_segment, ck, "realloc",
@@ -794,23 +1084,28 @@ class ExplorationService:
                 n_evals_banked=g["banked"], n_evals_realloc=g["realloc"],
                 transferred_from=g["transferred_from"],
                 n_transfer_seeds=g["n_seeds"],
-                interrupted=g["interrupted"]))
+                interrupted=g["interrupted"], surrogate_used=g["sur_used"],
+                surrogate_hits=g["sur_hits"],
+                surrogate_fallbacks=g["sur_fallbacks"]))
         return results
 
     # ---- checkpoints -------------------------------------------------------
     def _ckpt_signature(self, objectives: Tuple[str, ...], budget: int,
                         pop: int, generations: int, chunk: int, key: int,
-                        seeds: Optional[Dict]) -> str:
+                        seeds: Optional[Dict],
+                        gate_digest: Optional[str] = None) -> str:
         """Identity of one deterministic refinement: everything that fixes
         the port's segment-by-segment numeric stream (salted with
-        ``CACHE_SALT``).  A checkpoint of another signature answers a
-        different run and is ignored."""
+        ``CACHE_SALT``), the gating surrogate's digest included — a gated
+        run never splices into an ungated one or one under another
+        surrogate.  A checkpoint of another signature answers a different
+        run and is ignored."""
         h = hashlib.sha256()
         h.update(repr((CACHE_SALT, tuple(objectives), int(budget), int(pop),
                        int(generations), int(chunk), int(self.capacity),
                        repr(self.nsga),
                        tech_key(self.tech or DEFAULT_TECH),
-                       int(key))).encode())
+                       int(key), gate_digest)).encode())
         if seeds is not None:
             for k in sorted(seeds):
                 h.update(k.encode())
@@ -818,16 +1113,21 @@ class ExplorationService:
         return h.hexdigest()[:16]
 
     @staticmethod
-    def _save_ckpt(path, sig: str, s_next: int, spent_g: int,
-                   arc: ParetoArchive, filler: Dict,
-                   trace: ConvergenceTrace, st: PlateauState) -> None:
+    def _save_ckpt(path, sig: str, s_next: int, spent_g: int, spent_e: int,
+                   fell_back: bool, arc: ParetoArchive, filler: Dict,
+                   trace: ConvergenceTrace, st: PlateauState,
+                   sur: Optional[Surrogate] = None) -> None:
         """One atomic npz holding a consistent mid-run snapshot: the
         archive after segment ``s_next - 1``'s insert, the evolving
-        population that segment produced, the accumulated trace and the
-        plateau detector's memory.  A write failure is a warning."""
+        population that segment produced, the accumulated trace, the
+        plateau detector's memory, the exact evaluations spent (``spent_e``;
+        fewer than ``spent_g`` x pop under gating), whether the gate was
+        abandoned, and the gating surrogate itself (a resume replays it).
+        A write failure is a warning."""
         try:
             meta = dict(
                 sig=sig, s_next=int(s_next), spent_g=int(spent_g),
+                spent_e=int(spent_e), fell_back=bool(fell_back),
                 streak=int(st.streak),
                 last_hv=([float(v) for v in st.last_hv]
                          if st.last_hv is not None else None),
@@ -837,7 +1137,10 @@ class ExplorationService:
                 trace=dict(objectives=list(trace.objectives),
                            pairs=[list(p) for p in trace.pairs],
                            has_archive_hv=trace.archive_hv is not None,
-                           has_hv_gen=trace.hv_gen is not None))
+                           has_hv_gen=trace.hv_gen is not None),
+                surrogate=(None if sur is None else dict(
+                    config=dataclasses.asdict(sur.config),
+                    n_rows=sur.n_rows)))
             arrays = dict(
                 objs=arc.objs.cpu().numpy(), valid=arc.valid.cpu().numpy(),
                 t_front_size=np.asarray(trace.front_size),
@@ -853,6 +1156,10 @@ class ExplorationService:
                            for k, v in arc.designs.items()})
             arrays.update({f"f_{k}": v.cpu().numpy()
                            for k, v in filler.items()})
+            if sur is not None:
+                arrays.update({f"s_{k}": v for k, v in sur.params.items()})
+                arrays.update(sx_mean=sur.x_mean, sx_std=sur.x_std,
+                              sy_mean=sur.y_mean, sy_std=sur.y_std)
             atomic_savez(path, __meta=np.frombuffer(
                 json.dumps(meta).encode(), dtype=np.uint8), **arrays)
         except OSError as e:
@@ -860,11 +1167,12 @@ class ExplorationService:
 
     @staticmethod
     def _load_ckpt(path, sig: str, arc: ParetoArchive, st: PlateauState
-                   ) -> Optional[Tuple[int, int, Dict, ConvergenceTrace]]:
+                   ) -> Optional[Tuple[int, int, int, bool, Dict,
+                                       ConvergenceTrace]]:
         """Restore a mid-run snapshot into ``arc``/``st`` if ``path`` holds
         a checkpoint of THIS run (signature match, compatible shapes).
-        Returns ``(s_next, spent_g, filler, trace)``, or ``None`` (no,
-        foreign or damaged checkpoint: start from scratch)."""
+        Returns ``(s_next, spent_g, spent_e, fell_back, filler, trace)``, or
+        ``None`` (no, foreign or damaged checkpoint: start from scratch)."""
         path = Path(path)
         if not path.exists():
             return None
@@ -912,7 +1220,8 @@ class ExplorationService:
                       if meta["last_hv"] is not None else None)
         filler = {k: torch.as_tensor(v, device=dev)
                   for k, v in filler.items()}
-        return int(meta["s_next"]), int(meta["spent_g"]), filler, trace
+        return (int(meta["s_next"]), int(meta["spent_g"]),
+                int(meta["spent_e"]), bool(meta["fell_back"]), filler, trace)
 
     # ---- one refinement ----------------------------------------------------
     def _refine(self, arc: ParetoArchive, spec: SystemSpec,
@@ -920,8 +1229,10 @@ class ExplorationService:
                 budget: int, key: int, quantize_down: bool = False,
                 seeds: Optional[Dict] = None, on_segment=None,
                 plateau: Optional[PlateauState] = None,
-                control: Optional[RunControl] = None, checkpoint=None
-                ) -> Tuple[int, Optional[ConvergenceTrace], bool, int, bool]:
+                control: Optional[RunControl] = None, checkpoint=None,
+                gate: Optional[SurrogateGate] = None
+                ) -> Tuple[int, Optional[ConvergenceTrace], bool, int, bool,
+                           Dict[str, int]]:
         """Spend up to ~``budget`` evaluations improving the archive:
         warm-start the population from the cached front (and ``seeds``, a
         stacked numpy design dict, in segment 0), evolve in segments,
@@ -932,9 +1243,14 @@ class ExplorationService:
         reference; ``quantize_down`` floors instead (ledger credit must not
         be overdrawn).  ``checkpoint`` (a path) turns on per-segment
         checkpointing and resume-on-entry; ``control`` is polled at each
-        segment boundary.  Returns ``(n_run, trace, plateaued, banked,
-        interrupted)``: ``n_run`` counts THIS attempt's evaluations (a
-        resumed run reports its residual spend)."""
+        segment boundary.  ``gate`` (a ``SurrogateGate``) runs each segment
+        through ``make_nsga_gated``: only ``cfg.n_exact(pop)`` of every
+        generation's candidates are evaluated (the rest count as hits), and
+        a segment whose mean disagreement exceeds ``fallback_tau`` ends the
+        gating for the rest of the run.  Returns ``(n_run, trace,
+        plateaued, banked, interrupted, sur_stats)``: ``n_run`` counts THIS
+        attempt's exact evaluations (a resumed run reports its residual
+        spend); ``sur_stats`` holds ``used`` / ``hits`` / ``fallbacks``."""
         policy = self.policy
         sched = quantize.schedule(budget, self.nsga.pop,
                                   policy.chunk_generations, quantize_down)
@@ -943,6 +1259,15 @@ class ExplorationService:
         cfg = dataclasses.replace(self.nsga, pop=pop, generations=chunk)
         run = make_nsga(spec, space, objectives, cfg, tech=self.tech,
                         device=self.device)
+        sur_stats = dict(used=False, hits=0, fallbacks=0)
+        run_g, sur, n_exact = None, None, pop
+        if gate is not None and gate.cfg.n_exact(pop) < pop:
+            n_exact = gate.cfg.n_exact(pop)
+            run_g = make_nsga_gated(spec, space, objectives, cfg,
+                                    tech=self.tech, n_exact=n_exact,
+                                    beta=gate.cfg.beta, tau=gate.cfg.tau,
+                                    device=self.device)
+            sur = gate.model.scan_arrays(gate.embedding, self.device)
         # archive-projected hypervolume pairs, in METRIC_KEYS column space
         hv_pairs = [(METRIC_KEYS.index(objectives[i]),
                      METRIC_KEYS.index(objectives[j]))
@@ -951,31 +1276,54 @@ class ExplorationService:
         filler = random_design(k_init, space, n=pop, device=self.device)
         st = plateau if plateau is not None else PlateauState()
         trace, plateaued, interrupted, spent_g = None, False, False, 0
-        s0, spent0, sig = 0, 0, None    # spent0: a stopped attempt's chunks
+        spent_e = 0                     # exact evaluations this attempt
+        s0, spent0, spent0_e, sig = 0, 0, 0, None   # a stopped attempt's
         if checkpoint is not None:
-            sig = self._ckpt_signature(objectives, budget, pop, generations,
-                                       chunk, key, seeds)
+            sig = self._ckpt_signature(
+                objectives, budget, pop, generations, chunk, key, seeds,
+                gate_digest=(gate.model.digest()
+                             if run_g is not None else None))
             rest = self._load_ckpt(checkpoint, sig, arc, st)
             if rest is not None:
-                s0, spent0, filler, trace = rest
+                s0, spent0, spent0_e, fell_back0, filler, trace = rest
+                if fell_back0 and run_g is not None:
+                    run_g = None        # the stopped attempt had already
+                    sur_stats["used"] = True    # abandoned the surrogate
+                    sur_stats["fallbacks"] += 1
         for s in range(s0, n_seg):
             if control is not None and control.stopped:
                 interrupted = True      # the checkpoint stays for a resume
                 break
             t_seg = time.perf_counter()
-            pop_s, _raw, _sel, ev_designs, ev_raw, ev_feas, tr = run(
-                fold_in(k_run, s), _seed_population(
-                    arc, pop, filler, seeds if s == 0 else None))
+            pop0 = _seed_population(arc, pop, filler,
+                                    seeds if s == 0 else None)
+            if run_g is not None:
+                out = run_g(fold_in(k_run, s), pop0, sur)
+                per_gen = n_exact       # only the gate's exact slots cost
+            else:
+                out = run(fold_in(k_run, s), pop0)
+                per_gen = pop
+            pop_s, _raw, _sel, ev_designs, ev_raw, ev_feas, tr = out
             # archive EVERY evaluation of the segment, masked to feasible
             # designs so no served front carries a constraint violation
             arc.insert({k: v.reshape((-1,) + v.shape[2:])
                         for k, v in ev_designs.items()},
                        ev_raw.reshape(-1, ev_raw.shape[-1]),
                        mask=ev_feas.reshape(-1), count_evals=False)
-            arc.n_evals += pop * chunk
+            arc.n_evals += per_gen * chunk
             spent_g += chunk
+            spent_e += per_gen * chunk
             filler = pop_s
-            seg_trace = ConvergenceTrace.from_scan(objectives, tr, pop)
+            seg_trace = ConvergenceTrace.from_scan(objectives, tr, per_gen)
+            if run_g is not None:
+                sur_stats["used"] = True
+                sur_stats["hits"] += (pop - n_exact) * chunk
+                dis = float(np.mean(tr["disagreement"].cpu().numpy()))
+                if dis > gate.cfg.fallback_tau:
+                    # the ensemble is out of its depth here: exact for the
+                    # rest of the run
+                    run_g = None
+                    sur_stats["fallbacks"] += 1
             hv_now = np.asarray([arc.projected_hypervolume(p)
                                  for p in hv_pairs])
             seg_trace.archive_hv = hv_now[None, :]
@@ -993,15 +1341,18 @@ class ExplorationService:
             if checkpoint is not None:  # after the plateau observation, so
                 #                         a resume judges the seam alike
                 self._save_ckpt(checkpoint, sig, s + 1, spent0 + spent_g,
-                                arc, filler, trace, st)
-        n_run = spent_g * pop
+                                spent0_e + spent_e,
+                                gate is not None and run_g is None,
+                                arc, filler, trace, st,
+                                sur=gate.model if gate is not None else None)
+        n_run = spent_e
         # only budget the caller offered and ALL attempts left unspent is
-        # credit: never the pow2 headroom above the requested budget
-        banked = max(0, budget - (spent0 + spent_g) * pop) \
-            if plateaued else 0
+        # credit (never the pow2 headroom above the requested budget); a
+        # gated run's savings are surrogate hits, not ledger credit
+        banked = max(0, budget - (spent0_e + spent_e)) if plateaued else 0
         if checkpoint is not None and not interrupted:
             Path(checkpoint).unlink(missing_ok=True)
-        return n_run, trace, plateaued, banked, interrupted
+        return n_run, trace, plateaued, banked, interrupted, sur_stats
 
 
 def _seed_population(arc: ParetoArchive, pop: int, filler: Dict,

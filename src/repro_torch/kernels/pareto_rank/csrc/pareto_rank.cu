@@ -53,6 +53,12 @@
 // * Tiles that hold NaN or +-inf: IEEE compares (all <= and any <), each
 //   into a predicate; a NaN makes every compare false, as in the plain
 //   version.
+// Lanes.  A fused NSGA run ranks L pools of one shape at once (one per
+// problem; the reference reaches its kernel under vmap, which adds a batch
+// grid axis).  blockIdx.z is the lane: each lane's blocks offset into its
+// own (n, k) pool, (n,) mask and (n,) counts, and keep their own cluster of
+// dominator chunks along y, exactly as a single pool does; the single-pool
+// entry is the same launch with one lane.
 // Any n is taken.  The kernel launches on the caller's stream; the C entry
 // returns the launch's error code.
 
@@ -79,6 +85,10 @@ rank_kernel(const float* __restrict__ objs, const uint8_t* __restrict__ valid,
             int* __restrict__ counts, int n, int chunk) {
   __shared__ float4 s_obj[kTileI];
   __shared__ int s_part[kSplit][kTileJ];
+  const size_t lane_rows = static_cast<size_t>(blockIdx.z) * n;
+  objs += lane_rows * K;
+  valid += lane_rows;
+  counts += lane_rows;
 
   const int tid = threadIdx.x;
   const int lane = tid % kLanes;     // rows j: lane + r kLanes
@@ -187,12 +197,12 @@ rank_kernel(const float* __restrict__ objs, const uint8_t* __restrict__ valid,
 
 template <int K>
 cudaError_t launch(const float* objs, const uint8_t* valid, int* counts,
-                   int n, cudaStream_t stream) {
+                   int lanes, int n, cudaStream_t stream) {
   int chunks = (n + kMinChunk - 1) / kMinChunk;
   chunks = chunks < 1 ? 1 : (chunks > kMaxCluster ? kMaxCluster : chunks);
   const int chunk = (n + chunks - 1) / chunks;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + kTileJ - 1) / kTileJ, chunks, 1);
+  cfg.gridDim = dim3((n + kTileJ - 1) / kTileJ, chunks, lanes);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -209,22 +219,34 @@ cudaError_t launch(const float* objs, const uint8_t* valid, int* counts,
 
 }  // namespace
 
-// C interface, loaded with ctypes.  objs: (n, k) float32 row-major;
-// valid: (n,) bytes (0 = invalid); counts: (n,) int32 output; stream: the
-// cudaStream_t to launch on.  Returns a cudaError_t code (0 = launched).
-extern "C" int pareto_rank_dominance_counts(const float* objs,
-                                            const uint8_t* valid, int* counts,
-                                            int n, int k, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
+// C interface, loaded with ctypes.  objs: (lanes, n, k) float32 row-major;
+// valid: (lanes, n) bytes (0 = invalid); counts: (lanes, n) int32 output;
+// stream: the cudaStream_t to launch on.  Returns a cudaError_t code
+// (0 = launched).  One launch for every lane.
+extern "C" int pareto_rank_dominance_counts_lanes(const float* objs,
+                                                  const uint8_t* valid,
+                                                  int* counts, int lanes,
+                                                  int n, int k,
+                                                  void* stream) {
+  if (n <= 0 || lanes <= 0) return static_cast<int>(cudaSuccess);
+  if (lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (k) {
-    case 1: e = launch<1>(objs, valid, counts, n, s); break;
-    case 2: e = launch<2>(objs, valid, counts, n, s); break;
-    case 3: e = launch<3>(objs, valid, counts, n, s); break;
-    case 4: e = launch<4>(objs, valid, counts, n, s); break;
+    case 1: e = launch<1>(objs, valid, counts, lanes, n, s); break;
+    case 2: e = launch<2>(objs, valid, counts, lanes, n, s); break;
+    case 3: e = launch<3>(objs, valid, counts, lanes, n, s); break;
+    case 4: e = launch<4>(objs, valid, counts, lanes, n, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The single pool: objs (n, k), valid (n,), counts (n,), one lane.
+extern "C" int pareto_rank_dominance_counts(const float* objs,
+                                            const uint8_t* valid, int* counts,
+                                            int n, int k, void* stream) {
+  return pareto_rank_dominance_counts_lanes(objs, valid, counts, 1, n, k,
+                                            stream);
 }

@@ -2,11 +2,14 @@
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``).  A CUDA tensor
 launches the kernel (``csrc/pareto_rank.cu``, built at first use and loaded
-with ``ctypes``) for every pool size, or raises: there is no fallback.  The
-wrapper checks device, dtype, shape and contiguity and raises on anything
+with ``ctypes``) for every pool size, or raises: there is no fallback.
+A pool is (n, k), or (L, n, k) for L lanes of one shape (a fused NSGA
+run's problems): every lane goes in the same one launch.  The wrapper
+checks device, dtype, shape and contiguity and raises on anything
 the kernel does not take.  ``dominance_counts.launches`` counts kernel
 launches (and nothing else), so a run can show that it went through the
-kernel.
+kernel; ``dominance_counts.launches_lanes`` counts those of them that
+ranked two or more lanes at once.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from .ref import dominance_counts_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "pareto_rank.cu",)
 MAX_K = 4
+MAX_LANES = 65535       # the grid's z extent
 
 
 def build() -> Path:
@@ -33,49 +37,61 @@ def build() -> Path:
 @lru_cache(maxsize=1)
 def _lib():
     lib = ctypes.CDLL(str(build()))
-    fn = lib.pareto_rank_dominance_counts
+    fn = lib.pareto_rank_dominance_counts_lanes
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(n,) int32 number of *valid* rows dominating each row of ``objs``
-    (n, k), all objectives minimized.  Zero => nondominated."""
+    (n, k), all objectives minimized.  Zero => nondominated.  With a
+    leading lane axis, ``objs`` (L, n, k) and ``valid`` (L, n) give (L, n)
+    counts, each lane ranked on its own, in one launch."""
     if objs.device.type == "cpu":
         return dominance_counts_ref(objs, valid)
     if objs.device.type != "cuda":
         raise ValueError(f"dominance_counts: unsupported device "
                          f"{objs.device}")
-    if objs.dim() != 2 or objs.dtype != torch.float32:
-        raise ValueError(f"dominance_counts: objs must be (n, k) float32, "
-                         f"got {tuple(objs.shape)} {objs.dtype}")
-    n, k = objs.shape
+    if objs.dim() not in (2, 3) or objs.dtype != torch.float32:
+        raise ValueError(f"dominance_counts: objs must be (n, k) or "
+                         f"(L, n, k) float32, got {tuple(objs.shape)} "
+                         f"{objs.dtype}")
+    *lead, n, k = objs.shape
+    lanes = lead[0] if lead else 1
     if not 1 <= k <= MAX_K:
         raise ValueError(f"dominance_counts: the kernel takes 1..{MAX_K} "
                          f"objectives, got {k}")
-    if valid.shape != (n,) or valid.dtype not in (torch.bool, torch.uint8):
-        raise ValueError(f"dominance_counts: valid must be ({n},) bool or "
-                         f"uint8, got {tuple(valid.shape)} {valid.dtype}")
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"dominance_counts: the kernel takes 1..{MAX_LANES}"
+                         f" lanes, got {lanes}")
+    if (tuple(valid.shape) != (*lead, n)
+            or valid.dtype not in (torch.bool, torch.uint8)):
+        raise ValueError(f"dominance_counts: valid must be "
+                         f"{(*lead, n)} bool or uint8, got "
+                         f"{tuple(valid.shape)} {valid.dtype}")
     if valid.device != objs.device:
         raise ValueError("dominance_counts: objs and valid lie on different "
                          "devices")
     if not (objs.is_contiguous() and valid.is_contiguous()):
         raise ValueError("dominance_counts: objs and valid must be "
                          "contiguous")
-    out = torch.empty(n, dtype=torch.int32, device=objs.device)
-    if n == 0:
+    out = torch.empty((*lead, n), dtype=torch.int32, device=objs.device)
+    if n == 0 or lanes == 0:
         return out
     fn = _lib()
     with on(objs.device):
-        rc = fn(objs.data_ptr(), valid.data_ptr(), out.data_ptr(), n, k,
-                stream_of(objs.device))
+        rc = fn(objs.data_ptr(), valid.data_ptr(), out.data_ptr(), lanes, n,
+                k, stream_of(objs.device))
     if rc != 0:
         raise RuntimeError(f"pareto_rank kernel launch failed: CUDA error "
                            f"{rc}")
     dominance_counts.launches += 1
+    if lanes > 1:
+        dominance_counts.launches_lanes += 1
     return out
 
 
 dominance_counts.launches = 0
+dominance_counts.launches_lanes = 0

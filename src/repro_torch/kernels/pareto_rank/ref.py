@@ -18,7 +18,14 @@ import torch
 def dominance_counts_ref(objs, valid, chunk: int = 1024):
     """``objs``: (n, k) objective rows (all minimized); ``valid``: (n,)
     rows allowed to dominate.  Returns (n,) int32: for each row, how many
-    valid rows dominate it (<= on every objective, < on at least one)."""
+    valid rows dominate it (<= on every objective, < on at least one).
+    A leading lane axis, (L, n, k) and (L, n), ranks each lane on its own
+    and returns (L, n)."""
+    if objs.dim() == 3:
+        return torch.stack([dominance_counts_ref(o, v, chunk)
+                            for o, v in zip(objs, valid)]) if len(objs) \
+            else torch.empty(objs.shape[:2], dtype=torch.int32,
+                             device=objs.device)
     n = objs.shape[0]
     v = valid.to(torch.bool)[:, None]
     out = torch.empty(n, dtype=torch.int32, device=objs.device)

@@ -8,6 +8,9 @@
   ``jax.random.fold_in``), each turned into a ``torch.Generator`` on the
   device that consumes it.  Streams differ from JAX's, so parity tests feed
   both packages the same numpy inputs instead of the same seeds.
+* ``LaneGenerators`` / ``rand`` — the random draws of a fused run: L
+  problems evolve as lanes of one population, each drawing from its own
+  generator exactly what its unfused run draws.
 """
 
 from __future__ import annotations
@@ -49,3 +52,27 @@ def generator(seed: int, device) -> torch.Generator:
     g = torch.Generator(device=torch.device(device))
     g.manual_seed(int(seed))
     return g
+
+
+class LaneGenerators:
+    """One ``torch.Generator`` per lane of a fused run.  A population of
+    ``L * n`` rows is laid out lane by lane; a draw of it (``rand``) is
+    each lane's own draw of ``n`` rows, in lane order, so lane ``i`` sees
+    exactly the stream its unfused run would see."""
+
+    def __init__(self, gens):
+        self.gens = list(gens)
+
+    def __len__(self) -> int:
+        return len(self.gens)
+
+
+def rand(gen, shape, device) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``gen``: a ``torch.Generator``, or a
+    ``LaneGenerators`` whose lanes each draw ``shape[0] / L`` leading
+    rows."""
+    if isinstance(gen, LaneGenerators):
+        rows = shape[0] // len(gen)
+        return torch.cat([torch.rand((rows, *shape[1:]), generator=g,
+                                     device=device) for g in gen.gens])
+    return torch.rand(shape, generator=gen, device=device)

@@ -112,6 +112,88 @@ def test_pareto_rank_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             ops.dominance_counts(bad_objs, bad_valid)
 
 
+# lanes: a fused NSGA selection (8 lanes at pop 64) and its telemetry, a
+# large k = 4 pool, one lane, and lanes whose pools hold NaN and +-inf
+@pytest.mark.parametrize("L,n,k,special", [(8, 128, 2, False),
+                                           (8, 64, 2, False),
+                                           (3, 768, 4, False),
+                                           (1, 128, 2, False),
+                                           (5, 200, 3, True)])
+def test_pareto_rank_lanes_match_plain_in_one_launch(cuda, L, n, k,
+                                                     special):
+    from repro_torch.kernels.pareto_rank import ops
+    from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref
+    gen = torch.Generator(device=cuda).manual_seed(L * n + k)
+    objs = torch.randn(L, n, k, generator=gen, device=cuda)
+    objs[:, n // 2:n // 2 + 8] = objs[:, :8]
+    if special:
+        u = torch.rand(L, n, k, generator=gen, device=cuda)
+        objs[u < 0.05] = float("nan")
+        objs[(u >= 0.05) & (u < 0.1)] = float("inf")
+        objs[(u >= 0.1) & (u < 0.15)] = -float("inf")
+    valid = torch.rand(L, n, generator=gen, device=cuda) < 0.9
+    before = ops.dominance_counts.launches
+    got = ops.dominance_counts(objs, valid)
+    torch.cuda.synchronize()
+    assert ops.dominance_counts.launches - before == 1
+    assert torch.equal(got, dominance_counts_ref(objs, valid))
+    for i in range(L):
+        assert torch.equal(got[i], ops.dominance_counts(objs[i].contiguous(),
+                                                        valid[i].contiguous()))
+    with pytest.raises(ValueError):
+        ops.dominance_counts(objs, valid[:, :-1].contiguous())
+
+
+def test_fused_lane_equals_its_unbatched_run_on_the_card(cuda):
+    from repro_torch.core import presets
+    from repro_torch.core.encoding import DesignSpace, random_design
+    from repro_torch.core.evaluate import SystemSpec
+    from repro_torch.explore.nsga import (NSGAConfig, make_nsga,
+                                          make_nsga_fused)
+    probs = []
+    for name in ("att1", "att2", "att3"):
+        spec = SystemSpec.build(presets.bert_mms()[name], ch_max=2)
+        probs.append((spec, DesignSpace(spec, max_shape=(16, 16, 4, 4, 1,
+                                                         2))))
+    spec0, space0 = probs[0]
+    cfg = NSGAConfig(pop=64, generations=4)
+    pops = [random_design(20 + i, sp, n=64, device=cuda)
+            for i, (_, sp) in enumerate(probs)]
+    fused = make_nsga_fused(spec0, space0, ("latency_ns", "cost_usd"), cfg,
+                            lanes=4, device=cuda)(
+        [1, 2, 3, 1], {k: torch.stack([p[k] for p in pops + pops[:1]])
+                       for k in pops[0]},
+        [p[0].arrays for p in probs + probs[:1]])
+    for j, (spec, _) in enumerate(probs):
+        single = make_nsga(spec0, space0, ("latency_ns", "cost_usd"), cfg,
+                           device=cuda)(j + 1, pops[j], arrays=spec.arrays)
+        for k in single[0]:
+            assert torch.equal(single[0][k], fused[0][k][j])
+        for k in single[3]:
+            assert torch.equal(single[3][k], fused[3][k][j])
+        np.testing.assert_allclose(fused[4][j].cpu().numpy(),
+                                   single[4].cpu().numpy(), rtol=1e-6)
+
+
+def test_gated_query_runs_on_the_card(cuda, tmp_path):
+    """Two neighbors' archives train the gate of a third problem."""
+    from repro_torch.api import Problem, Query, Session
+    from repro_torch.core import presets
+    from repro_torch.explore.service import BudgetPolicy
+    s = Session(cache_dir=tmp_path, policy=BudgetPolicy(adaptive=False))
+
+    def prob(name):
+        return Problem(presets.bert_mms()[name], ch_max=2,
+                       space_kwargs=dict(max_shape=(16, 16, 4, 4, 1, 2)))
+    s.submit([Query(prob("att1"), budget=256),
+              Query(prob("att3"), budget=256)])
+    r = s.submit(Query(prob("att2"), budget=512, engine_opts={
+        "surrogate": dict(min_rows=8, epochs=60)}), key=3)
+    pv = r.provenance
+    assert pv.surrogate_used and pv.n_evals_run + pv.surrogate_hits == 512
+    assert len(r.front_objs) and np.all(np.isfinite(r.front_objs))
+
+
 def test_evaluator_on_card_matches_cpu(cuda):
     from repro_torch.core import presets
     from repro_torch.core.encoding import DesignSpace, random_design

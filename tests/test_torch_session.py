@@ -120,10 +120,7 @@ def test_same_problem_queries_share_one_run(tmp_path):
 
 
 UNPORTED = [
-    ("surrogate", lambda s, p: s.submit(
-        Query(p, engine_opts={"surrogate": True}))),
     ("submit_async", lambda s, p: s.submit_async(Query(p))),
-    ("megabatch", lambda s, p: BudgetPolicy(megabatch=True)),
     ("journal", lambda s, p: Session(journal="j.jsonl", device="cpu")),
 ]
 
