@@ -1,9 +1,10 @@
 """Technology constants for the Monad models (energy / area / cost / network).
 
 The PyTorch port's own copy of ``repro.core.constants`` (the dataclass, the
-packaging ids and the stable ``tech_key`` digest): the port imports nothing
-of the JAX package.  ``tech_key`` must stay byte-identical to the
-reference's so both packages agree on a tech's identity.
+packaging ids, the stable ``tech_key`` digest and the calibration field
+lists): the port imports nothing of the JAX package.  ``tech_key`` must
+stay byte-identical to the reference's so both packages agree on a tech's
+identity.
 
 The paper sources these from Accelergy [34], ICKnowledge [8] and the UCIe
 white paper [31]; none of those tools/tables ship offline, so every constant
@@ -172,3 +173,41 @@ def tech_key(tech: TechConstants | None = None) -> str:
     payload = json.dumps(tech_to_dict(tech), sort_keys=True, separators=(",", ":"),
                          default=repr)
     return hashlib.sha256(payload.encode()).hexdigest()
+
+
+#: TechConstants fields the calibration fit is allowed to move.  Everything
+#: here is a positive scalar (log-space reparameterization assumes > 0 after
+#: flooring); integers, tuples and geometry-defining fields stay frozen.
+FITTABLE_FIELDS = (
+    # timing
+    "router_delay_ns", "t_tile_overhead_ns",
+    # energy
+    "e_mac_pj", "e_reg_pj_bit", "e_core_sram_pj_bit", "e_chip_sram_pj_bit",
+    "e_dram_pj_bit", "e_router_pj_bit",
+    # area
+    "a_pe", "a_sram_per_mb", "a_router", "a_core_overhead",
+    "a_chiplet_overhead",
+    # bandwidth
+    "dram_bw", "core_buf_bw", "chip_buf_bw", "chip_noc_bw",
+    # cost
+    "wafer_cost", "defect_density_mm2", "c_substrate_mm2", "c_process",
+    # per-metric corrections
+    "corr_latency", "corr_energy", "corr_area", "corr_cost",
+)
+
+#: metric -> fields guaranteed to move that metric on the golden design used
+#: by the differentiability regression test (tests/test_torch_calib.py).  The
+#: bandwidth fields are fittable but deliberately absent here: latency takes
+#: the max over compute/memory passes, so a bandwidth's gradient is non-zero
+#: only in the regime where that bandwidth binds (the test exercises one such
+#: regime separately).
+METRIC_FIELDS = {
+    "latency_ns": ("router_delay_ns", "t_tile_overhead_ns", "corr_latency"),
+    "energy_pj": ("e_mac_pj", "e_reg_pj_bit", "e_core_sram_pj_bit",
+                  "e_chip_sram_pj_bit", "e_dram_pj_bit", "e_router_pj_bit",
+                  "corr_energy"),
+    "area_mm2": ("a_pe", "a_sram_per_mb", "a_router", "a_core_overhead",
+                 "a_chiplet_overhead", "corr_area"),
+    "cost_usd": ("wafer_cost", "defect_density_mm2", "c_substrate_mm2",
+                 "c_process", "corr_cost"),
+}

@@ -219,9 +219,13 @@ def evaluate_network(route, bwr, vol_bytes, fmask, link_bw, dram_bw,
     nn = n_nodes[None, :, None]
     is_dram_link = (u == nn) | (v == nn)
     cap = torch.where(is_dram_link, dram_bw, link_bw[None, :, None].to(F))
-    link_load = load.gather(
-        1, lid.clamp(0, n_links - 1).permute(1, 0, 2).reshape(P, H * Fl)
-    ).reshape(P, H, Fl).permute(1, 0, 2)                         # (H, P, F)
+    # advanced indexing, not gather: the same values, and its backward (a
+    # calibration fit's) adds a link's duplicates in sorted order on the
+    # card, where gather's backward adds them with atomics, in any order
+    rows = torch.arange(P, device=load.device)[:, None]
+    link_load = load[rows, lid.clamp(0, n_links - 1).permute(1, 0, 2)
+                     .reshape(P, H * Fl)
+                     ].reshape(P, H, Fl).permute(1, 0, 2)        # (H, P, F)
     ratio = torch.where(active,
                         torch.clamp(cap / link_load.clamp_min(1e-9), max=1.0),
                         1.0)

@@ -25,21 +25,32 @@ engines (re-exported at ``repro_torch.api``).
 Distinct cold nsga problems of one padded shape fuse into the lanes of one
 run (``BudgetPolicy.megabatch``, on by default; ``Query.megabatch=False``
 opts out), and ``engine_opts={"surrogate": ...}`` gates an nsga query's
-evaluations on a surrogate fit from the fleet cache.  ``submit_async``
-and run journals are not ported yet: asking for one raises
-``NotImplementedError`` naming it.  Nothing is dropped silently.
+evaluations on a surrogate fit from the fleet cache.
+
+Observability (``repro_torch.obs``, the port's copy of ``repro.obs``):
+``Session(journal=...)`` — or ``$REPRO_JOURNAL_DIR`` — attaches a
+crash-safe JSONL journal to every ``plan`` / ``submit`` of the session, one
+line per plan, scan segment, result and span close, with the reference's
+record types and keys (``python -m repro_torch.obs.report`` renders them).
+Spans read the host's clock and never synchronize the card: fronts are
+bit-identical with observability on or off.  ``submit_async`` is not
+ported yet: asking for it raises ``NotImplementedError``.  Nothing is
+dropped silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import time
+import uuid
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .. import obs
 from ..core.encoding import DesignSpace
 from ..core.evaluate import SystemSpec
 from ..core.optimizer import (METRIC_KEYS, OBJ_EDP, SAConfig,
@@ -49,6 +60,7 @@ from ..core.workload import WorkloadGraph, workload_features
 from ..runtime import fold_in
 from . import quantize
 from .archive import ConvergenceTrace, pareto_front, spec_space_key
+from .nsga import has_run
 from .service import (DEFAULT_OBJECTIVES, BudgetPolicy, ExplorationService,
                       ExploreQuery, ExploreResult, SegmentEvent, not_ported)
 from .surrogate import SurrogateConfig
@@ -199,10 +211,10 @@ class Plan:
     segment).  ``neighbors`` are the predicted transfer sources with their
     seed quotas (``seed_cap`` bounds the total).  Advisory on a shared
     cache: a peer may warm the archive between ``plan`` and ``submit``.
-    ``islands`` is always 1 (the port runs one device).  ``predicted_s``
-    stays ``None`` except on a cache hit (0.0): the reference predicts it
-    from its observability layer's segment-time histograms, which the port
-    does not have yet.  ``surrogate`` says the query asked for gating, and
+    ``islands`` is always 1 (the port runs one device).  ``predicted_s`` is
+    the wall-clock estimate from this process's segment-time histograms
+    (``None`` before any segment has run here; 0.0 on a cache hit).
+    ``surrogate`` says the query asked for gating, and
     ``predicted_eval_savings`` counts the evaluations the gate would skip
     if the fleet cache yields a fit."""
     engine: str
@@ -315,12 +327,16 @@ class Session:
     ``transfer_k``, ``manifest_policy`` — when not supplied) that runs on
     ``device`` (default ``"cuda"``; without a card it raises unless
     ``device="cpu"`` is passed).  ``tech`` may be a preset name, an
-    artifact path, a ``TechConstants`` or a calibrated tech."""
+    artifact path, a ``TechConstants`` or a calibrated tech.
+
+    ``journal`` attaches a ``repro_torch.obs`` run journal to every
+    ``plan`` / ``submit`` of this session: a ``Journal``, a path (opened
+    append-only on first write), ``None`` (the default — the process
+    journal under ``$REPRO_JOURNAL_DIR`` when that is set, else none), or
+    ``False`` to opt out even when the variable is set."""
 
     def __init__(self, service: Optional[ExplorationService] = None,
                  journal=None, device="cuda", **service_kwargs):
-        if journal:
-            raise not_ported("run journals (Session(journal=...))")
         if service is None:
             tech = service_kwargs.get("tech")
             if tech is not None:
@@ -331,6 +347,12 @@ class Session:
             self.tech_label = tech_label(service.tech)
         self.service = service
         self._tech_sessions: Dict[str, "Session"] = {}
+        self._journal = obs.resolve_journal(journal)
+        # one id per session and a counter per submission: each submit
+        # journals under its own run id, so overlapping submissions sharing
+        # one fleet journal replay apart
+        self._sid = uuid.uuid4().hex[:8]
+        self._run_seq = itertools.count()
 
     @property
     def tech(self):
@@ -360,18 +382,40 @@ class Session:
         if label not in self._tech_sessions:
             cfg = self._service_config()
             cfg["tech"] = tech
-            self._tech_sessions[label] = Session(**cfg)
+            self._tech_sessions[label] = Session(journal=self._journal,
+                                                 **cfg)
         return self._tech_sessions[label]
 
     # ---- planning ----------------------------------------------------------
     def plan(self, query: Query) -> Plan:
         """What ``submit`` would do for one query, spending no evaluations:
         resolved engine, archive cache key and warm-serve verdict, the
-        quantized segment schedule, and — for transfer queries — the
-        predicted neighbors with their seed quotas."""
+        quantized segment schedule, the predicted wall-clock and — for
+        transfer queries — the predicted neighbors with their seed quotas.
+        With a journal attached, one ``plan`` record per call lands in it
+        (the plan half of the report's plan-vs-actual table)."""
+        with obs.sink_attached(self._journal), \
+                obs.span("session.plan", engine=query.resolved_engine()):
+            pl = self._plan_impl(query)
+            if obs.active():
+                obs.emit(dict(
+                    type="plan", key=pl.cache_key, engine=pl.engine,
+                    budget=pl.budget, cache_hit=pl.cache_hit,
+                    objectives=list(pl.objectives),
+                    segments=[dict(segment=s.index, pop=s.pop,
+                                   generations=s.generations,
+                                   n_evals=s.n_evals)
+                              for s in pl.segments],
+                    neighbors=[dict(key=n.key, distance=n.distance,
+                                    quota=n.quota) for n in pl.neighbors],
+                    seed_cap=pl.seed_cap, islands=pl.islands,
+                    predicted_s=pl.predicted_s))
+        return pl
+
+    def _plan_impl(self, query: Query) -> Plan:
         sub = self._session_for(query.tech)
         if sub is not self:
-            return sub.plan(query)
+            return sub._plan_impl(query)
         engine = query.resolved_engine()
         p = query.problem
         ck = self._cache_key(p)
@@ -395,6 +439,7 @@ class Session:
         pop, chunk = sched.pop, sched.chunk
         segments = tuple(SegmentPlan(i, pop, chunk, pop * chunk)
                          for i in range(sched.n_seg))
+        predicted = self._predict_s(p, sched)
         neighbors, cap = (), 0
         if query.transfer:
             cap = pop if len(arc) == 0 else max(pop // 2, 1)
@@ -414,8 +459,33 @@ class Session:
         return Plan(engine=engine, cache_key=ck, cache_hit=False,
                     budget=budget, objectives=p.objectives,
                     segments=segments, neighbors=neighbors, seed_cap=cap,
-                    surrogate=sur_req is not None,
+                    predicted_s=predicted, surrogate=sur_req is not None,
                     predicted_eval_savings=savings)
+
+    def _predict_s(self, p: Problem, sched: "quantize.Schedule"
+                   ) -> Optional[float]:
+        """Wall-clock estimate for one NSGA submission from this process's
+        segment-time histograms, as the reference's: the first segment is
+        costed at the first-run median when no runner of this variant has
+        run in-process yet.  ``None`` while both histograms are empty;
+        with only first-run segments seen, their median stands in for the
+        steady-state one (a conservative over-estimate)."""
+        seg_h = obs.REGISTRY.peek("explore.segment_s")
+        comp_h = obs.REGISTRY.peek("explore.segment_compile_s")
+        seg_p50 = seg_h.quantile(0.5) if seg_h is not None else None
+        comp_p50 = comp_h.quantile(0.5) if comp_h is not None else None
+        if seg_p50 is None and comp_p50 is None:
+            return None
+        if seg_p50 is None:
+            seg_p50 = comp_p50
+        svc = self.service
+        cfg = dataclasses.replace(svc.nsga, pop=sched.pop,
+                                  generations=sched.chunk)
+        first = seg_p50
+        if comp_p50 is not None and not has_run(
+                p.spec, p.space, p.objectives, cfg, svc.tech, svc.device):
+            first = comp_p50
+        return first + (sched.n_seg - 1) * seg_p50
 
     def submit_async(self, query: Query, key=None, deadline_s=None):
         raise not_ported("Session.submit_async")
@@ -436,13 +506,37 @@ class Session:
         ``key`` spends only the residual budget and lands on the
         bit-identical front.  ``control`` (a ``service.RunControl``) stops
         at the next segment boundary; those results carry
-        ``provenance.interrupted=True``."""
+        ``provenance.interrupted=True``.
+
+        With a journal attached, the submission journals one ``plan``
+        record per query, one ``segment`` record per segment boundary, one
+        ``result`` record per answer and a final ``metrics`` snapshot,
+        under its own run id (``obs.run_context``)."""
         single = isinstance(queries, Query)
         qs: List[Query] = [queries] if single else list(queries)
         if not qs:
             return []
-        out = self._submit_impl(qs, int(key), on_segment, single, resume,
-                                control)
+        rid = f"{self._sid}.{next(self._run_seq)}"
+        with obs.sink_attached(self._journal), obs.run_context(rid), \
+                obs.span("session.submit", queries=len(qs)):
+            out = self._submit_impl(qs, int(key), on_segment, single,
+                                    resume, control)
+            if obs.active():
+                for r in out:
+                    pv = r.provenance
+                    obs.emit(dict(
+                        type="result", key=pv.cache_key, engine=pv.engine,
+                        from_cache=pv.from_cache, n_evals=pv.n_evals_run,
+                        n_evals_banked=pv.n_evals_banked,
+                        n_evals_realloc=pv.n_evals_realloc,
+                        plateaued=pv.plateaued, elapsed_s=pv.elapsed_s,
+                        interrupted=pv.interrupted,
+                        front_size=int(len(r.front_objs))))
+                obs.emit(dict(type="metrics",
+                              snapshot=obs.REGISTRY.snapshot()))
+            for r in out:
+                obs.observe("session.time_to_front_s",
+                            r.provenance.elapsed_s)
         return out[0] if single else out
 
     def _submit_impl(self, qs: List[Query], key: int, on_segment,
@@ -471,6 +565,9 @@ class Session:
                         single and len(idxs) == len(qs), resume, control)):
                     results[i] = r
             return [results[i] for i in range(len(qs))]
+        if obs.active():        # journal the plan of record for every query
+            for q in qs:        # before the engines run (read-only)
+                self.plan(q)
         nsga_idx = [i for i, q in enumerate(qs)
                     if q.resolved_engine() == "nsga"]
         for i, q in enumerate(qs):          # validate the whole batch first
@@ -560,10 +657,11 @@ class Session:
                                 seed_designs=q.seed_designs,
                                 device=svc.device, **opts)
         elapsed = time.perf_counter() - t0
-        if on_segment is not None:
-            # one completion event: scalarized engines have no segments
-            on_segment(SegmentEvent(ck, 0, sr.trace, engine,
-                                    elapsed_s=elapsed, seq=0))
+        cb = ExplorationService._segment_cb(on_segment, ck, engine)
+        if cb is not None:
+            # one completion event: scalarized engines have no segments (the
+            # shared wrapper journals it and contains callback failures)
+            cb(0, sr.trace, elapsed, False)
         n_evals = int(sr.trace.n_evals[-1]) if len(sr.trace.n_evals) else 0
         idx = [METRIC_KEYS.index(o) for o in p.objectives]
         if q.archive is not None and len(q.archive) > 0:

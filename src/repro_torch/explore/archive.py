@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels.pareto_rank.ops import dominance_counts as _kernel_counts
 from ..runtime import resolve_device
 
@@ -456,17 +457,22 @@ class ParetoArchive:
                     obj_keys=list(self.obj_keys or ()),
                     budget_covered=self.budget_covered,
                     trace_summary=self.trace_summary)
-        return atomic_savez(
-            path, __meta=np.frombuffer(json.dumps(meta).encode(),
-                                       dtype=np.uint8),
-            objs=self.objs.cpu().numpy(), valid=self.valid.cpu().numpy(),
-            **{f"d_{k}": v.cpu().numpy() for k, v in self.designs.items()})
+        with obs.span("archive.save", key=Path(path).stem,
+                      n_front=len(self)):
+            return atomic_savez(
+                path, __meta=np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8),
+                objs=self.objs.cpu().numpy(),
+                valid=self.valid.cpu().numpy(),
+                **{f"d_{k}": v.cpu().numpy()
+                   for k, v in self.designs.items()})
 
     @classmethod
     def load(cls, path, device="cuda") -> "ParetoArchive":
         """Load an archive npz (the port's or the reference's) onto
         ``device``."""
-        with np.load(Path(path)) as z:
+        with obs.span("archive.load", key=Path(path).stem), \
+                np.load(Path(path)) as z:
             meta = json.loads(bytes(z["__meta"]).decode())
             designs = {k[2:]: z[k] for k in z.files if k.startswith("d_")}
             template = {k: v[0] for k, v in designs.items()}
@@ -576,7 +582,10 @@ def fit_trust_model(records: Sequence[Dict], dim: Optional[int] = None,
         dim = max(counts, key=lambda sz: (counts[sz],
                                           max(i for i, x in enumerate(sizes)
                                               if x == sz)))
-    usable = [r for r in usable if np.asarray(r["delta"]).size == dim]
+    kept = [r for r in usable if np.asarray(r["delta"]).size == dim]
+    if len(kept) < len(usable):
+        obs.inc("explore.trust.skipped_records", len(usable) - len(kept))
+    usable = kept
     if len(usable) < max(int(min_records), 1):
         return None
     X = np.stack([np.concatenate(
@@ -659,6 +668,7 @@ class ArchiveManifest:
                 self.entries[k].get("last_used", 0), k))
             del self.entries[victim]
             self.evicted[victim] = self.clock
+            obs.inc("explore.manifest.evictions")
         return self
 
     def reap_evicted(self, cache_dir=None) -> Tuple[str, ...]:
@@ -732,6 +742,7 @@ class ArchiveManifest:
         for k in gone:
             del self.entries[k]
             self.evicted[k] = self.clock
+            obs.inc("explore.manifest.dedup_merges")
         return self
 
     def merge(self, other: "ArchiveManifest") -> "ArchiveManifest":

@@ -67,6 +67,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.constants import DEFAULT_TECH, TechConstants, tech_key
 from ..core.encoding import (DesignSpace, balanced_init, migrate,
                              portable_signature, random_design, repair,
@@ -354,8 +355,12 @@ class ExplorationService:
         Multi-step operations take ONE snapshot and work on it."""
         mtime = self._manifest_stat()
         if self._manifest is None or mtime != self._manifest_mtime:
-            self._manifest = ArchiveManifest.load(
-                self.cache_dir / MANIFEST_NAME, policy=self.manifest_policy)
+            if self._manifest is not None:      # a genuine staleness, not
+                obs.inc("explore.manifest.reloads")     # the first load
+            with obs.span("manifest.reload"):
+                self._manifest = ArchiveManifest.load(
+                    self.cache_dir / MANIFEST_NAME,
+                    policy=self.manifest_policy)
             self._manifest_mtime = mtime
         return self._manifest
 
@@ -415,6 +420,7 @@ class ExplorationService:
         try:
             arc.merge(ParetoArchive.load(p, device=self.device))
             self._archive_sync[key] = mt
+            obs.inc("explore.archive.merges")
         except (OSError, ValueError, KeyError, EOFError,
                 zipfile.BadZipFile) as e:
             warnings.warn(f"could not merge peer archive state {p}: {e}")
@@ -510,7 +516,8 @@ class ExplorationService:
         groups, lowest eval-count first.  ``key`` is the integer seed of the
         batch; group ``i`` draws from ``fold_in(key, i)``.  ``on_segment``
         (callable taking one ``SegmentEvent``) streams each segment's
-        incremental trace slice as it finishes.  ``resume=True``
+        incremental trace slice as it finishes; a failing callback is
+        warned about, counted and journaled, never fatal.  ``resume=True``
         checkpoints every segment and restores a matching checkpoint on
         entry (bit-identical final front); ``control`` (a ``RunControl``)
         stops at the next segment boundary."""
@@ -524,35 +531,67 @@ class ExplorationService:
             order.append((ck, len(g["queries"])))
             g["queries"].append(q)
         seq = itertools.count()
-        # per-group seeds are fixed by enumeration order before any fusing,
-        # so a group's stream — and its front — is the same whether it runs
-        # sequentially or as a megabatch lane
-        gkeys = {ck: fold_in(key, i) for i, ck in enumerate(groups)}
-        fused = set()
-        if self.policy.megabatch and not resume and len(groups) > 1:
-            fused = self._megabatch_pass(groups, gkeys, on_segment, seq,
-                                         control)
-        for ck, g in groups.items():
-            if ck not in fused:
-                self._refine_group(ck, g, gkeys[ck], on_segment, seq,
-                                   resume=resume, control=control)
-        if self.policy.reallocate:
-            self._reallocate(groups, fold_in(key, len(groups)), on_segment,
-                             seq, control=control)
+        with obs.span("explore.run_queries", queries=len(queries),
+                      groups=len(groups)):
+            # per-group seeds are fixed by enumeration order before any
+            # fusing, so a group's stream — and its front — is the same
+            # whether it runs sequentially or as a megabatch lane
+            gkeys = {ck: fold_in(key, i) for i, ck in enumerate(groups)}
+            fused = set()
+            if self.policy.megabatch and not resume and len(groups) > 1:
+                fused = self._megabatch_pass(groups, gkeys, on_segment, seq,
+                                             control)
+            for ck, g in groups.items():
+                if ck not in fused:
+                    self._refine_group(ck, g, gkeys[ck], on_segment, seq,
+                                       resume=resume, control=control)
+            if self.policy.reallocate:
+                self._reallocate(groups, fold_in(key, len(groups)),
+                                 on_segment, seq, control=control)
         group_results = {ck: self._project_group(ck, g)
                          for ck, g in groups.items()}
         return [group_results[ck][slot] for ck, slot in order]
 
     @staticmethod
-    def _segment_cb(on_segment, ck: str, phase: str, seq):
+    def _segment_cb(on_segment, ck: str, phase: str, seq=None):
         """The ``_refine`` callback for one group and phase: tags each
-        segment with the archive key, phase and stream sequence number."""
-        if on_segment is None:
+        segment with the archive key, phase, stream sequence number and the
+        segment's wall-clock (read once, at the segment boundary), journals
+        one ``segment`` record per boundary, and never lets a callback
+        failure kill the query it observes — a failure is warned about with
+        its phase and segment, counted (``obs.on_segment_errors``) and
+        journaled (``callback_error``).  ``None`` when nobody listens."""
+        if on_segment is None and not obs.active():
             return None
+        seq = seq if seq is not None else itertools.count()
 
-        def cb(s: int, tr: ConvergenceTrace, elapsed_s: float):
-            on_segment(SegmentEvent(ck, s, tr, phase, elapsed_s=elapsed_s,
-                                    seq=next(seq)))
+        def cb(s: int, tr: ConvergenceTrace, elapsed_s: float,
+               compiled: bool):
+            ev = SegmentEvent(ck, s, tr, phase, elapsed_s=elapsed_s,
+                              seq=next(seq))
+            if obs.active():
+                hv = (tr.archive_hv[-1] if tr.archive_hv is not None
+                      and len(tr.archive_hv) else None)
+                obs.emit(dict(
+                    type="segment", key=ck, phase=phase, segment=s,
+                    seq=ev.seq, elapsed_s=elapsed_s, compile=compiled,
+                    n_evals=int(tr.n_evals[-1]) if len(tr.n_evals) else 0,
+                    front_size=(int(tr.front_size[-1])
+                                if len(tr.front_size) else 0),
+                    hv=[float(v) for v in hv] if hv is not None else None))
+            if on_segment is None:
+                return
+            try:
+                on_segment(ev)
+            except Exception as e:      # an observer never fails the query
+                obs.inc("obs.on_segment_errors")
+                if obs.active():
+                    obs.emit(dict(type="callback_error", key=ck,
+                                  phase=phase, segment=s, seq=ev.seq,
+                                  error=repr(e)))
+                warnings.warn(
+                    f"on_segment callback failed for {ck} "
+                    f"(phase={phase}, segment={s}): {e}")
         return cb
 
     def _open_group(self, ck: str, g: Dict) -> bool:
@@ -569,6 +608,7 @@ class ExplorationService:
             k for k in METRIC_KEYS
             if any(k in q.objectives for q in g["queries"]))
         warm = self.warm_verdict(arc, union, budget)
+        obs.inc("explore.cache.hit" if warm else "explore.cache.miss")
         g.update(warm=warm, n_run=0, trace=None, plateaued=False,
                  banked=0, realloc=0, transferred_from=(), n_seeds=0,
                  interrupted=False, plateau=PlateauState(),
@@ -590,30 +630,37 @@ class ExplorationService:
         arc = g["arc"]
         pop_eff = quantize.effective_pop(g["budget"], self.nsga.pop)
         cap = pop_eff if len(arc) == 0 else max(pop_eff // 2, 1)
-        seeds, srcs = self._transfer_seeds(
-            ck, g["space"], g["embedding"], fold_in(key, 0x7e5), arc=arc,
-            cap=cap)
+        with obs.span("explore.transfer_seeds", key=ck):
+            seeds, srcs = self._transfer_seeds(
+                ck, g["space"], g["embedding"], fold_in(key, 0x7e5),
+                arc=arc, cap=cap)
         g["transferred_from"] = srcs
         g["n_seeds"] = (int(next(iter(seeds.values())).shape[0])
                         if seeds else 0)
         return seeds
 
-    def _book_refinement(self, ck: str, g: Dict, n_run: int, trace,
+    def _book_refinement(self, ck: str, g: Dict, sp, n_run: int, trace,
                          plateaued: bool, banked: int,
                          interrupted: bool) -> None:
         """Shared epilogue of one group's refinement (sequential or fused):
-        archive accounting, the ledger, trust calibration, the archive and
-        manifest writes."""
+        archive accounting, the eval and bank counters, the ledger, trust
+        calibration, the archive and manifest writes.  ``sp`` is the
+        group's live span (``None`` for a fused lane)."""
         arc, union, budget = g["arc"], g["union"], g["budget"]
         arc.searched = tuple(k for k in METRIC_KEYS
                              if k in arc.searched or k in union)
         if not interrupted:
             # an interrupted run still owes its residual segments
             arc.budget_covered = max(arc.budget_covered, budget)
+        obs.inc("explore.evals.spent", n_run)
         if banked:
+            obs.inc("explore.evals.banked", banked)
             self.ledger[ck] = self.ledger.get(ck, 0) + banked
         g.update(n_run=n_run, trace=trace, plateaued=plateaued,
                  banked=banked, interrupted=interrupted)
+        if sp is not None:
+            sp.set(n_run=n_run, plateaued=plateaued, banked=banked,
+                   n_seeds=g["n_seeds"], interrupted=interrupted)
         if trace is not None:
             arc.trace_summary = trace.summary()
         self.save(ck)
@@ -629,23 +676,27 @@ class ExplorationService:
         if self._open_group(ck, g):
             g["elapsed"] = time.perf_counter() - t0
             return
-        seeds = self._group_seeds(ck, g, key)
-        ckpt = self._ckpt_path(ck) if resume else None
-        gate = None
-        if g["surrogate"] is not None:
-            # a resumed gated run replays the surrogate it started with
-            gate = (self._stored_gate(ckpt, g) if ckpt is not None
-                    else None) or self._fit_gate(ck, g)
-        n_run, trace, plateaued, banked, interrupted, sstats = self._refine(
-            g["arc"], g["spec"], g["space"], g["union"], g["budget"], key,
-            seeds=seeds,
-            on_segment=self._segment_cb(on_segment, ck, "refine", seq),
-            plateau=g["plateau"], control=control, checkpoint=ckpt,
-            gate=gate)
-        g.update(sur_used=sstats["used"], sur_hits=sstats["hits"],
-                 sur_fallbacks=sstats["fallbacks"])
-        self._book_refinement(ck, g, n_run, trace, plateaued, banked,
-                              interrupted)
+        with obs.span("explore.refine_group", key=ck,
+                      budget=g["budget"]) as sp:
+            seeds = self._group_seeds(ck, g, key)
+            ckpt = self._ckpt_path(ck) if resume else None
+            gate = None
+            if g["surrogate"] is not None:
+                # a resumed gated run replays the surrogate it started with
+                gate = (self._stored_gate(ckpt, g) if ckpt is not None
+                        else None) or self._fit_gate(ck, g)
+            n_run, trace, plateaued, banked, interrupted, sstats = \
+                self._refine(
+                    g["arc"], g["spec"], g["space"], g["union"],
+                    g["budget"], key, seeds=seeds,
+                    on_segment=self._segment_cb(on_segment, ck, "refine",
+                                                seq),
+                    plateau=g["plateau"], control=control, checkpoint=ckpt,
+                    gate=gate)
+            g.update(sur_used=sstats["used"], sur_hits=sstats["hits"],
+                     sur_fallbacks=sstats["fallbacks"])
+            self._book_refinement(ck, g, sp, n_run, trace, plateaued,
+                                  banked, interrupted)
         g["elapsed"] = time.perf_counter() - t0
 
     # ---- surrogate gating --------------------------------------------------
@@ -671,17 +722,19 @@ class ExplorationService:
         emb = np.asarray(g["embedding"], np.float32).ravel()
         design_dim = design_encoding_dim(
             {k: v[0] for k, v in arc.designs.items()})
-        index = self.manifest.export_index(exclude=(ck,) + exclude)
-        X, Y = harvest_rows(index, self._load_neighbor, design_dim,
-                            emb.size)
-        own_X, own_Y = arc.export_rows()
-        if len(own_X):
-            own = np.concatenate([own_X, np.tile(emb, (len(own_X), 1))],
-                                 axis=1)
-            X = np.concatenate([X, own]) if len(X) else own
-            Y = np.concatenate([Y, own_Y]) if len(Y) else own_Y
-        sur = fit_surrogate(X, Y, cfg, device=self.device)
+        with obs.span("explore.surrogate_fit", key=ck):
+            index = self.manifest.export_index(exclude=(ck,) + exclude)
+            X, Y = harvest_rows(index, self._load_neighbor, design_dim,
+                                emb.size)
+            own_X, own_Y = arc.export_rows()
+            if len(own_X):
+                own = np.concatenate(
+                    [own_X, np.tile(emb, (len(own_X), 1))], axis=1)
+                X = np.concatenate([X, own]) if len(X) else own
+                Y = np.concatenate([Y, own_Y]) if len(Y) else own_Y
+            sur = fit_surrogate(X, Y, cfg, device=self.device)
         if sur is None:
+            obs.inc("explore.surrogate.cold")
             return None
         return SurrogateGate(model=sur, embedding=emb, cfg=cfg)
 
@@ -758,13 +811,17 @@ class ExplorationService:
         """Run one bucket of distinct-problem groups as the lanes of one
         fused run, then book each group as the sequential path would."""
         t0 = time.perf_counter()
-        lanes = [dict(g=g, key=gkeys[ck],
-                      seeds=self._group_seeds(ck, g, gkeys[ck]),
-                      cb=self._segment_cb(on_segment, ck, "refine", seq))
-                 for ck, g in bucket]
-        results = self._refine_fused(lanes, control=control)
-        for (ck, g), r in zip(bucket, results):
-            self._book_refinement(ck, g, *r)
+        with obs.span("explore.megabatch", lanes=len(bucket),
+                      keys=",".join(ck for ck, _ in bucket)) as sp:
+            lanes = [dict(g=g, key=gkeys[ck],
+                          seeds=self._group_seeds(ck, g, gkeys[ck]),
+                          cb=self._segment_cb(on_segment, ck, "refine",
+                                              seq))
+                     for ck, g in bucket]
+            results = self._refine_fused(lanes, control=control)
+            for (ck, g), r in zip(bucket, results):
+                self._book_refinement(ck, g, None, *r)
+            sp.set(n_run=sum(r[0] for r in results))
         dt = time.perf_counter() - t0
         for _, g in bucket:     # every lane waited on the same launches
             g["elapsed"] = dt
@@ -808,6 +865,7 @@ class ExplorationService:
                     ln["interrupted"] = True
                 break
             t_seg = time.perf_counter()
+            compiled = not run.compile_state["executed"]
             slots = live + [live[0]] * (lanes_pad - len(live))
             pops = [_seed_population(ln["g"]["arc"], pop, ln["filler"],
                                      ln["seeds"] if s == 0 else None)
@@ -837,9 +895,12 @@ class ExplorationService:
                                else ln["trace"].extend(seg_trace))
                 staged.append((ln, seg_trace, hv_now))
             dt = time.perf_counter() - t_seg    # shared by every lane
+            obs.inc("explore.segments")
+            obs.observe("explore.segment_compile_s" if compiled
+                        else "explore.segment_s", dt)
             for ln, seg_trace, hv_now in staged:
                 if ln["cb"] is not None:
-                    ln["cb"](s, seg_trace, dt)
+                    ln["cb"](s, seg_trace, dt, compiled)
                 if policy.adaptive and hv_pairs:
                     streak = ln["st"].observe(
                         hv_now, policy.plateau_rel,
@@ -847,6 +908,7 @@ class ExplorationService:
                     if streak >= policy.patience and s + 1 < n_seg:
                         ln["plateaued"] = True
                         ln["live"] = False
+                        obs.inc("explore.plateau_stops")
         out = []
         for ln in lanes:
             n_run = ln["spent_g"] * pop
@@ -897,6 +959,7 @@ class ExplorationService:
                     disk.merge(m)
                     disk.enforce(protect=(ck,))
                     m = disk
+                    obs.inc("explore.manifest.merges")
                 m.reap_evicted(self.cache_dir)
                 m.save(path)
         except LockTimeout as e:
@@ -994,10 +1057,12 @@ class ExplorationService:
                 md = migrate(d, ent["digest"], dst)
                 sig = portable_signature(md, dst)
                 if sig in taken:        # already on the destination front
+                    obs.inc("explore.transfer.seeds_deduped")
                     continue            # (or offered by a closer neighbor)
                 taken.add(sig)
                 migrated.append(md)
             if migrated:                # nk is credited iff its designs
+                obs.inc("explore.transfer.seeds_injected", len(migrated))
                 seeds.extend(migrated)  # were injected
                 srcs.append(nk)
             if len(seeds) >= cap:
@@ -1033,12 +1098,15 @@ class ExplorationService:
             t0 = time.perf_counter()
             g["plateau"].reset()            # a top-up is FRESH budget
             # quantize_down: the ledger is never overdrawn by rounding
-            n_run, trace, plateaued, _, interrupted, _ = self._refine(
-                arc, g["spec"], g["space"], g["union"], pool,
-                fold_in(key, i), quantize_down=True,
-                on_segment=self._segment_cb(on_segment, ck, "realloc",
-                                            seq),
-                plateau=g["plateau"], control=control)
+            with obs.span("explore.reallocate", key=ck, pool=pool) as sp:
+                n_run, trace, plateaued, _, interrupted, _ = self._refine(
+                    arc, g["spec"], g["space"], g["union"], pool,
+                    fold_in(key, i), quantize_down=True,
+                    on_segment=self._segment_cb(on_segment, ck, "realloc",
+                                                seq),
+                    plateau=g["plateau"], control=control)
+                sp.set(n_run=n_run)
+            obs.inc("explore.evals.realloc", n_run)
             pool -= n_run
             self._drain_ledger(n_run)
             g["elapsed"] += time.perf_counter() - t0
@@ -1160,8 +1228,9 @@ class ExplorationService:
                 arrays.update({f"s_{k}": v for k, v in sur.params.items()})
                 arrays.update(sx_mean=sur.x_mean, sx_std=sur.x_std,
                               sy_mean=sur.y_mean, sy_std=sur.y_std)
-            atomic_savez(path, __meta=np.frombuffer(
-                json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+            with obs.span("explore.checkpoint", segment=int(s_next) - 1):
+                atomic_savez(path, __meta=np.frombuffer(
+                    json.dumps(meta).encode(), dtype=np.uint8), **arrays)
         except OSError as e:
             warnings.warn(f"resume checkpoint write failed ({path}): {e}")
 
@@ -1220,6 +1289,7 @@ class ExplorationService:
                       if meta["last_hv"] is not None else None)
         filler = {k: torch.as_tensor(v, device=dev)
                   for k, v in filler.items()}
+        obs.inc("explore.resume.restored")
         return (int(meta["s_next"]), int(meta["spent_g"]),
                 int(meta["spent_e"]), bool(meta["fell_back"]), filler, trace)
 
@@ -1295,6 +1365,10 @@ class ExplorationService:
                 interrupted = True      # the checkpoint stays for a resume
                 break
             t_seg = time.perf_counter()
+            # the first run of this runner variant in the process loads the
+            # kernels and warms the caches: its segment is timed apart
+            compiled = not (run_g if run_g is not None
+                            else run).compile_state["executed"]
             pop0 = _seed_population(arc, pop, filler,
                                     seeds if s == 0 else None)
             if run_g is not None:
@@ -1316,27 +1390,38 @@ class ExplorationService:
             filler = pop_s
             seg_trace = ConvergenceTrace.from_scan(objectives, tr, per_gen)
             if run_g is not None:
+                skipped = (pop - n_exact) * chunk
                 sur_stats["used"] = True
-                sur_stats["hits"] += (pop - n_exact) * chunk
+                sur_stats["hits"] += skipped
+                obs.inc("explore.surrogate.hits", skipped)
+                obs.inc("explore.surrogate.forced_exact",
+                        int(tr["forced_exact"].sum()))
                 dis = float(np.mean(tr["disagreement"].cpu().numpy()))
                 if dis > gate.cfg.fallback_tau:
                     # the ensemble is out of its depth here: exact for the
                     # rest of the run
                     run_g = None
                     sur_stats["fallbacks"] += 1
+                    obs.inc("explore.surrogate.fallbacks")
             hv_now = np.asarray([arc.projected_hypervolume(p)
                                  for p in hv_pairs])
             seg_trace.archive_hv = hv_now[None, :]
             trace = seg_trace if trace is None else trace.extend(seg_trace)
+            # the hypervolume above read the archive back to the host, so
+            # the segment's launches have drained: dt is its wall-clock
             dt = time.perf_counter() - t_seg
+            obs.inc("explore.segments")
+            obs.observe("explore.segment_compile_s" if compiled
+                        else "explore.segment_s", dt)
             if on_segment is not None:
-                on_segment(s, seg_trace, dt)
+                on_segment(s, seg_trace, dt, compiled)
             # ---- plateau check on the archive-projected hypervolume ----
             if policy.adaptive and hv_pairs:
                 streak = st.observe(hv_now, policy.plateau_rel,
                                     count=bool(len(arc)))
                 if streak >= policy.patience and s + 1 < n_seg:
                     plateaued = True
+                    obs.inc("explore.plateau_stops")
                     break
             if checkpoint is not None:  # after the plateau observation, so
                 #                         a resume judges the seam alike

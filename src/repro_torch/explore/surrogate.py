@@ -40,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..runtime import generator, resolve_device
 
 F = torch.float32
@@ -255,9 +256,13 @@ def fit_surrogate(X, Y, cfg: SurrogateConfig = SurrogateConfig(),
     y_mean, y_std = _norm_stats(ylog)
     Xn = (X - x_mean) / x_std
     Yn = ((ylog - y_mean) / y_std).astype(np.float32)
-    params = _fit_ensemble(Xn, Yn, cfg.members, cfg.hidden, cfg.epochs,
-                           cfg.lr, cfg.seed if seed is None else seed,
-                           device=device)
+    with obs.span("surrogate.fit", rows=int(X.shape[0]),
+                  members=cfg.members):
+        params = _fit_ensemble(Xn, Yn, cfg.members, cfg.hidden, cfg.epochs,
+                               cfg.lr, cfg.seed if seed is None else seed,
+                               device=device)
+    obs.inc("explore.surrogate.fits")
+    obs.inc("explore.surrogate.rows", int(X.shape[0]))
     return Surrogate(params=params, x_mean=x_mean, x_std=x_std,
                      y_mean=y_mean.astype(np.float32), y_std=y_std,
                      config=cfg, n_rows=int(X.shape[0]))
@@ -271,25 +276,33 @@ def harvest_rows(index: Sequence[Tuple[str, np.ndarray]],
 
     ``index`` is ``ArchiveManifest.export_index`` output; ``load_archive``
     resolves a key to a ``ParetoArchive`` (or ``None``: broken or absent
-    archives are skipped).  Archives whose design encoding or embedding
-    dimension disagrees with the target problem's are skipped the same
-    way.  Returns ``X`` (n, design_dim + embed_dim) float32 and ``Y`` (n,
+    archives are skipped, counted on ``explore.surrogate.skipped_archives``).
+    Archives whose design encoding or embedding dimension disagrees with
+    the target problem's are skipped the same way.  Returns ``X`` (n, design_dim + embed_dim) float32 and ``Y`` (n,
     n_obj) float64 raw metrics."""
     Xs: List[np.ndarray] = []
     Ys: List[np.ndarray] = []
+    skipped = 0
     for key, emb in index:
         emb = np.asarray(emb, np.float64).ravel()
         if emb.size != embed_dim:
+            skipped += 1
             continue
         arc = load_archive(key)
         if arc is None:
+            skipped += 1
             continue
         Xd, Y = arc.export_rows()
-        if Xd.shape[1] != design_dim or not len(Xd):
+        if Xd.shape[1] != design_dim:
+            skipped += 1
+            continue
+        if not len(Xd):
             continue
         Xs.append(np.concatenate(
             [Xd, np.tile(emb.astype(np.float32), (len(Xd), 1))], axis=1))
         Ys.append(Y)
+    if skipped:
+        obs.inc("explore.surrogate.skipped_archives", skipped)
     if not Xs:
         return (np.zeros((0, design_dim + embed_dim), np.float32),
                 np.zeros((0, 4), np.float64))
@@ -346,6 +359,8 @@ def fit_nonlinear_trust(records: Sequence[Dict],
                                          max(i for i, sz in enumerate(sizes)
                                              if sz == s)))
     kept = [r for r in usable if np.asarray(r["delta"]).size == dim]
+    if len(kept) < len(usable):
+        obs.inc("explore.trust.skipped_records", len(usable) - len(kept))
     if len(kept) < max(int(min_records), 2):
         return None
     X = np.stack([np.abs(np.asarray(r["delta"], np.float64).ravel())
@@ -357,6 +372,7 @@ def fit_nonlinear_trust(records: Sequence[Dict],
     Yn = ((y - y_mean) / y_std).astype(np.float32)
     params = _fit_ensemble(Xn, Yn, members, hidden, epochs, lr, seed,
                            device="cpu")
+    obs.inc("explore.trust.nonlinear_fits")
     return NonlinearTrustModel(params=params, x_mean=x_mean, x_std=x_std,
                                y_mean=float(y_mean[0]),
                                y_std=float(y_std[0]), dim=int(dim))

@@ -609,3 +609,18 @@ def test_reduced_hymba_bf16_prefill_runs_on_the_tensor_core_kernel(cuda):
     assert fa.flash_attention.launches_tc == cfg.n_layers
     assert bool(torch.isfinite(r.logits).all())
     assert torch.equal(r.tokens, generate(model, params, prompt, 4).tokens)
+
+
+def test_calibration_fit_on_the_card_matches_the_cpu(cuda):
+    """The default calibration (the simulator sweep plus the published
+    baseline rows under ``DEFAULT_FREE``) fit on the card: its constants
+    within rtol 1e-3 of the CPU fit's, and two card fits give one
+    artifact digest (a repeatable backward)."""
+    from repro_torch.calib import baseline_measurements, fit, simulator_sweep
+    ms = simulator_sweep() + baseline_measurements()
+    cpu = fit(ms, steps=100, device="cpu")
+    a = fit(ms, steps=100, device="cuda")
+    b = fit(ms, steps=100, device="cuda")
+    assert a.digest == b.digest
+    for f, v in cpu.fitted.items():
+        assert a.fitted[f] == pytest.approx(v, rel=1e-3), f

@@ -37,6 +37,21 @@ def test_port_has_modules():
     assert len(FILES) > 10 and "repro_torch.explore.api" in _modules()
 
 
+# the ninth slice: calibration, the flight recorder and the readable model
+# references the calibration uses
+SLICE_9 = ("repro_torch.core.simulator", "repro_torch.core.mapping",
+           "repro_torch.core.perf_model", "repro_torch.obs",
+           "repro_torch.obs.metrics", "repro_torch.obs.trace",
+           "repro_torch.obs.journal", "repro_torch.obs.report",
+           "repro_torch.calib", "repro_torch.calib.measurements",
+           "repro_torch.calib.preset", "repro_torch.calib.fit")
+
+
+@pytest.mark.parametrize("module", SLICE_9)
+def test_calibration_and_observability_modules_exist(module):
+    assert module in _modules()
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

@@ -4,8 +4,8 @@
   att2 and returns a finite, feasible, nondominated front;
 * a second submit (same session, and a fresh session on the same cache
   directory) is served from cache with the identical front;
-* options that are not ported (surrogate gating, ``submit_async``,
-  megabatching, journals) raise ``NotImplementedError``;
+* the option that is not ported (``submit_async``) raises
+  ``NotImplementedError``;
 * tech presets (their ``tech_key`` equal to the reference's), per-query
   ``tech`` in an archive of its own, ``Session.plan`` against what
   ``submit`` then does, budget reallocation, and seed designs in both
@@ -33,7 +33,7 @@ import repro.api as ref_api
 import repro.core as C
 from repro.explore.nsga import NSGAConfig as RefNSGAConfig
 
-from repro_torch import convert
+from repro_torch import convert, obs
 from repro_torch.api import Problem, Query, Session
 from repro_torch.core import presets as tp
 from repro_torch.core.baselines import make_baseline
@@ -121,7 +121,6 @@ def test_same_problem_queries_share_one_run(tmp_path):
 
 UNPORTED = [
     ("submit_async", lambda s, p: s.submit_async(Query(p))),
-    ("journal", lambda s, p: Session(journal="j.jsonl", device="cpu")),
 ]
 
 
@@ -200,7 +199,12 @@ def test_query_tech_lands_in_its_own_archive(tmp_path):
     assert r.provenance.tech == hot.provenance.tech
 
 
-def test_plan_predicts_what_submit_does(tmp_path):
+def test_plan_predicts_what_submit_does(tmp_path, monkeypatch):
+    # a registry with no segment timings yet, as in a fresh process: the
+    # wall-clock estimate needs one (tests/test_torch_obs.py holds it)
+    fresh = obs.MetricsRegistry()
+    monkeypatch.setattr(obs, "REGISTRY", fresh)
+    monkeypatch.setattr(obs.trace, "REGISTRY", fresh)
     s = Session(cache_dir=tmp_path, device="cpu", nsga=NSGAConfig(pop=16))
     q = Query(_problem(), budget=128,
               policy=BudgetPolicy(chunk_generations=2))
