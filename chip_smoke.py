@@ -169,7 +169,37 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     ``None``) beside the wall it predicted;
     (e) (b)'s fit saved as a ``CalibratedTech`` into a temporary
     ``$REPRO_CALIB_DIR``, resolved by name, serving one NSGA query with
-    ``Session(tech=<name>)`` whose ``Provenance.tech`` names the preset.
+    ``Session(tech=<name>)`` whose ``Provenance.tech`` names the preset;
+15. the async serving shell on the card (``repro_torch.serve``; the search
+    path, so ``pareto_rank``, launched from several host threads at once):
+    (a) the reference's serving benchmark (``benchmarks/bench_serve.py``)
+    at its full settings — budget 256, 16 fleet clients, 4 overload
+    clients, a 900 s deadline, one matmul 512 x 512 x k at ``ch_max=2``,
+    pop 8 — with its gates: every fleet client served (p50 / p99 time to
+    front and the hit rate printed), every overload client served its
+    cached front stale with 0 evaluations within the deadline and the
+    banked jobs drained to DONE, an interrupted and resumed run
+    bit-identical to the uninterrupted one with exact residual spend (its
+    wall overhead printed);
+    (b) 8 clients of phase 5's query (budget 2048, pop 64) in bench_serve's
+    warm / refine / cold mix, each on a transformer block of its own,
+    through one ``Executor`` with 2 worker threads, with the count set to 0
+    just before and read just after, then the same jobs one after another
+    in a fresh session with the same keys: every client served, each job's
+    front and spend equal to its sequential run's, the ``pareto_rank``
+    launch totals equal; p50 / p99, and the device busy share of both from
+    ``torch.profiler``;
+    (c) a ``Session.submit_async`` job bit-identical to ``Session.submit``
+    of its query and seed while a second job's segments interleave with
+    its own in the other worker thread;
+    (d) the SIGKILL drill: ``python -m repro_torch.serve.worker --once
+    --segment-delay 1.0`` killed after its first checkpointed segment; a
+    second worker prints ``RECOVERED``, ends DONE after 2 attempts,
+    spends only the residual budget, and its archive's valid rows are
+    byte-identical to an uninterrupted card run's;
+    (e) a RUNNING job cancelled keeps its checkpoint; the query recorded
+    again is finished by a fresh executor's ``resume_pending`` to the
+    uninterrupted front, the two spends summing to its spend.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -186,6 +216,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -221,7 +252,8 @@ from repro_torch.core.optimizer import (METRIC_KEYS, OBJ_EDP,  # noqa: E402
                                         SAConfig, gp_posterior, make_sa,
                                         metric_stack, objective_from_metrics,
                                         prob_improvement)
-from repro_torch.core.workload import MAX_LOOPS  # noqa: E402
+from repro_torch.core.workload import (MAX_LOOPS,  # noqa: E402
+                                       WorkloadGraph, matmul)
 from repro_torch.explore.archive import (HV_LOG_REF,  # noqa: E402
                                          MANIFEST_NAME, ArchiveManifest,
                                          ManifestPolicy, ParetoArchive,
@@ -241,6 +273,9 @@ from repro_torch.models.model import HybridLM, build_model  # noqa: E402
 from repro_torch.kernels.pareto_rank import ops as pareto_ops  # noqa: E402
 from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref  # noqa: E402
 from repro_torch.obs.report import render  # noqa: E402
+from repro_torch.serve import (CANCELLED, DONE, RUNNING,  # noqa: E402
+                               CancelledError, Executor, JobStore,
+                               query_to_payload)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2734,6 +2769,628 @@ def calib_obs_phase(problem) -> dict:
           + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
     return out
 
+# ---- 15. the async serving shell ------------------------------------------
+# (a) the reference's serving benchmark (benchmarks/bench_serve.py:175-184)
+# at its full settings: budget 256, 16 fleet clients, 4 overload clients, a
+# 900 s deadline, on its problem (one matmul 512 x 512 x k, ch_max=2,
+# max_shape=(16, 16, 4, 4, 1, 2)) at pop 8, one generation a segment, no
+# plateau stop, no reallocation
+SV_OBJ = ("latency_ns", "cost_usd")
+SV_SPACE_KW = dict(max_shape=(16, 16, 4, 4, 1, 2))
+SV_NSGA_KW = dict(pop=8, generations=2)
+SV_POLICY_KW = dict(chunk_generations=1, adaptive=False, reallocate=False)
+SV_BUDGET = 256
+SV_CLIENTS = 16
+SV_OVERLOAD_CLIENTS = 4
+SV_DEADLINE_S = 900.0
+# (b) the fleet at real size, two arms.  The replay arm: phase 5's query
+# (budget 2048, pop 64, the default policy less reallocation) for 8
+# clients through one Executor with 2 worker threads, with bench_serve's
+# warm / refine (twice the budget on a warmed archive) / cold kinds, each
+# client on a transformer block of its own (phase 5's seq 512 among them,
+# the cold ones at seq 1024 and 1536) and held to its sequential replay bit
+# for bit.  A mix built for that check, not traffic: clients of one
+# problem race on its archive, and a replay could not be held to them.
+# The shared arm (serve_mix) runs bench_serve's own mix at phase 5's size
+FLEET_MIX = (("warm", 512), ("refine", 256), ("cold", 1024), ("warm", 384),
+             ("refine", 640), ("cold", 1536), ("warm", 768),
+             ("refine", 896))
+FLEET_WORKERS = 2
+FLEET_WARM_KEY = 100
+# without reallocation: the ledger of banked evaluations is a service's
+# memory, which each worker thread's clone keeps across the jobs it runs,
+# so reallocated spend would depend on which jobs a worker ran before
+FLEET_POLICY_KW = dict(reallocate=False)
+# the busy share is read over three short windows of each arm
+BUSY_STARTS_S = (1.5, 3.5, 5.5)
+BUSY_WINDOW_S = 0.5
+# (c): phase 5's query.  (d), (e): phase 5's query at two generations a
+# segment without the plateau stop (16 segments, so a cancel or a kill
+# lands mid-run); (d) kills the worker 0.3 s into the 1 s pause after its
+# first checkpointed segment
+SV_CHUNK = 2
+SV_SEED = 5
+SV_KILL_TIMEOUT_S = 300
+
+
+def sv_problem(k: int):
+    """bench_serve's problem: one matmul 512 x 512 x ``k``."""
+    return Problem(WorkloadGraph([matmul("mm", 512, 512, k)], []), SV_OBJ,
+                   ch_max=2, space_kwargs=SV_SPACE_KW)
+
+
+def sv_session(cache: Path, device: str = "cuda"):
+    return Session(cache_dir=cache, nsga=NSGAConfig(**SV_NSGA_KW),
+                   policy=BudgetPolicy(**SV_POLICY_KW), device=device)
+
+
+def sv_policy():
+    """(d) and (e)'s policy; the workers get it as ``--chunk-generations
+    2 --no-adaptive``."""
+    return BudgetPolicy(chunk_generations=SV_CHUNK, adaptive=False)
+
+
+def sync_of(device: str):
+    return torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+
+def quantiles(walls: list) -> tuple:
+    """(p50, p99) of a list of walls, as bench_serve reads them."""
+    lat = sorted(walls)
+    return lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+
+
+def same_front(a, b) -> bool:
+    return (a.front_objs.tobytes() == b.front_objs.tobytes()
+            and a.front_metrics.tobytes() == b.front_metrics.tobytes())
+
+
+def run_clients(ex, queries, deadline_s: float, during=None) -> tuple:
+    """One client thread a query (client ``i`` takes seed ``i``): submit
+    through ``ex``, take the stale front if admission served one, else
+    wait for the final result.  ``during`` runs on this thread while the
+    clients do.  Returns (results, time to front of each, wall, what
+    ``during`` returned); a client that raised fails the run."""
+    n = len(queries)
+    results, ttf, ends, errs = [None] * n, [None] * n, [], []
+
+    def client(i):
+        try:
+            t0 = time.perf_counter()
+            h = ex.submit(queries[i], key=i, deadline_s=1.0)
+            r = h.stale if h.stale is not None else h.result(deadline_s)
+            ends.append(time.perf_counter())
+            ttf[i] = ends[-1] - t0
+            results[i] = r
+        except BaseException as e:          # re-raised below
+            errs.append(e)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    seen = during() if during is not None else None
+    for t in threads:
+        t.join(deadline_s)
+    if errs:
+        raise errs[0]
+    return results, ttf, max(ends, default=t0) - t0, seen
+
+
+def bench_serve_arms(root: Path, device: str = "cuda",
+                     budget: int = SV_BUDGET, clients: int = SV_CLIENTS,
+                     overload: int = SV_OVERLOAD_CLIENTS,
+                     deadline_s: float = SV_DEADLINE_S) -> dict:
+    """(a): bench_serve's fleet, overload and resume arms with its gates."""
+    sv_session(root / "warmup", device).submit(
+        Query(sv_problem(64), budget=budget))
+    # fleet: mixed warm / refine / cold clients through one executor
+    sess = sv_session(root / "fleet", device)
+    p_warm, p_cold = sv_problem(64), sv_problem(96)
+    sess.submit(Query(p_warm, budget=budget))
+    ex = Executor(sess, store=root / "fleet_jobs", max_workers=2,
+                  max_pending=max(4, clients))
+    mix = [Query(p_warm, budget=budget), Query(p_warm, budget=2 * budget),
+           Query(p_cold, budget=budget)]
+    results, ttf, wall, _ = run_clients(
+        ex, [mix[i % len(mix)] for i in range(clients)], deadline_s)
+    ex.shutdown()
+    served = sum(r is not None for r in results)
+    if served != clients:
+        fail(f"phase 15 (a) fleet: {served} of {clients} clients served")
+    p50, p99 = quantiles(ttf)
+    fleet = dict(wall_s=wall, p50_s=p50, p99_s=p99,
+                 hit_rate=sum(r.provenance.from_cache
+                              for r in results) / clients,
+                 total_evals=sum(r.provenance.n_evals_run for r in results),
+                 ttf_s=ttf)
+    # overload: zero slots; warm queries degrade to the cached front
+    sess = sv_session(root / "overload", device)
+    p = sv_problem(64)
+    sess.submit(Query(p, budget=budget))
+    ex = Executor(sess, store=root / "overload_jobs", max_workers=1,
+                  max_pending=0)
+    t0 = time.perf_counter()
+    handles = [ex.submit(Query(p, budget=budget), key=i, deadline_s=0.0)
+               for i in range(overload)]
+    stale_s = time.perf_counter() - t0
+    n_stale = sum(h.stale is not None for h in handles)
+    if n_stale != overload or not all(
+            h.stale.provenance.stale and h.stale.provenance.n_evals_run == 0
+            for h in handles) or stale_s >= deadline_s:
+        fail(f"phase 15 (a) overload: {n_stale} of {overload} served stale "
+             f"in {stale_s:.3f} s")
+    resumed = ex.resume_pending()
+    for h in resumed:
+        h.result(deadline_s)
+    ex.shutdown()
+    states = [h.state() for h in resumed]
+    if len(resumed) != overload or any(s != DONE for s in states):
+        fail(f"phase 15 (a) overload: banked jobs ended {states}")
+    over = dict(n_stale=n_stale, stale_serve_s=stale_s,
+                banked_drained=len(resumed))
+    # resume: interrupted at a segment boundary, resumed in a fresh session
+    sync = sync_of(device)
+    q = Query(sv_problem(64), budget=budget)
+    sync()
+    t0 = time.perf_counter()
+    r_full = sv_session(root / "full", device).submit(q, key=11)
+    sync()
+    t_full = time.perf_counter() - t0
+    ctl = RunControl()
+    seen = []
+
+    def stop_after_two(ev):
+        seen.append(ev)
+        if len(seen) == 2:
+            ctl.stop()
+    t0 = time.perf_counter()
+    r_int = sv_session(root / "crash", device).submit(
+        q, key=11, resume=True, control=ctl, on_segment=stop_after_two)
+    sync()
+    t_int = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_res = sv_session(root / "crash", device).submit(q, key=11,
+                                                      resume=True)
+    sync()
+    t_res = time.perf_counter() - t0
+    identical = same_front(r_res, r_full)
+    spend_ok = (r_int.provenance.n_evals_run + r_res.provenance.n_evals_run
+                == r_full.provenance.n_evals_run)
+    if not (r_int.provenance.interrupted and identical and spend_ok):
+        fail(f"phase 15 (a) resume: interrupted "
+             f"{r_int.provenance.interrupted}, identical {identical}, "
+             f"spend {r_int.provenance.n_evals_run} + "
+             f"{r_res.provenance.n_evals_run} against "
+             f"{r_full.provenance.n_evals_run}")
+    resume = dict(t_full_s=t_full, t_interrupted_s=t_int, t_resumed_s=t_res,
+                  overhead=(t_int + t_res) / t_full, identical=identical,
+                  spend_ok=spend_ok)
+    print(f"phase 15 (a) bench_serve fleet: {clients} clients served in "
+          f"{wall:.3f} s, time to front p50 {p50:.4f} s / p99 {p99:.4f} s, "
+          f"hit rate {fleet['hit_rate']:.2f}, {fleet['total_evals']} "
+          f"evaluations; overload: {n_stale} of {overload} served stale "
+          f"in {stale_s * 1e3:.2f} ms, {len(resumed)} banked jobs drained "
+          f"to DONE; resume: identical {identical}, residual spend "
+          f"{spend_ok} ({r_int.provenance.n_evals_run} + "
+          f"{r_res.provenance.n_evals_run}), overhead "
+          f"{resume['overhead']:.3f} ({t_int:.3f} + {t_res:.3f} s against "
+          f"{t_full:.3f} s)")
+    return dict(fleet=fleet, overload=over, resume=resume)
+
+
+def fleet_queries(budget: int, ch_max: int = 4) -> list:
+    """(b)'s eight clients: (kind, query) in client order."""
+    out = []
+    for kind, seq in FLEET_MIX:
+        p = Problem(presets.transformer_block(seq=seq), SV_OBJ,
+                    ch_max=ch_max)
+        out.append((kind, Query(p, budget=2 * budget if kind == "refine"
+                                else budget)))
+    return out
+
+
+def busy_windows(device: str, starts=BUSY_STARTS_S,
+                 window_s: float = BUSY_WINDOW_S) -> list:
+    """``torch.profiler`` recordings (device activity only) of the
+    ``window_s``-second windows that start ``starts`` seconds from now,
+    each with its wall; empty on the CPU.  Windows, not a whole run: the
+    fleet launches ~10^5 kernels a second.  ``busy_of`` reads them once
+    the run is over: reading holds the interpreter for seconds, which would
+    stall the threads being measured."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    out = []
+    for start in starts:
+        time.sleep(max(0.0, t0 + start - time.perf_counter()))
+        if device != "cuda":
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            time.sleep(window_s)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        out.append((prof, wall))
+    return out
+
+
+def busy_of(windows: list) -> list:
+    """(device busy share, kernels) of each ``busy_windows`` recording."""
+    from torch.autograd import DeviceType
+    out = []
+    for prof, wall in windows:
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        out.append((sum(e.self_device_time_total for e in dev) * 1e-6
+                    / wall, sum(e.count for e in dev)))
+    return out
+
+
+def busy_text(windows: list) -> str:
+    if not windows:
+        return "not measured"
+    return (f"{np.mean([b for b, _ in windows]):.1%} (windows "
+            + " / ".join(f"{b:.1%}" for b, _ in windows) + ", kernels "
+            + " / ".join(str(k) for _, k in windows) + ")")
+
+
+def serve_fleet(root: Path, device: str = "cuda", budget: int = 2048,
+                ch_max: int = 4, deadline_s: float = SV_DEADLINE_S,
+                workers: int = FLEET_WORKERS) -> dict:
+    """(b): eight clients of phase 5's query through one Executor with
+    ``workers`` worker threads, then the same jobs one after another in a
+    fresh session: each job's front and spend, and the launch total,
+    agree."""
+    queries = fleet_queries(budget, ch_max)
+
+    def session(cache):
+        return Session(cache_dir=cache, device=device,
+                       policy=BudgetPolicy(**FLEET_POLICY_KW))
+    warm = session(root / "fleet")
+    for i, (kind, q) in enumerate(queries):
+        if kind != "cold":
+            warm.submit(Query(q.problem, budget=budget),
+                        key=FLEET_WARM_KEY + i)
+    shutil.copytree(root / "fleet", root / "replay")
+    ex = Executor(session(root / "fleet"), store=root / "fleet_jobs",
+                  max_workers=workers, max_pending=len(queries))
+    pareto_ops.dominance_counts.launches = 0
+    results, ttf, wall, windows = run_clients(
+        ex, [q for _, q in queries], deadline_s,
+        during=lambda: busy_windows(device))
+    launches = pareto_ops.dominance_counts.launches
+    ex.shutdown()
+    if any(r is None or r.provenance.stale for r in results):
+        fail("phase 15 (b): a fleet client was not served a final front")
+    if device == "cuda" and launches <= 0:      # the CPU counts none
+        fail("phase 15 (b): the fleet launched no pareto_rank kernel")
+    replay = session(root / "replay")
+    seq = []
+
+    def one_by_one():
+        t0 = time.perf_counter()
+        seq.extend(replay.submit(q, key=i)
+                   for i, (_, q) in enumerate(queries))
+        sync_of(device)()
+        seq.append(time.perf_counter() - t0)
+    pareto_ops.dominance_counts.launches = 0
+    worker = threading.Thread(target=one_by_one)
+    worker.start()
+    seq_windows = busy_windows(device)
+    worker.join()
+    busy, seq_busy = busy_of(windows), busy_of(seq_windows)
+    seq_wall = seq.pop() if len(seq) == len(queries) + 1 else None
+    seq_launches = pareto_ops.dominance_counts.launches
+    if len(seq) != len(queries):
+        fail("phase 15 (b): the sequential replay failed")
+    agree = [same_front(a, b) and a.provenance.n_evals_run
+             == b.provenance.n_evals_run
+             and a.provenance.from_cache == b.provenance.from_cache
+             for a, b in zip(results, seq)]
+    p50, p99 = quantiles(ttf)
+    evals = sum(r.provenance.n_evals_run for r in results)
+    out = dict(wall_s=wall, p50_s=p50, p99_s=p99, ttf_s=ttf,
+               kinds=[k for k, _ in queries],
+               evals=[r.provenance.n_evals_run for r in results],
+               from_cache=[r.provenance.from_cache for r in results],
+               hit_rate=sum(r.provenance.from_cache for r in results)
+               / len(results),
+               evals_per_s=evals / wall, seq_evals_per_s=evals / seq_wall,
+               launches=launches, seq_launches=seq_launches,
+               seq_wall_s=seq_wall, agree=agree, busy_share=busy,
+               seq_busy_share=seq_busy, workers=workers)
+
+    print(f"phase 15 (b) fleet of {len(queries)} clients (phase 5's query, "
+          f"{workers} worker thread{'s' * (workers != 1)}): all served in "
+          f"{wall:.3f} s "
+          f"({out['evals_per_s']:.1f} evaluations/s), time to front p50 "
+          f"{p50:.4f} s / p99 {p99:.4f} s, hit rate {out['hit_rate']:.2f}, "
+          f"evaluations {out['evals']}, device busy {busy_text(busy)} "
+          f"over {BUSY_WINDOW_S} s windows, pareto_rank launches "
+          f"{launches}; the same jobs one after another in {seq_wall:.3f} s "
+          f"({out['seq_evals_per_s']:.1f} evaluations/s), device busy "
+          f"{busy_text(seq_busy)}, pareto_rank launches {seq_launches}; "
+          f"fronts and spend equal per job: {agree}")
+    if not all(agree) or launches != seq_launches:
+        fail(f"phase 15 (b): the concurrent fleet differs from its "
+             f"sequential replay (per job {agree}, launches {launches} "
+             f"against {seq_launches})")
+    return out
+
+
+def serve_mix(root: Path, problem, device: str = "cuda", budget: int = 2048,
+              clients: int = len(FLEET_MIX),
+              deadline_s: float = SV_DEADLINE_S) -> dict:
+    """(b), the shared arm: bench_serve's fleet arm at phase 5's size.
+    ``problem`` (phase 5's) is warmed at ``budget``; then ``clients``
+    clients in bench_serve's round-robin mix — warm, refine at twice the
+    budget, cold on ``transformer_block(seq=1024)`` — go through one
+    Executor with 2 worker threads under the default policy.  Warm and
+    refine clients share one archive, and each worker's clone keeps its
+    reallocation ledger between jobs, so nothing holds these fronts to a
+    replay.  Gates: every client is served a final front within the
+    deadline; each job spends at most its budget's schedule plus the
+    credit it was granted; the credit granted is at most what the fleet's
+    jobs banked (each clone's ledger starts empty)."""
+    sess = Session(cache_dir=root / "cache", device=device)
+    p_cold = Problem(presets.transformer_block(seq=1024), SV_OBJ, ch_max=4)
+    sess.submit(Query(problem, budget=budget))
+    ex = Executor(sess, store=root / "jobs", max_workers=FLEET_WORKERS,
+                  max_pending=max(4, clients))
+    mix = [Query(problem, budget=budget), Query(problem, budget=2 * budget),
+           Query(p_cold, budget=budget)]
+    queries = [mix[i % len(mix)] for i in range(clients)]
+    pareto_ops.dominance_counts.launches = 0
+    results, ttf, wall, _ = run_clients(ex, queries, deadline_s)
+    launches = pareto_ops.dominance_counts.launches
+    ex.shutdown()
+    if any(r is None or r.provenance.stale for r in results):
+        fail("phase 15 (b) shared: a client was not served a final front")
+    svc = sess.service
+    caps = [quantize.schedule(q.budget, svc.nsga.pop,
+                              svc.policy.chunk_generations).evals
+            for q in queries]
+    pv = [r.provenance for r in results]
+    evals = [v.n_evals_run for v in pv]
+    granted = [v.n_evals_realloc for v in pv]
+    banked = [v.n_evals_banked for v in pv]
+    over = [i for i, (v, c) in enumerate(zip(pv, caps))
+            if v.n_evals_run - v.n_evals_realloc > c]
+    p50, p99 = quantiles(ttf)
+    out = dict(wall_s=wall, p50_s=p50, p99_s=p99, ttf_s=ttf, evals=evals,
+               caps=caps, granted=granted, banked=banked,
+               from_cache=[v.from_cache for v in pv],
+               hit_rate=sum(v.from_cache for v in pv) / clients,
+               launches=launches)
+    print(f"phase 15 (b) shared mix of {clients} clients (bench_serve's "
+          f"warm / refine / cold at phase 5's query, the default policy, "
+          f"{FLEET_WORKERS} worker threads): all served in {wall:.3f} s, "
+          f"time to front p50 {p50:.4f} s / p99 {p99:.4f} s, hit rate "
+          f"{out['hit_rate']:.2f}, evaluations {evals} (caps {caps}), "
+          f"credit granted {granted}, banked {banked}, pareto_rank "
+          f"launches {launches}")
+    if over or sum(granted) > sum(banked):
+        fail(f"phase 15 (b) shared: clients {over} spent past their budget "
+             f"and credit, or {sum(granted)} evaluations of credit were "
+             f"granted of {sum(banked)} banked")
+    if device == "cuda" and launches <= 0:
+        fail("phase 15 (b) shared: no pareto_rank kernel was launched")
+    return out
+
+
+def async_equals_sync(root: Path, problem, device: str = "cuda",
+                      budget: int = 2048, deadline_s: float = SV_DEADLINE_S
+                      ) -> dict:
+    """(c): a ``submit_async`` job equals ``Session.submit`` of its query
+    and seed bit for bit while another job runs in the second worker
+    thread; the two jobs' segments are seen to interleave."""
+    q = Query(problem, budget=budget)
+    other = Query(Problem(presets.transformer_block(seq=1024), SV_OBJ,
+                          ch_max=problem.ch_max), budget=budget)
+    sync = Session(cache_dir=root / "sync", device=device).submit(
+        q, key=SV_SEED)
+    s = Session(cache_dir=root / "async", device=device)
+    s.executor(max_workers=2)
+    h_other = s.submit_async(other, key=1)
+    h = s.submit_async(q, key=SV_SEED)
+    stamps = {}
+
+    def drain(tag, handle):
+        stamps[tag] = [time.perf_counter()
+                       for _ in handle.events(timeout=deadline_s)]
+    threads = [threading.Thread(target=drain, args=a)
+               for a in (("job", h), ("other", h_other))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    r = h.result(deadline_s)
+    h_other.result(deadline_s)
+    s.executor().shutdown()
+    overlap = (bool(stamps["job"]) and bool(stamps["other"])
+               and stamps["job"][0] < stamps["other"][-1]
+               and stamps["other"][0] < stamps["job"][-1])
+    identical = same_front(r, sync) and (r.provenance.n_evals_run
+                                         == sync.provenance.n_evals_run)
+    print(f"phase 15 (c) submit_async: {r.provenance.n_evals_run} "
+          f"evaluations, front bit-identical to Session.submit's: "
+          f"{identical}; segments interleaved with the other job's: "
+          f"{overlap} ({len(stamps['job'])} and {len(stamps['other'])} "
+          f"segments)")
+    if not (identical and overlap):
+        fail(f"phase 15 (c): identical {identical}, overlap {overlap}")
+    return dict(identical=identical, overlap=overlap,
+                evals=r.provenance.n_evals_run)
+
+
+def kill_drill(root: Path, problem, device: str = "cuda",
+               budget: int = 2048) -> tuple:
+    """(d): a worker process (``python -m repro_torch.serve.worker``) is
+    SIGKILLed after its first checkpointed segment; a second worker
+    recovers the job, resumes it and lands on the uninterrupted run's
+    archive byte for byte, spending only the residual budget.  Returns
+    (readings, the uninterrupted result)."""
+    q = Query(problem, budget=budget)
+    policy = sv_policy()
+    t0 = time.perf_counter()
+    base = Session(cache_dir=root / "base", policy=policy,
+                   device=device).submit(q, key=SV_SEED)
+    sync_of(device)()
+    base_s = time.perf_counter() - t0
+    cache, store_dir = root / "cache", root / "store"
+    ck = Session(cache_dir=cache, policy=policy,
+                 device=device)._cache_key(problem)
+    store = JobStore(store_dir)
+    rec = store.create(query_to_payload(q), problem.key(), ck, SV_SEED)
+    cmd = [sys.executable, "-m", "repro_torch.serve.worker", "--store",
+           str(store_dir), "--cache", str(cache), "--once",
+           "--chunk-generations", str(SV_CHUNK), "--no-adaptive",
+           "--device", device]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent / "src")]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    ckpt = cache / f"{ck}.ckpt.npz"
+    t0 = time.perf_counter()
+    w1 = subprocess.Popen(cmd + ["--segment-delay", "1.0"], env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True)
+    try:
+        deadline = time.monotonic() + SV_KILL_TIMEOUT_S
+        while not ckpt.exists():
+            if w1.poll() is not None:
+                fail(f"phase 15 (d): the worker exited {w1.returncode} "
+                     f"before its first checkpoint: "
+                     f"{w1.communicate()[1][-2000:]}")
+            if time.monotonic() > deadline:
+                fail("phase 15 (d): no checkpoint appeared")
+            time.sleep(0.05)
+        to_ckpt = time.perf_counter() - t0
+        time.sleep(0.3)                     # inside the 1 s pause
+        w1.send_signal(signal.SIGKILL)
+        w1.wait(timeout=30)
+    finally:
+        if w1.poll() is None:
+            w1.kill()
+        w1.communicate()
+    after = store.get(rec.job_id)
+    if after.state != RUNNING or not ckpt.exists():
+        fail(f"phase 15 (d): after the kill the job is {after.state}, "
+             f"checkpoint kept {ckpt.exists()}")
+    t0 = time.perf_counter()
+    w2 = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                        timeout=SV_KILL_TIMEOUT_S)
+    second_s = time.perf_counter() - t0
+    if w2.returncode != 0:
+        fail(f"phase 15 (d): the second worker exited {w2.returncode}: "
+             f"{w2.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in w2.stdout.splitlines() if ln]
+    done = [ln for ln in lines if ln.get("state") == DONE]
+    recovered = any(ln.get("state") == "RECOVERED" for ln in lines)
+    full = base.provenance.n_evals_run
+    mine = ParetoArchive.load(cache / f"{ck}.npz", device="cpu")
+    ref = ParetoArchive.load(root / "base" / f"{ck}.npz", device="cpu")
+    identical = (mine.objs[mine.valid].numpy().tobytes()
+                 == ref.objs[ref.valid].numpy().tobytes()
+                 and all(torch.equal(mine.designs[k][mine.valid],
+                                     ref.designs[k][ref.valid])
+                         for k in ref.designs))
+    residual = done[0]["n_evals_attempts"][-1] if done else None
+    out = dict(to_checkpoint_s=to_ckpt, second_worker_s=second_s,
+               uninterrupted_s=base_s, residual_evals=residual,
+               full_evals=full, identical=identical, recovered=recovered,
+               attempts=done[0]["attempts"] if done else None)
+    print(f"phase 15 (d) SIGKILL drill: first checkpoint {to_ckpt:.2f} s "
+          f"after the worker started, killed 0.3 s later; the second "
+          f"worker recovered the job ({recovered}), ended DONE after "
+          f"{out['attempts']} attempts in {second_s:.2f} s spending "
+          f"{residual} of {full} evaluations; archive byte-identical to "
+          f"the uninterrupted run's ({base_s:.3f} s): {identical}")
+    if not (recovered and len(done) == 1 and out["attempts"] == 2
+            and residual is not None and 0 < residual < full and identical
+            and int(mine.n_evals) == int(ref.n_evals)
+            and not ckpt.exists()):
+        fail(f"phase 15 (d): {out}, lines {lines}")
+    return out, base
+
+
+def cancel_check(root: Path, problem, base, device: str = "cuda",
+                 budget: int = 2048, deadline_s: float = SV_DEADLINE_S
+                 ) -> dict:
+    """(e): cancelling a RUNNING job keeps its checkpoint; the query
+    recorded again in the store (as a client process would) is picked up by
+    a fresh executor's ``resume_pending``, which resumes the checkpoint and
+    lands on the uninterrupted front, spending only the rest."""
+    q = Query(problem, budget=budget)
+    s = Session(cache_dir=root / "cache", device=device, policy=sv_policy())
+    ex = Executor(s, store=root / "jobs", max_workers=1)
+    h = ex.submit(q, key=SV_SEED)
+    next(h.events(timeout=deadline_s))      # one segment done, then cancel
+    h.cancel()
+    try:
+        h.result(deadline_s)
+        fail("phase 15 (e): the cancelled job returned a result")
+    except CancelledError:
+        pass
+    ex.shutdown()
+    rec = h.record()
+    ckpt = s.service._ckpt_path(s._cache_key(problem))
+    if rec.state != CANCELLED or not ckpt.exists():
+        fail(f"phase 15 (e): cancelled job {rec.state}, checkpoint kept "
+             f"{ckpt.exists()}")
+    first = rec.n_evals_attempts[-1]
+    again = ex.store.create(query_to_payload(q), problem.key(),
+                            s._cache_key(problem), SV_SEED)
+    ex = Executor(s, store=root / "jobs", max_workers=1)
+    handles = ex.resume_pending()
+    r = handles[0].result(deadline_s) if len(handles) == 1 else None
+    ex.shutdown()
+    rest = r.provenance.n_evals_run if r is not None else None
+    identical = r is not None and same_front(r, base)
+    print(f"phase 15 (e) cancel: stopped after {first} evaluations "
+          f"({rec.state}, checkpoint kept); recorded again, resume_pending "
+          f"ran {[x.job_id == again.job_id for x in handles]} and finished "
+          f"it with {rest} more (uninterrupted "
+          f"{base.provenance.n_evals_run}); front identical to the "
+          f"uninterrupted run's: {identical}")
+    if not (identical and handles[0].job_id == again.job_id
+            and first + rest == base.provenance.n_evals_run
+            and not ckpt.exists()):
+        fail(f"phase 15 (e): resumed {len(handles)}, identical {identical},"
+             f" spend {first} + {rest}")
+    return dict(first_evals=first, rest_evals=rest, identical=identical)
+
+
+def serve_phase(problem, device: str = "cuda") -> dict:
+    """Phase 15: the async serving shell on the card."""
+    t0 = time.perf_counter()
+    out, walls = {}, {}
+
+    def part(name, fn):
+        t1 = time.perf_counter()
+        r = fn()
+        walls[name] = time.perf_counter() - t1
+        print(f"phase 15 {name}: {walls[name]:.1f} s", flush=True)
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        out["bench_serve"] = part("bench_serve", lambda: bench_serve_arms(
+            root / "a", device))
+        out["fleet"] = part("fleet", lambda: serve_fleet(root / "b", device))
+        out["shared"] = part("shared", lambda: serve_mix(
+            root / "b2", problem, device))
+        out["async"] = part("async", lambda: async_equals_sync(
+            root / "c", problem, device))
+        out["kill"], base = part("kill", lambda: kill_drill(
+            root / "d", problem, device))
+        out["cancel"] = part("cancel", lambda: cancel_check(
+            root / "e", problem, base, device))
+    out.update(wall_s=time.perf_counter() - t0, part_walls_s=walls)
+    print(f"phase 15: {out['wall_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2837,6 +3494,9 @@ def main():
     # ---- 14. calibration and the flight recorder on the card --------------
     calib_obs = calib_obs_phase(problem)
 
+    # ---- 15. the async serving shell on the card ---------------------------
+    serving = serve_phase(problem)
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -2857,7 +3517,7 @@ def main():
                        generations=gens, segments=segs,
                        front_size=int(len(cold.front_objs)), hv=hv,
                        breakdown=split, transfer=transfer,
-                       calib_obs=calib_obs))
+                       calib_obs=calib_obs, serve=serving))
     gp_main = next(r for r in gp_rows if r["tag"] == "quickstart K(Z, X)")
     gp_record = dict(
         name="gp_cov", route="cuda",

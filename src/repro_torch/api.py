@@ -9,13 +9,14 @@
                                objectives=("latency_ns", "cost_usd")),
                        budget=2048))
     s.plan(Query(..., transfer=True))     # neighbors and seed quotas first
+    h = s.submit_async(Query(...))        # a serve.JobHandle; h.result()
 """
 
 from .explore.api import (ENGINES, NeighborPlan, Plan,  # noqa: F401
                           Problem, Provenance, Query, Result, SegmentEvent,
-                          SegmentPlan, Session, plan, session)
+                          SegmentPlan, Session, plan, session, submit)
 from .explore.service import RunControl  # noqa: F401
 
 __all__ = ["ENGINES", "NeighborPlan", "Plan", "Problem", "Provenance",
            "Query", "Result", "RunControl", "SegmentEvent", "SegmentPlan",
-           "Session", "plan", "session"]
+           "Session", "plan", "session", "submit"]

@@ -33,9 +33,14 @@ crash-safe JSONL journal to every ``plan`` / ``submit`` of the session, one
 line per plan, scan segment, result and span close, with the reference's
 record types and keys (``python -m repro_torch.obs.report`` renders them).
 Spans read the host's clock and never synchronize the card: fronts are
-bit-identical with observability on or off.  ``submit_async`` is not
-ported yet: asking for it raises ``NotImplementedError``.  Nothing is
-dropped silently.
+bit-identical with observability on or off.
+
+``Session.submit_async(query)`` returns a ``repro_torch.serve.JobHandle``
+while a worker thread of the session's ``Executor`` runs the nsga query on
+a ``Session.clone()`` (same configuration, journal and device, a service of
+its own): durable job records under the cache directory, admission control
+with stale fronts under overload, resume from the last checkpointed segment
+after a crash.  Nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ from . import quantize
 from .archive import ConvergenceTrace, pareto_front, spec_space_key
 from .nsga import has_run
 from .service import (DEFAULT_OBJECTIVES, BudgetPolicy, ExplorationService,
-                      ExploreQuery, ExploreResult, SegmentEvent, not_ported)
+                      ExploreQuery, ExploreResult, SegmentEvent)
 from .surrogate import SurrogateConfig
 
 ENGINES = ("nsga", "bo_sa", "two_stage", "auto")
@@ -348,6 +353,8 @@ class Session:
         self.service = service
         self._tech_sessions: Dict[str, "Session"] = {}
         self._journal = obs.resolve_journal(journal)
+        self._executor = None           # the serve.Executor behind
+        #                                 submit_async, built on first use
         # one id per session and a counter per submission: each submit
         # journals under its own run id, so overlapping submissions sharing
         # one fleet journal replay apart
@@ -365,6 +372,16 @@ class Session:
         return dict(cache_dir=s.cache_dir, capacity=s.capacity, nsga=s.nsga,
                     tech=s.tech, policy=s.policy, transfer_k=s.transfer_k,
                     manifest_policy=s.manifest_policy, device=s.device)
+
+    def clone(self) -> "Session":
+        """A sibling session: the same configuration, cache directory,
+        journal and device, and a service of its own.  Services are
+        single-threaded: the async executor gives each worker thread a
+        clone, and the shared cache directory (file locks, reload-merge
+        writes) is the only state they share, as between processes."""
+        twin = Session(journal=self._journal, **self._service_config())
+        twin.tech_label = self.tech_label
+        return twin
 
     def _cache_key(self, p: Problem) -> str:
         """The archive identity of ``p`` under this session's tech."""
@@ -487,8 +504,41 @@ class Session:
             first = comp_p50
         return first + (sched.n_seg - 1) * seg_p50
 
-    def submit_async(self, query: Query, key=None, deadline_s=None):
-        raise not_ported("Session.submit_async")
+    def submit_async(self, query: Query, key=None,
+                     deadline_s: Optional[float] = None):
+        """Submit one nsga query asynchronously: returns a
+        ``repro_torch.serve.JobHandle`` at once (poll / ``result(timeout)``
+        / ``cancel()`` / streamed ``SegmentEvent``s) while a worker thread
+        runs the search on this session's device.  ``key`` is the integer
+        seed (default 0).  The job's front is ``submit(query, key=key)``'s,
+        bit for bit, when the worker's clone has banked nothing: its first
+        job, or any job under ``BudgetPolicy(reallocate=False)``.  Under
+        the default policy a clone keeps its ledger of banked evaluations
+        between jobs, so a job may be topped up with credit an earlier job
+        of the same worker banked, and its spend and front then depend on
+        the schedule.  Jobs are recorded durably under the cache directory
+        and keyed on ``Problem.key()``: a crashed process's jobs are
+        recovered (``Executor.resume_pending``) and resume from their last
+        completed segment.  Under overload (queue full), a query whose
+        archive holds a front is answered at once with that possibly-stale
+        front (``provenance.stale=True``) and the refinement stays banked
+        in the job store; ``deadline_s`` bounds how long admission may wait
+        before it degrades."""
+        return self.executor().submit(query, key=key, deadline_s=deadline_s)
+
+    def executor(self, **kwargs):
+        """The session's ``repro_torch.serve.Executor`` (built on the first
+        ``submit_async``; kwargs only on first construction — build an
+        ``Executor`` directly for another configuration)."""
+        if self._executor is None:
+            from ..serve import Executor
+            self._executor = Executor(self, **kwargs)
+        elif kwargs:
+            raise RuntimeError(
+                "this session's executor is already initialized; "
+                "construct repro_torch.serve.Executor(session, ...) "
+                "directly for a custom configuration")
+        return self._executor
 
     # ---- execution ---------------------------------------------------------
     def submit(self, queries: Union[Query, Sequence[Query]], key: int = 0,
@@ -731,7 +781,14 @@ def plan(query: Query) -> Plan:
     return session().plan(query)
 
 
+def submit(queries: Union[Query, Sequence[Query]], key: int = 0,
+           on_segment=None) -> Union[Result, List[Result]]:
+    """``session().submit(queries)``."""
+    return session().submit(queries, key=key, on_segment=on_segment)
+
+
 __all__ = [
     "ENGINES", "NeighborPlan", "Plan", "Problem", "Provenance", "Query",
     "Result", "SegmentEvent", "SegmentPlan", "Session", "plan", "session",
+    "submit",
 ]

@@ -98,11 +98,6 @@ DEFAULT_OBJECTIVES = ("latency_ns", "cost_usd")
 CACHE_SALT = "repro_torch"
 
 
-def not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (see ROADMAP.md Queue 1)")
-
-
 def resolve_cache_dir(cache_dir=None) -> Path:
     """The cache directory a service will really use, validated: an
     explicit ``cache_dir`` wins, then ``$REPRO_EXPLORE_CACHE``, then
@@ -1166,14 +1161,17 @@ class ExplorationService:
         the port's segment-by-segment numeric stream (salted with
         ``CACHE_SALT``), the gating surrogate's digest included — a gated
         run never splices into an ungated one or one under another
-        surrogate.  A checkpoint of another signature answers a different
-        run and is ignored."""
+        surrogate — and the device type: CUDA and CPU generators draw
+        different streams from one seed, so a run resumed on another device
+        would splice two streams into a front neither device gives
+        uninterrupted.  A checkpoint of another signature answers a
+        different run and is ignored."""
         h = hashlib.sha256()
         h.update(repr((CACHE_SALT, tuple(objectives), int(budget), int(pop),
                        int(generations), int(chunk), int(self.capacity),
                        repr(self.nsga),
                        tech_key(self.tech or DEFAULT_TECH),
-                       int(key), gate_digest)).encode())
+                       int(key), gate_digest, self.device.type)).encode())
         if seeds is not None:
             for k in sorted(seeds):
                 h.update(k.encode())

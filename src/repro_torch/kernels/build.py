@@ -4,8 +4,13 @@ Each kernel folder keeps its sources under ``csrc/``; the first call that
 needs a kernel compiles them for Hopper (``sm_90a``) into the repository's
 ``build/kernels/`` directory, under a file name that carries a digest of the
 sources and flags — an edited source gets a fresh library, an unchanged one
-is reused.  The library is loaded with ``ctypes`` by the kernel's ``ops.py``.
-Nothing here runs at import time.
+is reused.  The library is loaded with ``ctypes`` by the kernel's ``ops.py``
+through a ``LibraryLoader``.  Nothing here runs at import time.
+
+Several threads of one process may reach a kernel's first use at once (the
+serving layer's worker threads share one card): a library is built under a
+lock of its own name, into a temporary file named by process and thread,
+and loaded once.
 """
 
 from __future__ import annotations
@@ -14,13 +19,24 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Dict, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCKS: Dict[str, threading.RLock] = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def build_lock(name: str) -> threading.RLock:
+    """The in-process lock of library ``name``: distinct kernels still
+    build at once, one kernel builds once."""
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(name, threading.RLock())
 
 
 def nvcc_path() -> str:
@@ -51,17 +67,49 @@ def build_library(name: str, sources: Sequence[Path]) -> Path:
     when ``nvcc`` fails.  The ``-Xptxas -v`` report (registers, shared
     memory, spills per kernel) is kept beside the library as ``.log``."""
     out = library_path(name, sources)
-    if out.exists():
+    with build_lock(name):
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(
+            f".{out.name}.tmp{os.getpid()}.{threading.get_ident()}")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {name} "
+                                   f"(exit {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, out)
+        finally:
+            tmp.unlink(missing_ok=True)
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.tmp{os.getpid()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}"
-                           f"{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+
+
+class LibraryLoader:
+    """``load()`` run once per process, under ``name``'s build lock: the
+    threads that reach a kernel's first use together wait for one build and
+    one load, and every later call returns the cached value.  ``loads``
+    counts the loads (1 once loaded)."""
+
+    def __init__(self, name: str, load: Callable):
+        self.name = name
+        self._load = load
+        self._value = None
+        self.loads = 0
+
+    def __call__(self):
+        value = self._value
+        if value is None:
+            with build_lock(self.name):
+                if self._value is None:
+                    self._value = self._load()
+                    self.loads += 1
+                value = self._value
+        return value
+
+
+def library_loader(name: str):
+    """Decorator: ``fn`` becomes the ``LibraryLoader`` of library ``name``."""
+    return lambda fn: LibraryLoader(name, fn)

@@ -18,14 +18,13 @@ served it.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from ..build import build_library
-from ..launch import on, stream_of
+from ..build import build_library, library_loader
+from ..launch import count, on, stream_of
 from .ref import MASK_KINDS, flash_attention_blocked
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -40,7 +39,7 @@ def build() -> Path:
     return build_library("flash_attention", SOURCES)
 
 
-@lru_cache(maxsize=1)
+@library_loader("flash_attention")
 def _lib():
     lib = ctypes.CDLL(str(build()))
     fn = lib.flash_attention_fwd
@@ -119,8 +118,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
-    flash_attention.launches_tc += int(tensor_cores)
+    count(flash_attention, "launches",
+          *(("launches_tc",) if tensor_cores else ()))
     return out
 
 

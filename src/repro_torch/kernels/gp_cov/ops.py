@@ -12,13 +12,12 @@ a run can show that it went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from pathlib import Path
 
 import torch
 
-from ..build import build_library
-from ..launch import on, stream_of
+from ..build import build_library, library_loader
+from ..launch import count, on, stream_of
 from .ref import matern52_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "gp_cov.cu",)
@@ -29,7 +28,7 @@ def build() -> Path:
     return build_library("gp_cov", SOURCES)
 
 
-@lru_cache(maxsize=1)
+@library_loader("gp_cov")
 def _lib():
     lib = ctypes.CDLL(str(build()))
     fn = lib.gp_cov_matern52
@@ -69,7 +68,7 @@ def matern52(X1: torch.Tensor, X2: torch.Tensor,
                 float(lengthscale), stream_of(X1.device))
     if rc != 0:
         raise RuntimeError(f"gp_cov kernel launch failed: CUDA error {rc}")
-    matern52.launches += 1
+    count(matern52, "launches")
     return out
 
 

@@ -6,15 +6,21 @@ host (``python -m repro_torch.kernels.ab wrapper``) the public
 ``torch.cuda.current_stream(dev).cuda_stream`` takes about 4 us a call,
 building a ``Stream`` object, against about 0.2 us here; and entering
 ``torch.cuda.device`` on every call about 3 us, against about 0.9 us for
-the check that skips it."""
+the check that skips it.
+
+``count`` adds one to a wrapper's launch counters: exactly, when several
+threads of one process launch at once (a bare ``+=`` on an attribute reads
+and writes in two steps, between which another thread may write)."""
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
 _CURRENT = contextlib.nullcontext()
+_COUNT_LOCK = threading.Lock()
 
 
 def stream_of(device: torch.device) -> int:
@@ -29,3 +35,11 @@ def on(device: torch.device):
     if device.index == torch.cuda.current_device():
         return _CURRENT
     return torch.cuda.device(device)
+
+
+def count(wrapper, *counters: str) -> None:
+    """Add one to each of ``wrapper``'s attributes ``counters``, under one
+    process-wide lock."""
+    with _COUNT_LOCK:
+        for c in counters:
+            setattr(wrapper, c, getattr(wrapper, c) + 1)

@@ -13,13 +13,12 @@ reports how the kernel divides a shape over the card.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from pathlib import Path
 
 import torch
 
-from ..build import build_library
-from ..launch import on, stream_of
+from ..build import build_library, library_loader
+from ..launch import count, on, stream_of
 from .ref import selective_scan_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu",)
@@ -31,7 +30,7 @@ def build() -> Path:
     return build_library("mamba_scan", SOURCES)
 
 
-@lru_cache(maxsize=1)
+@library_loader("mamba_scan")
 def _lib():
     lib = ctypes.CDLL(str(build()))
     lib.mamba_selective_scan.argtypes = [ctypes.c_void_p] * 8 + [
@@ -109,7 +108,7 @@ def selective_scan(u, delta, A, Bc, Cc, h0=None):
     if rc != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{rc}")
-    selective_scan.launches += 1
+    count(selective_scan, "launches")
     return y, hT
 
 

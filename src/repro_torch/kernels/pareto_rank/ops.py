@@ -15,13 +15,12 @@ ranked two or more lanes at once.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from pathlib import Path
 
 import torch
 
-from ..build import build_library
-from ..launch import on, stream_of
+from ..build import build_library, library_loader
+from ..launch import count, on, stream_of
 from .ref import dominance_counts_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "pareto_rank.cu",)
@@ -34,7 +33,7 @@ def build() -> Path:
     return build_library("pareto_rank", SOURCES)
 
 
-@lru_cache(maxsize=1)
+@library_loader("pareto_rank")
 def _lib():
     lib = ctypes.CDLL(str(build()))
     fn = lib.pareto_rank_dominance_counts_lanes
@@ -87,9 +86,8 @@ def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"pareto_rank kernel launch failed: CUDA error "
                            f"{rc}")
-    dominance_counts.launches += 1
-    if lanes > 1:
-        dominance_counts.launches_lanes += 1
+    count(dominance_counts, "launches",
+          *(("launches_lanes",) if lanes > 1 else ()))
     return out
 
 

@@ -268,6 +268,63 @@ def test_resume_on_the_card_is_bit_identical(cuda, tmp_path):
     assert _front_bytes(rest) == _front_bytes(full)
 
 
+def test_submit_async_on_the_card_equals_submit(cuda, tmp_path):
+    """A ``submit_async`` job on the card is ``Session.submit`` of the same
+    query and seed, bit for bit, while a second job runs in the other
+    worker thread."""
+    from repro_torch.api import Problem, Query, Session
+    from repro_torch.core import presets
+    from repro_torch.serve import DONE
+    q = Query(Problem(presets.transformer_block(), ch_max=4), budget=512)
+    other = Query(Problem(presets.transformer_block(seq=1024), ch_max=4),
+                  budget=512)
+    sync = Session(cache_dir=tmp_path / "sync").submit(q, key=7)
+    s = Session(cache_dir=tmp_path / "async")
+    ex = s.executor(max_workers=2)
+    h_other = s.submit_async(other, key=1)
+    h = s.submit_async(q, key=7)
+    r = h.result(timeout=600)
+    h_other.result(timeout=600)
+    ex.shutdown()
+    assert h.state() == DONE and h_other.state() == DONE
+    assert _front_bytes(r) == _front_bytes(sync)
+    assert r.provenance.n_evals_run == sync.provenance.n_evals_run
+
+
+def test_two_threads_first_use_of_pareto_rank(cuda, tmp_path, monkeypatch):
+    """Two threads reach ``pareto_rank``'s first use at once: one build,
+    one library load, every launch counted, every answer exact."""
+    import threading
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.pareto_rank import ops
+    from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(ops, "_lib", kbuild.LibraryLoader(
+        "pareto_rank", ops._lib._load))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    objs = torch.randn(128, 2, generator=gen, device=cuda)
+    valid = torch.rand(128, generator=gen, device=cuda) < 0.9
+    want = dominance_counts_ref(objs, valid)
+    calls, go, bad = 200, threading.Barrier(2), []
+    before = ops.dominance_counts.launches
+
+    def body():
+        go.wait()
+        for _ in range(calls):
+            if not torch.equal(ops.dominance_counts(objs, valid), want):
+                bad.append(1)
+    threads = [threading.Thread(target=body) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not bad and ops._lib.loads == 1
+    assert ops.dominance_counts.launches - before == 2 * calls
+    assert [p.suffix for p in sorted((tmp_path / "kernels").iterdir())] \
+        == [".log", ".so"]
+
+
 def test_archive_merge_on_the_card_equals_the_cpu_merge(cuda):
     from repro_torch.explore.archive import ParetoArchive
     template = {"d": np.zeros((3,), np.int32)}
@@ -315,7 +372,7 @@ def test_gp_cov_kernel_matches_plain(cuda, n, m, d):
         assert ops.matern52.launches == before + 1
         want = matern52_ref(x1, x2, ls)
         assert float((got - want).abs().max()) <= 1e-5
-    assert ops._lib.cache_info().currsize == 1      # one library, any ls
+    assert ops._lib.loads == 1                    # one library, any ls
 
 
 def test_gp_cov_wrapper_rejects_what_the_kernel_does_not_take(cuda):

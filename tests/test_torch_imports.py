@@ -52,6 +52,16 @@ def test_calibration_and_observability_modules_exist(module):
     assert module in _modules()
 
 
+# the tenth slice: the async serving shell
+SLICE_10 = ("repro_torch.serve", "repro_torch.serve.jobs",
+            "repro_torch.serve.executor", "repro_torch.serve.worker")
+
+
+@pytest.mark.parametrize("module", SLICE_10)
+def test_serving_modules_exist(module):
+    assert module in _modules()
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

@@ -4,8 +4,6 @@
   att2 and returns a finite, feasible, nondominated front;
 * a second submit (same session, and a fresh session on the same cache
   directory) is served from cache with the identical front;
-* the option that is not ported (``submit_async``) raises
-  ``NotImplementedError``;
 * tech presets (their ``tech_key`` equal to the reference's), per-query
   ``tech`` in an archive of its own, ``Session.plan`` against what
   ``submit`` then does, budget reallocation, and seed designs in both
@@ -117,20 +115,6 @@ def test_same_problem_queries_share_one_run(tmp_path):
     assert ra.provenance.n_evals_run == rb.provenance.n_evals_run == 128
     assert ra.trace.objectives == ("latency_ns", "energy_pj", "cost_usd")
     assert rb.front_objs.shape[1] == 1
-
-
-UNPORTED = [
-    ("submit_async", lambda s, p: s.submit_async(Query(p))),
-]
-
-
-@pytest.mark.parametrize("what,call", UNPORTED, ids=[u[0] for u in UNPORTED])
-def test_unported_options_raise(tmp_path, what, call):
-    s = Session(cache_dir=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported") as e:
-        call(s, _problem())
-    assert what.split()[-1] in str(e.value)       # the error names it
-    assert not list(tmp_path.glob("*.npz"))        # nothing ran
 
 
 # ---------------------------------------------------------------------------
