@@ -199,7 +199,33 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     byte-identical to an uninterrupted card run's;
     (e) a RUNNING job cancelled keeps its checkpoint; the query recorded
     again is finished by a fresh executor's ``resume_pending`` to the
-    uninterrupted front, the two spends summing to its spend.
+    uninterrupted front, the two spends summing to its spend;
+16. every LM family on the card (phase 3 holds their attention and scan
+    shapes: internlm2's prefill into a 1057-position cache and its decode
+    step, MLA decode at DeepSeek-V2's width, whisper's cross-attention
+    over 1500 frames, the Falcon-Mamba scan in prefill and decode):
+    (a) ``internlm2-1.8b`` and ``falcon-mamba-7b`` at full size,
+    ``qwen2-vl-72b`` (cut to 2 layers, with the vision stub's patch
+    embeddings and M-RoPE positions), ``deepseek-v2-236b`` (cut to 2
+    layers: MLA and 160 routed experts + 2 shared), ``grok-1-314b`` (cut
+    to 1 layer) and ``whisper-tiny`` at full size (the 1500-frame encoder
+    stub), each in bf16 activations with float32 weights from a seed,
+    batch 4, a 1024-token prompt, 32 new tokens through
+    ``launch.serve.generate``, with the counts set to 0 just before and
+    read just after (one tensor-core attention launch a layer a call, two
+    for whisper's decoder and one an encoder layer in prefill; one scan a
+    Mamba layer a call): prefill s, decode ms/token, tokens/s, peak device
+    memory, launches per request; logits finite and a second run giving
+    the same tokens; one internlm2 decode step's device time, kernels and
+    busy share from ``torch.profiler``; each model freed before the next;
+    (b) one full-width card-vs-CPU check a family (internlm2 at 2 layers,
+    falcon-mamba, qwen2-vl and deepseek-v2 at 1, whisper-tiny in full),
+    float32, one seeded weight set on both devices, batch 1, a 64-token
+    prompt: forward and prefill logits and 4 greedy decode steps (logits
+    and every cache leaf) within 1e-3, the float32 SIMT attention kernel
+    counted; for deepseek-v2 each token's routed experts compared first (a
+    difference fails unless the swapped experts' probabilities are within
+    1e-5: such a tie is printed and counted).
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -268,8 +294,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.gp_cov.ref import matern52_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
-from repro_torch.launch.serve import generate  # noqa: E402
-from repro_torch.models.model import HybridLM, build_model  # noqa: E402
+from repro_torch.launch.serve import generate, stub_inputs  # noqa: E402
+from repro_torch.models import layers as Ly  # noqa: E402
+from repro_torch.models import transformer as Tr  # noqa: E402
+from repro_torch.models.model import build_model, lm_module  # noqa: E402
 from repro_torch.kernels.pareto_rank import ops as pareto_ops  # noqa: E402
 from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref  # noqa: E402
 from repro_torch.obs.report import render  # noqa: E402
@@ -370,10 +398,46 @@ FA_SHAPES = ((1, 32, 32, 4, 4, 16, 16, "causal", 0, None, "kernel test"),
              (1, 512, 512, 128, 128, 192, 128, "causal", 0, None,
               "deepseek-v2 width"),
              (1, 1024, 1024, 32, 8, 128, 128, "causal", 0, None,
-              "head dim 128"))
+              "head dim 128"),
+             (4, 1024, 1057, 16, 8, 128, 128, "causal", 0, 1024,
+              "internlm2 prefill"),
+             (4, 1, 1057, 16, 8, 128, 128, "causal", 0, 1025,
+              "internlm2 decode"),
+             (4, 1, 1057, 128, 128, 192, 128, "causal", 0, 1025,
+              "MLA decode"),
+             (4, 1, 1500, 6, 6, 64, 64, "none", 0, None, "whisper cross"),
+             (4, 1024, 1057, 128, 128, 192, 128, "causal", 0, 1024,
+              "MLA prefill"),
+             (4, 1024, 1057, 64, 8, 128, 128, "causal", 0, 1024,
+              "qwen2-vl prefill"),
+             (4, 1, 1057, 64, 8, 128, 128, "causal", 0, 1025,
+              "qwen2-vl decode"),
+             (4, 1024, 1057, 48, 8, 128, 128, "causal", 0, 1024,
+              "grok-1 prefill"),
+             (4, 1, 1057, 48, 8, 128, 128, "causal", 0, 1025,
+              "grok-1 decode"),
+             (4, 1500, 1500, 6, 6, 64, 64, "none", 0, None,
+              "whisper encoder"),
+             (4, 1024, 1057, 6, 6, 64, 64, "causal", 0, 1024,
+              "whisper prefill"),
+             (4, 1, 1057, 6, 6, 64, 64, "causal", 0, 1025, "whisper decode"),
+             (4, 1024, 1500, 6, 6, 64, 64, "none", 0, None,
+              "whisper cross prefill"))
+# the families' serving shapes (phase 16, batch 4, a 1024-token prompt, a
+# cache of 1024 + 32 + 1 positions): each family's prefill into the longer
+# cache (kv_valid_len 1024) and its decode step (one query at offset
+# 1024), DeepSeek-V2's MLA at full width (192 / 128 over 128 heads),
+# whisper's encoder over its 1500 frames and its decoder's
+# cross-attention over them.  Phase 16 fails if its main path launches
+# attention at a shape that is not in FA_SHAPES.
+FA_FAMILY_TAGS = ("internlm2 prefill", "internlm2 decode", "MLA prefill",
+                  "MLA decode", "qwen2-vl prefill", "qwen2-vl decode",
+                  "grok-1 prefill", "grok-1 decode", "whisper encoder",
+                  "whisper prefill", "whisper decode",
+                  "whisper cross prefill", "whisper cross")
 # held to the serving tolerance (bf16) and timed
 FA_SERVE_TAGS = ("hymba prefill", "ragged", "kv_valid_len",
-                 "deepseek-v2 width")
+                 "deepseek-v2 width") + FA_FAMILY_TAGS
 # MLA's head dims (DeepSeek-V2: q/k 128 + 64 rope, v 128) and a head dim
 # of 128 (32 query heads over 8 KV heads), timed too
 FA_TIMED_TAGS = FA_SERVE_TAGS + ("MLA", "MLA kv_valid_len", "head dim 128")
@@ -394,10 +458,18 @@ FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:90"
 MS_PREFILL = (4, 1152, 3200, 16, "hymba prefill")
 MS_DECODE = (4, 1, 3200, 16, "hymba decode")
 MS_HYMBA_A = (4, 1152, 3200, 16, "hymba prefill, A = -(1..16)")
+# Falcon-Mamba-7B (d_inner 8192): its prefill scan continues from the
+# cache's (zero) state, so it is timed with h0, as is its decode step
+MS_FM_PREFILL = (4, 1024, 8192, 16, "falcon-mamba prefill")
+MS_FM_DECODE = (4, 1, 8192, 16, "falcon-mamba decode")
 MS_SHAPES = ((1, 16, 8, 4, "kernel test"), (2, 32, 16, 8, "kernel test"),
              (1, 64, 32, 16, "kernel test"), MS_PREFILL, MS_DECODE,
              MS_HYMBA_A, (1, 5, 33, 16, "ragged"), (2, 37, 70, 3, "ragged"),
-             (1, 40, 64, 1, "ragged"), (3, 77, 130, 32, "ragged"))
+             (1, 40, 64, 1, "ragged"), (3, 77, 130, 32, "ragged"),
+             MS_FM_PREFILL, MS_FM_DECODE)
+# the timed shapes, each with the h0 its serving path passes
+MS_TIMED = {MS_PREFILL: False, MS_DECODE: True, MS_FM_PREFILL: True,
+            MS_FM_DECODE: True}
 MS_TOL = 1e-4
 # special-function units per SM, each one exponential per clock
 SFU_PER_SM = 16
@@ -581,12 +653,14 @@ def visible_pairs(Sq: int, Sk: int, mask: str, window: int, kvl) -> int:
 
 def fa_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask, window, kvl,
                 dtype) -> tuple:
-    """Least time for one attention: q, k, v read once and out written
-    once at the memory rate, or 2 (D + Dv) operations (the two products)
+    """Least time for one attention: q, the first ``kv_valid_len`` rows
+    of k and v (all Sk without it) read once and out written once at the
+    memory rate, or 2 (D + Dv) operations (the two products)
     per visible (q, k) pair and head at the peak rate of the input type
     (bf16 tensor cores, or FP32)."""
     size = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = size * (B * Sq * H * (D + Dv) + B * Sk * KV * (D + Dv)) \
+    valid = Sk if kvl is None else kvl          # the key rows it must read
+    t_bytes = size * (B * Sq * H * (D + Dv) + B * valid * KV * (D + Dv)) \
         / PEAK_BYTES_PER_S * 1e3
     peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 \
         else PEAK_FP32_OPS_PER_S
@@ -627,12 +701,20 @@ def check_flash_attention() -> list:
                        max_abs_err=err, tolerance=tol, atol=atol, rtol=rtol)
             if tag in FA_TIMED_TAGS:
                 row.update(time_attention(q, k, v, mask, w, kvl))
+            if tag in FA_FAMILY_TAGS and Sq == 1:
+                row["device_ms"] = device_ms_per_launch(
+                    lambda: fa_ops.flash_attention(q, k, v, mask, w, kvl),
+                    "attn_fwd_wgmma_kernel" if dt == torch.bfloat16
+                    else "attn_fwd_kernel")
             rows.append(row)
             timing = (f", kernel {row['ms'] * 1e3:.2f} us, plain "
                       f"{row['plain_ms'] * 1e3:.2f} us, sdpa "
                       f"{row['library_ms'] * 1e3:.2f} us, bound "
                       f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
                       if "ms" in row else "")
+            if row.get("device_ms") is not None:
+                timing += (f", device {row['device_ms'] * 1e3:.2f} us per "
+                           f"launch")
             print(f"flash_attention {shape[:-1]} {tag} {dt}: max abs err "
                   f"{err:.3g} (atol {atol}, rtol {rtol}){timing}")
     return rows
@@ -737,7 +819,7 @@ def check_mamba_scan(sm_clock_hz: float) -> list:
                      f", h0 {with_h0}: two calls differ")
             row = dict(shape=[B, S, Di, Ds], tag=tag, h0=with_h0,
                        max_abs_err=err, tolerance=MS_TOL)
-            if shape in (MS_PREFILL, MS_DECODE) and with_h0 == (S == 1):
+            if MS_TIMED.get(shape) == with_h0:
                 k_ms = cuda_ms(lambda: ms_ops.selective_scan(u, dl, A, Bc,
                                                              Cc, h0), 50)
                 p_ms = cuda_ms(lambda: selective_scan_ref(u, dl, A, Bc, Cc,
@@ -746,11 +828,18 @@ def check_mamba_scan(sm_clock_hz: float) -> list:
                 b_ms, b_by = ms_bound_ms(B, S, Di, Ds, with_h0)
                 row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
+                if S == 1:
+                    row["device_ms"] = device_ms_per_launch(
+                        lambda: ms_ops.selective_scan(u, dl, A, Bc, Cc, h0),
+                        "scan_kernel")
             rows.append(row)
             timing = (f", kernel {row['ms'] * 1e3:.2f} us, plain "
                       f"{row['plain_ms'] * 1e3:.2f} us, bound "
                       f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
                       if "ms" in row else "")
+            if row.get("device_ms") is not None:
+                timing += (f", device {row['device_ms'] * 1e3:.3f} us per "
+                           f"launch")
             print(f"mamba_scan {shape[:-1]} {tag} h0={with_h0}: max abs err "
                   f"{err:.3g} (tol {MS_TOL}), deterministic{timing}")
             if "ms" in row:
@@ -795,7 +884,7 @@ def hymba_card_vs_cpu() -> dict:
     cfg = dataclasses.replace(get_config(HYMBA), n_layers=2, dtype="float32")
     card, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
     params = card.init(0)
-    params_cpu = HybridLM(cfg, "cpu")
+    params_cpu = lm_module(cfg, "cpu")
     params_cpu.load_state_dict(params.state_dict())
     prompt = torch.randint(0, cfg.vocab, (1, 1024),
                            generator=torch.Generator().manual_seed(10))
@@ -825,7 +914,8 @@ def hymba_card_vs_cpu() -> dict:
         lg, cache = card.decode_step(params, tok, cache, base + i)
         lg_c, cache_c = cpu.decode_step(params_cpu, tok, cache_c, base + i)
         compare("decode logits", lg, lg_c)
-        for j, (a, b) in enumerate(zip(_leaves(cache), _leaves(cache_c))):
+        for j, (a, b) in enumerate(zip(Tr.tree_leaves(cache),
+                                       Tr.tree_leaves(cache_c))):
             compare(f"cache leaf {j}", a, b)
     wall = time.perf_counter() - t0
     launches = dict(flash_attention=fa_ops.flash_attention.launches,
@@ -841,12 +931,6 @@ def hymba_card_vs_cpu() -> dict:
           f"{wall:.1f} s; attention launches {launches}")
     return dict(max_abs_err=errs, gate=LM_PARITY_TOL, wall_s=wall,
                 launches=launches)
-
-
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [x for t in tree for x in _leaves(t)]
 
 
 def hymba_serve() -> dict:
@@ -3391,6 +3475,369 @@ def serve_phase(problem, device: str = "cuda") -> dict:
     return out
 
 
+# ---- 16. every LM family on the card --------------------------------------
+# (a) each family served in bf16 activations with float32 weights from a
+# seed: batch 4, a 1024-token prompt, 32 new tokens through ``generate``.
+# internlm2-1.8b (the slice's path) and falcon-mamba-7b at full size;
+# qwen2-vl-72b, deepseek-v2-236b and grok-1-314b at full width with depth
+# cut to fit one 80 GB card; whisper-tiny at full size (the encoder input
+# is the reference's 1500-frame stub).  (arch, layers or None = as
+# configured)
+FAMILY_SERVE = (("internlm2-1.8b", None), ("falcon-mamba-7b", None),
+                ("qwen2-vl-72b", 2), ("deepseek-v2-236b", 2),
+                ("grok-1-314b", 1), ("whisper-tiny", None))
+# (b) one full-width card-vs-CPU check a family, float32, batch 1, a
+# 64-token prompt, 4 decode steps (grok-1 runs on the card only)
+FAMILY_PARITY = (("internlm2-1.8b", 2), ("falcon-mamba-7b", 1),
+                 ("qwen2-vl-72b", 1), ("deepseek-v2-236b", 1),
+                 ("whisper-tiny", None))
+PARITY_PROMPT, PARITY_STEPS = 64, 4
+# the pinned buffer that (b) stages the weights through on their way to
+# the CPU
+STAGE_BYTES = 1 << 28
+# two experts' router probabilities closer than this are a tie that the
+# two devices may break apart
+ROUTE_TIE = 1e-5
+
+
+def family_cfg(arch: str, layers, dtype: str = None):
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def expected_launches(cfg, full_calls: int, steps: int) -> dict:
+    """The attention and scan launches of ``full_calls`` full-sequence
+    calls (forward or prefill) and ``steps`` decode steps: one attention
+    launch a layer a call (two for whisper's decoder, self and cross, and
+    one an encoder layer in a full call), one scan a Mamba layer a call."""
+    per_step = {"ssm": 0, "encdec": 2 * cfg.n_layers}.get(cfg.family,
+                                                          cfg.n_layers)
+    scans = cfg.n_layers if cfg.family == "ssm" else 0
+    return dict(flash_attention=full_calls * (per_step + cfg.enc_layers)
+                + steps * per_step,
+                mamba_scan=(full_calls + steps) * scans)
+
+
+def reset_lm_counts():
+    fa_ops.flash_attention.launches = fa_ops.flash_attention.launches_tc = 0
+    ms_ops.selective_scan.launches = 0
+
+
+def lm_counts() -> dict:
+    return dict(flash_attention=fa_ops.flash_attention.launches,
+                flash_attention_tc=fa_ops.flash_attention.launches_tc,
+                mamba_scan=ms_ops.selective_scan.launches)
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def family_serve(arch: str, layers) -> dict:
+    """(a) for one family: two ``generate`` runs with the counts set to 0
+    just before the first and read just after it."""
+    cfg = family_cfg(arch, layers)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(16)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen)
+    inputs = stub_inputs(cfg, SERVE_BATCH, SERVE_PROMPT, gen)
+    torch.cuda.reset_peak_memory_stats()
+    reset_lm_counts()
+    first = generate(model, params, prompt, SERVE_TOKENS, **inputs)
+    launches = lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg, 1, SERVE_TOKENS - 1)
+    want["flash_attention_tc"] = want["flash_attention"]
+    if launches != want:
+        fail(f"{cfg.name} serve launched {launches}, expected {want} (every "
+             f"bf16 attention on the tensor-core kernel)")
+    if not bool(torch.isfinite(first.logits).all()):
+        fail(f"{cfg.name} serve: non-finite logits")
+    again = generate(model, params, prompt, SERVE_TOKENS, **inputs)
+    if not torch.equal(first.tokens, again.tokens):
+        fail(f"{cfg.name} serve: two runs gave different tokens")
+    split = prefill_and_step_launches(model, params, prompt, inputs, first)
+    steps = SERVE_TOKENS - 1
+    out = dict(arch=arch, layers=cfg.n_layers, launch_split=split,
+               cut=None if layers is None else
+               f"{get_config(arch).n_layers} -> {layers} layers",
+               params=sum(p.numel() for p in params.parameters()),
+               init_s=init_s, launches=launches, peak_bytes=peak,
+               runs=[dict(prefill_s=g.prefill_s, decode_s=g.decode_s,
+                          decode_ms_per_token=g.decode_s / steps * 1e3,
+                          tokens_per_s=SERVE_BATCH * SERVE_TOKENS
+                          / (g.prefill_s + g.decode_s))
+                     for g in (first, again)])
+    for i, run in enumerate(out["runs"]):
+        print(f"phase 16 {cfg.name} run {i + 1} ({cfg.n_layers} layers"
+              f"{'' if layers is None else ', cut ' + out['cut']}, batch "
+              f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} tokens):"
+              f" prefill {run['prefill_s']:.4f} s, decode "
+              f"{run['decode_ms_per_token']:.3f} ms/token, "
+              f"{run['tokens_per_s']:.1f} tokens/s")
+    print(f"phase 16 {cfg.name}: {out['params']} parameters "
+          f"({out['params'] * 4 / 1e9:.2f} GB float32), init {init_s:.2f} s,"
+          f" launches per request {launches} (prefill "
+          f"{split['prefill']}, a decode step {split['decode_step']}), peak "
+          f"device memory "
+          f"{peak / 2**30:.3f} GiB, first sequence {first.tokens[0].tolist()}")
+    if arch == FAMILY_SERVE[0][0]:
+        out.update(decode_step_profile(model, params, prompt, first, cfg))
+    del params, model
+    free_card()
+    return out
+
+
+def prefill_and_step_launches(model, params, prompt, inputs,
+                              first) -> dict:
+    """The launches of one prefill and of one decode step, each counted
+    from 0 and held to ``expected_launches``."""
+    cfg = model.cfg
+    batch = {"tokens": prompt} | inputs
+    base = SERVE_PROMPT + cfg.meta_tokens
+    out = {}
+    with AttentionShapes() as shapes:
+        reset_lm_counts()
+        _, cache = model.prefill(params, batch, model.init_cache(
+            SERVE_BATCH, base + SERVE_TOKENS + 1))
+        out["prefill"] = lm_counts()
+        reset_lm_counts()
+        model.decode_step(params, first.tokens[:, :1], cache, base)
+        out["decode_step"] = lm_counts()
+    unchecked = sorted(shapes.seen - {s[:-1] for s in FA_SHAPES}, key=str)
+    if unchecked:
+        fail(f"{cfg.name}: attention launched at shapes that phase 3 does "
+             f"not hold against the plain version: {unchecked}")
+    for part, calls in (("prefill", (1, 0)), ("decode_step", (0, 1))):
+        want = expected_launches(cfg, *calls)
+        want["flash_attention_tc"] = want["flash_attention"]
+        if out[part] != want:
+            fail(f"{cfg.name}: {part} launched {out[part]}, expected {want}")
+    return out
+
+
+def decode_step_profile(model, params, prompt, first, cfg) -> dict:
+    """One decode step of the headline family alone: wall (synchronized)
+    and, under the profiler, device time, kernel count and split."""
+    base = SERVE_PROMPT + cfg.meta_tokens
+    _, cache = model.prefill(params, {"tokens": prompt}, model.init_cache(
+        SERVE_BATCH, base + SERVE_TOKENS + 1))
+    tok = first.tokens[:, :1]
+    model.decode_step(params, tok, cache, base)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        model.decode_step(params, tok, cache, base)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    device_s, n_kernels, by_name = device_by_kernel(
+        lambda: model.decode_step(params, tok, cache, base))
+    out = dict(decode_step_s=step_s)
+    if device_s <= 0:
+        print(f"phase 16 {cfg.name} decode step: {step_s * 1e3:.3f} ms wall;"
+              f" device busy share not measured (the profiler saw no device "
+              f"events)")
+        return out
+    out.update(decode_step_device_s=device_s,
+               decode_step_busy_share=device_s / step_s,
+               decode_step_kernels=n_kernels,
+               decode_step_split=kernel_split(by_name, device_s))
+    attn = out["decode_step_split"]["flash_attention_tc"]
+    print(f"phase 16 {cfg.name} decode step: {step_s * 1e3:.3f} ms wall; "
+          f"under the profiler {device_s * 1e3:.3f} ms device time = "
+          f"{device_s / step_s:.1%} of that wall, {n_kernels} kernels; "
+          f"attention {attn['count']} tensor-core launches, "
+          f"{attn['s'] * 1e3:.3f} ms; split "
+          f"{json.dumps(out['decode_step_split'])}")
+    return out
+
+
+class AttentionShapes:
+    """Records the (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid_len)
+    of every attention the layers call while active, in FA_SHAPES' form."""
+
+    def __enter__(self):
+        self.seen = set()
+        self._orig = Ly.flash_attention
+
+        def attend(q, k, v, mask_kind="causal", window=0, kv_valid_len=None):
+            (B, Sq, H, D), (Sk, KV, Dv) = q.shape, (*k.shape[1:3],
+                                                     v.shape[3])
+            self.seen.add((B, Sq, Sk, H, KV, D, Dv, mask_kind, window,
+                           kv_valid_len))
+            return self._orig(q, k, v, mask_kind, window, kv_valid_len)
+        Ly.flash_attention = attend
+        return self
+
+    def __exit__(self, *exc):
+        Ly.flash_attention = self._orig
+
+
+class RouteLog:
+    """Records every ``_moe_route`` call's expert choices and, computed
+    here from the router's weights and the call's tokens, its router
+    probabilities (on the CPU) while active."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = Ly._moe_route
+
+        def route(p, cfg, xt):
+            out = self._orig(p, cfg, xt)
+            probs = torch.softmax(Ly.dense(p.router, xt).float(), dim=-1)
+            self.calls.append((out[1].cpu(), probs.cpu()))
+            return out
+        Ly._moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        Ly._moe_route = self._orig
+
+
+def compare_routes(name: str, card: RouteLog, cpu: RouteLog) -> dict:
+    """Each token's set of chosen experts on the card against the CPU's.
+    A token whose sets differ fails the run unless the two experts it
+    swaps have CPU router probabilities within ROUTE_TIE (a tie the
+    devices break apart): that token is printed and counted."""
+    if len(card.calls) != len(cpu.calls):
+        fail(f"{name}: {len(card.calls)} routings on the card, "
+             f"{len(cpu.calls)} on the CPU")
+    ties, tokens = [], 0
+    for call, ((ic, _), (ip, pp)) in enumerate(zip(card.calls, cpu.calls)):
+        a, b = ic.sort(-1).values, ip.sort(-1).values
+        tokens += a.shape[0]
+        for t in torch.nonzero((a != b).any(-1)).flatten().tolist():
+            only_card = sorted(set(a[t].tolist()) - set(b[t].tolist()))
+            only_cpu = sorted(set(b[t].tolist()) - set(a[t].tolist()))
+            gap = float((pp[t, only_card] - pp[t, only_cpu]).abs().max())
+            if gap > ROUTE_TIE:
+                fail(f"{name}: routing call {call} token {t} chose experts "
+                     f"{only_card} on the card and {only_cpu} on the CPU, "
+                     f"probability gap {gap} > {ROUTE_TIE}")
+            ties.append(dict(call=call, token=t, card=only_card,
+                             cpu=only_cpu, gap=gap))
+            print(f"{name}: routing tie at call {call} token {t}: experts "
+                  f"{only_card} (card) / {only_cpu} (CPU), probability gap "
+                  f"{gap:.3g}")
+    return dict(routed_tokens=tokens, calls=len(card.calls), ties=ties)
+
+
+def params_to_cpu(params, cfg):
+    """A CPU copy of the card's ``params``, each tensor copied through one
+    pinned buffer of STAGE_BYTES (faster than the driver's own staging of
+    a copy into pageable memory, which set most of (b)'s wall)."""
+    out = lm_module(cfg, "cpu")
+    dst = out.state_dict()
+    stage = torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
+    for name, src in params.state_dict().items():
+        s8 = src.reshape(-1).view(torch.uint8)
+        d8 = dst[name].reshape(-1).view(torch.uint8)
+        for i in range(0, s8.numel(), STAGE_BYTES):
+            n = min(STAGE_BYTES, s8.numel() - i)
+            stage[:n].copy_(s8[i:i + n])
+            d8[i:i + n].copy_(stage[:n])
+    return out
+
+
+def family_card_vs_cpu(arch: str, layers) -> dict:
+    """(b) for one family: forward, prefill and PARITY_STEPS greedy decode
+    steps on the card (kernels) and on the CPU (plain versions), float32,
+    one weight set: logits and every cache leaf within LM_PARITY_TOL; for
+    ``moe`` the routed experts first (``compare_routes``)."""
+    t_setup = time.perf_counter()
+    cfg = family_cfg(arch, layers, "float32")
+    card, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = card.init(0)
+    params_cpu = params_to_cpu(params, cfg)
+    gen = torch.Generator().manual_seed(17)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, PARITY_PROMPT),
+                                     generator=gen)}
+    batch |= stub_inputs(cfg, 1, PARITY_PROMPT, gen)
+    errs = {}
+
+    def compare(what, a, b):
+        e = float((a.float().cpu() - b.float()).abs().max())
+        errs[what] = max(errs.get(what, 0.0), e)
+        if not e <= LM_PARITY_TOL:
+            fail(f"{cfg.name} card vs CPU: {what} max abs err {e} > "
+                 f"{LM_PARITY_TOL}")
+
+    setup_s = time.perf_counter() - t_setup
+    t0 = time.perf_counter()
+    card_routes, cpu_routes = RouteLog(), RouteLog()
+    reset_lm_counts()
+    max_seq = PARITY_PROMPT + PARITY_STEPS + 1
+    with card_routes:
+        fwd = card.forward(params, batch)
+        lg, cache = card.prefill(params, batch, card.init_cache(1, max_seq))
+    with cpu_routes:
+        fwd_c = cpu.forward(params_cpu, batch)
+        lg_c, cache_c = cpu.prefill(params_cpu, batch,
+                                    cpu.init_cache(1, max_seq))
+    compare("forward logits", fwd, fwd_c)
+    compare("prefill logits", lg, lg_c)
+    for i in range(PARITY_STEPS):
+        tok = torch.argmax(lg_c[:, -1], -1)[:, None]
+        with card_routes:
+            lg, cache = card.decode_step(params, tok, cache,
+                                         PARITY_PROMPT + i)
+        with cpu_routes:
+            lg_c, cache_c = cpu.decode_step(params_cpu, tok, cache_c,
+                                            PARITY_PROMPT + i)
+        compare("decode logits", lg, lg_c)
+        for j, (a, b) in enumerate(zip(Tr.tree_leaves(cache),
+                                       Tr.tree_leaves(cache_c))):
+            compare(f"cache leaf {j}", a, b)
+    launches = lm_counts()
+    wall = time.perf_counter() - t0
+    want = expected_launches(cfg, 2, PARITY_STEPS)
+    want["flash_attention_tc"] = 0
+    if launches != want:
+        fail(f"{cfg.name} card vs CPU launched {launches}, expected {want} "
+             f"(float32: the SIMT attention kernel)")
+    routes = (compare_routes(f"{cfg.name} card vs CPU", card_routes,
+                             cpu_routes) if cfg.family == "moe" else None)
+    print(f"phase 16 (b) {cfg.name} card vs CPU (d {cfg.d_model}, "
+          f"{cfg.n_layers} layers, float32, prompt {PARITY_PROMPT}, "
+          f"{PARITY_STEPS} decode steps): max abs err {json.dumps(errs)} "
+          f"(gate {LM_PARITY_TOL}); launches {launches}"
+          f"{'' if routes is None else '; routed tokens ' + str(routes['routed_tokens']) + ', ties ' + str(len(routes['ties']))}"
+          f"; {wall:.1f} s after {setup_s:.1f} s of set-up (init on the "
+          f"card, the weights staged to the CPU)")
+    del params, params_cpu, card, cpu
+    free_card()
+    return dict(arch=arch, layers=cfg.n_layers, max_abs_err=errs,
+                gate=LM_PARITY_TOL, launches=launches, routes=routes,
+                wall_s=wall, setup_s=setup_s)
+
+
+def families_phase() -> dict:
+    """Phase 16: (a) every family served, (b) each against the CPU."""
+    t0 = time.perf_counter()
+    served = [family_serve(a, n) for a, n in FAMILY_SERVE]
+    t1 = time.perf_counter()
+    parity = [family_card_vs_cpu(a, n) for a, n in FAMILY_PARITY]
+    out = dict(serve=served, card_vs_cpu=parity, serve_s=t1 - t0,
+               card_vs_cpu_s=time.perf_counter() - t1,
+               wall_s=time.perf_counter() - t0)
+    print(f"phase 16: {out['wall_s']:.1f} s ((a) {out['serve_s']:.1f} s, "
+          f"(b) {out['card_vs_cpu_s']:.1f} s)")
+    return out
+
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3497,6 +3944,9 @@ def main():
     # ---- 15. the async serving shell on the card ---------------------------
     serving = serve_phase(problem)
 
+    # ---- 16. every LM family on the card -----------------------------------
+    families = families_phase()
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -3547,7 +3997,10 @@ def main():
         bound_ms=fa_main["bound_ms"], bound_by=fa_main["bound_by"],
         library_ms=fa_main["library_ms"],
         tolerance=FA_TOL[torch.bfloat16], serve_tolerance=FA_BF16_SERVE_TOL,
-        build=fa_build, shapes=bf16_rows, main_path=dict(serve=served))
+        build=fa_build, shapes=bf16_rows,
+        main_path=dict(serve=served, families=families["serve"]),
+        launches_families={r["arch"]: r["launches"]["flash_attention_tc"]
+                           for r in families["serve"]})
     f32_main = next(r for r in f32_rows if r["tag"] == "hymba prefill")
     fa_f32_record = dict(
         name="flash_attention_f32", route="cuda",
@@ -3557,7 +4010,9 @@ def main():
         ms=f32_main["ms"], plain_ms=f32_main["plain_ms"],
         bound_ms=f32_main["bound_ms"], bound_by=f32_main["bound_by"],
         library_ms=f32_main["library_ms"], tolerance=FA_TOL[torch.float32],
-        shapes=f32_rows, main_path=dict(card_vs_cpu=lm_parity))
+        shapes=f32_rows, main_path=dict(
+            card_vs_cpu=lm_parity,
+            families_card_vs_cpu=families["card_vs_cpu"]))
     ms_main = next(r for r in ms_rows if r["tag"] == "hymba prefill"
                    and "ms" in r)
     ms_dec = next(r for r in ms_rows if r["tag"] == "hymba decode"
@@ -3574,6 +4029,8 @@ def main():
         decode_plain_ms=ms_dec["plain_ms"], decode_bound_ms=ms_dec["bound_ms"],
         decode_device_ms_per_launch=served.get("scan_decode_device_ms"),
         prefill_device_ms=served.get("scan_prefill_device_ms"),
+        launches_families={r["arch"]: r["launches"]["mamba_scan"]
+                           for r in families["serve"]},
         build=ms_build, shapes=ms_rows)
     lane_rows = fused["lane_shapes"]
     lane_main = next(r for r in lane_rows if r["tag"] == "fused selection")

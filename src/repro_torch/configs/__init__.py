@@ -3,9 +3,8 @@ the same records as the reference's ``repro/configs``.
 
 ``get_config(name)`` returns the full-scale config; ``get_reduced(name)``
 the same-family reduced config of the CPU tests and of
-``launch/serve.py --reduced``.  The port builds only the ``hybrid`` family
-so far (``models/model.py``); the other records are here so that later
-slices add code, not configs.
+``launch/serve.py --reduced``.  ``models.model.build_model`` serves every
+one of them.
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@ JAX arrays that ``np.asarray`` accepts):
 * ``tech_from_reference`` — a reference ``TechConstants`` through
   ``tech_to_dict``;
 * ``load_reference_params`` / ``lm_params_from_reference`` — a reference
-  LM parameter pytree (nested dicts of arrays, ``blocks`` stacked on a
-  leading layer axis) as the port's parameter modules;
+  LM parameter pytree of any family (nested dicts of arrays; ``blocks``,
+  or ``encoder`` and ``decoder``, stacked on a leading layer axis; expert
+  tensors (E, d, f), MLA's keys, the shared experts) as the port's
+  parameter modules;
 * ``surrogate_from_reference`` — a reference ``Surrogate`` or
   ``NonlinearTrustModel`` as the port's (the ensemble weights and
   normalization statistics as numpy), so both packages compute the same
@@ -35,7 +37,7 @@ from .core.workload import Edge, TensorRef, Workload, WorkloadGraph
 from .explore.surrogate import (NonlinearTrustModel, Surrogate,
                                 SurrogateConfig)
 from .models.config import ModelConfig
-from .models.model import HybridLM
+from .models.model import lm_module
 from .runtime import resolve_device
 
 
@@ -105,17 +107,21 @@ def load_reference_params(module: torch.nn.Module,
 
 
 def lm_params_from_reference(params: Dict, cfg: ModelConfig,
-                             device="cuda") -> HybridLM:
-    """The port's parameters (``models.model.HybridLM`` on ``device``, the
-    card unless ``device="cpu"``) holding a reference LM's weights:
-    ``params`` is the reference ``Model.init`` pytree, whose ``blocks``
-    leaves carry a leading layer axis (the reference vmaps its block
-    init)."""
+                             device="cuda") -> torch.nn.Module:
+    """The port's parameters (``models.model.DecoderLM``, or ``EncDecLM``
+    for ``encdec``, on ``device``: the card unless ``device="cpu"``)
+    holding a reference LM's weights: ``params`` is the reference
+    ``Model.init`` pytree, whose layer stacks (``blocks``, or ``encoder``
+    and ``decoder``) carry a leading layer axis (the reference vmaps its
+    block init)."""
     dev = resolve_device(device)
     tree = dict(params)
-    blocks = tree.pop("blocks")
-    tree["blocks"] = {str(i): _layer(blocks, i) for i in range(cfg.n_layers)}
-    return load_reference_params(HybridLM(cfg, dev), tree)
+    for name, n in (("blocks", cfg.n_layers), ("encoder", cfg.enc_layers),
+                    ("decoder", cfg.n_layers)):
+        if name in tree:
+            stacked = tree.pop(name)
+            tree[name] = {str(i): _layer(stacked, i) for i in range(n)}
+    return load_reference_params(lm_module(cfg, dev), tree)
 
 
 def surrogate_from_reference(model):

@@ -1,3 +1,4 @@
 """The port's LM substrate: configs (``config``), layers (``layers``), the
-block stack (``transformer``) and ``build_model`` (``model``).  Only the
-``hybrid`` (Hymba) family's serving path is ported so far."""
+blocks and layer stack (``transformer``) and ``build_model`` (``model``),
+serving every family of the registry: ``dense``, ``moe`` (with MLA),
+``ssm``, ``hybrid``, ``encdec`` and ``vlm`` (with M-RoPE)."""

@@ -1,29 +1,34 @@
-"""Layers of the port's LM substrate: the pieces of the reference's
-``repro/models/layers.py`` that the ``hybrid`` (Hymba) block uses.
+"""Layers of the port's LM substrate: the reference's
+``repro/models/layers.py`` for every family.
 
 Parameters live in small ``nn.Module`` containers whose attribute names
-are the reference pytree's keys (``attn.wq.w``, ``mamba.A_log``, ...), so a
-reference parameter tree loads by name (``repro_torch.convert``).  Their
-parameters never take gradients: the port serves, it does not train yet.
-The arithmetic is in plain functions named as in the reference
-(``dense``, ``rmsnorm``, ``apply_rope``, ``attention_apply``,
-``attention_decode_rolling``, ``mlp_apply``, ``mamba_apply``), each
-taking its module as ``p``:
+are the reference pytree's keys (``attn.wq.w``, ``moe.wg``,
+``attn.wkv_down.w``, ``mamba.A_log``, ...), so a reference parameter tree
+loads by name (``repro_torch.convert``).  Their parameters never take
+gradients: the port serves, it does not train yet.  The arithmetic is in
+plain functions named as in the reference (``dense``, ``rmsnorm``,
+``apply_rope``, ``attention_apply``, ``attention_decode_rolling``,
+``mla_apply``, ``mlp_apply``, ``moe_apply``, ``mamba_apply``), each taking
+its module as ``p``:
 
 * weights are float32 (``param_dtype``) and ``dense`` casts them to the
   activation dtype at each call, as the reference does;
-* prefill attention goes through ``kernels.flash_attention`` and every
-  Mamba scan through ``kernels.mamba_scan`` (the Hopper kernels on the
-  card, their plain versions on the CPU); single-token decode attention
-  against the rolling cache is plain PyTorch, as in the reference.
-
-Not ported yet: M-RoPE sections, MLA and MoE, and attention with a full
-(non-rolling) KV cache.
+* every attention over a sequence or a full KV cache goes through
+  ``kernels.flash_attention`` and every Mamba scan through
+  ``kernels.mamba_scan`` (the Hopper kernels on the card, their plain
+  versions on the CPU); single-token decode against Hymba's rolling cache
+  is plain PyTorch, as in the reference;
+* a full KV cache (``attention_apply``) or MLA's latent cache
+  (``mla_apply``) is written IN PLACE at ``cache_index`` and returned, as
+  the model's ``prefill`` / ``decode_step`` return the cache they were
+  given (no copy of a cache a step).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,6 +52,16 @@ def normal_fill_(t: torch.Tensor, gen: torch.Generator, scale: float):
     t.normal_(generator=gen).mul_(scale)
 
 
+def reset_children(m: nn.Module, gen: torch.Generator):
+    """Draw the reference's init distributions for every child module of
+    ``m``, in order (into the members of a ``ModuleList``)."""
+    for c in m.children():
+        if isinstance(c, nn.ModuleList):
+            reset_children(c, gen)
+        else:
+            c.reset(gen)
+
+
 # ---------------------------------------------------------------------------
 # dense and norms
 # ---------------------------------------------------------------------------
@@ -54,14 +69,16 @@ class Dense(nn.Module):
     """``w`` (d_in, d_out), optional bias ``b`` (d_out,)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = False,
-                 device=None):
+                 device=None, scale: Optional[float] = None):
         super().__init__()
         self.w = new_param((d_in, d_out), device)
         self.b = new_param((d_out,), device) if bias else None
+        self.scale = 1.0 / math.sqrt(d_in) if scale is None else scale
 
     def reset(self, gen: torch.Generator):
-        """The reference's ``dense_init``: N(0, 1) / sqrt(d_in), zero bias."""
-        normal_fill_(self.w, gen, 1.0 / math.sqrt(self.w.shape[0]))
+        """The reference's ``dense_init``: N(0, 1) x scale (1 / sqrt(d_in)
+        unless given), zero bias."""
+        normal_fill_(self.w, gen, self.scale)
         if self.b is not None:
             self.b.zero_()
 
@@ -90,20 +107,32 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (RoPE, and 3-section M-RoPE for Qwen2-VL)
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S).  Rotates the two halves of the
-    head dim in float32 and casts back to x's dtype."""
-    D = x.shape[-1]
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S), or (B, S, 3) with M-RoPE
+    ``sections`` (t, h, w), whose sizes sum to D / 2: the rotary
+    frequencies are split into the sections, each rotated by its own
+    position stream.  Rotates the two halves of the head dim in float32
+    and casts back to x's dtype."""
+    B, S, H, D = x.shape
     inv = rope_freqs(D, theta, x.device)
-    ang = positions.float()[..., None] * inv[None, None, :]   # (B, S, D/2)
+    if sections:
+        if positions.dim() != 3 or sum(sections) != D // 2:
+            raise ValueError(f"apply_rope: M-RoPE sections {sections} need "
+                             f"(B, S, 3) positions and sum to {D // 2}, got "
+                             f"positions {tuple(positions.shape)}")
+        pos = torch.cat([positions[..., i:i + 1].float().expand(B, S, sec)
+                         for i, sec in enumerate(sections)], dim=-1)
+        ang = pos * inv[None, None, :]                      # (B, S, D/2)
+    else:
+        ang = positions.float()[..., None] * inv[None, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -112,7 +141,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA; prefill through the flash-attention kernel)
+# attention (GQA; causal / sliding-window / cross) via the flash-attention op
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
@@ -123,9 +152,7 @@ class Attention(nn.Module):
         self.wv = Dense(d, KV * hd, cfg.qkv_bias, device)
         self.wo = Dense(H * hd, d, False, device)
 
-    def reset(self, gen: torch.Generator):
-        for m in (self.wq, self.wk, self.wv, self.wo):
-            m.reset(gen)
+    reset = reset_children
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
@@ -134,19 +161,42 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 
 
 def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor):
-    """Full-sequence (prefill) self-attention under the sliding window
-    ``cfg.window``.  Returns (out, (k, v)) with
-    k, v (B, S, KV, hd) rotated at their positions — the caller may build
-    a cache from them."""
+                    positions: torch.Tensor, kv_x=None, kv_positions=None,
+                    mask_kind: str = "causal", window: int = 0,
+                    kv_cache=None, cache_index: Optional[int] = None,
+                    use_rope: bool = True):
+    """Attention of x's queries over the keys of ``kv_x`` (cross; at
+    ``kv_positions``) or of x itself, under ``mask_kind`` (``causal``,
+    ``window`` of ``window`` keys, or ``none``).
+
+    ``kv_cache`` = (k, v), each (B, S_cache, KV, hd): with ``cache_index``
+    (an int: prefill writes at 0, decode at the token's position) the new
+    keys and values are written into it IN PLACE at ``cache_index``, and
+    the queries, at absolute positions [cache_index, cache_index + S),
+    attend over the whole cache with ``kv_valid_len = cache_index + S``.
+    Returns (out, new_kv_cache): the cache, or without one the (k, v) of
+    this call, rotated at their positions."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_rope(_split_heads(dense(p.wq, x), H, hd), positions,
-                   cfg.rope_theta)
-    k = apply_rope(_split_heads(dense(p.wk, x), KV, hd), positions,
-                   cfg.rope_theta)
-    v = _split_heads(dense(p.wv, x), KV, hd).contiguous()
-    out = flash_attention(q, k, v, mask_kind="window", window=cfg.window)
+    src = x if kv_x is None else kv_x
+    q = _split_heads(dense(p.wq, x), H, hd)
+    k = _split_heads(dense(p.wk, src), KV, hd)
+    v = _split_heads(dense(p.wv, src), KV, hd)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        kp = positions if kv_positions is None else kv_positions
+        k = apply_rope(k, kp, cfg.rope_theta, cfg.mrope_sections)
     B, S = x.shape[:2]
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        if cache_index is not None:
+            ck[:, cache_index:cache_index + S] = k
+            cv[:, cache_index:cache_index + S] = v
+        k, v = ck, cv
+    else:
+        k, v = k.contiguous(), v.contiguous()
+    kv_len = None if cache_index is None else cache_index + S
+    out = flash_attention(q.contiguous(), k, v, mask_kind=mask_kind,
+                          window=window, kv_valid_len=kv_len)
     return dense(p.wo, out.reshape(B, S, H * hd)), (k, v)
 
 
@@ -187,27 +237,219 @@ def attention_decode_rolling(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU MLP
+# MLA — multi-head latent attention (DeepSeek-V2)
 # ---------------------------------------------------------------------------
-class MLP(nn.Module):
+class MLA(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, H = cfg.d_model, cfg.n_heads
+        r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim,
+                         cfg.v_head_dim)
+        # queries: full-rank projection to per-head (nope + rope) dims
+        self.wq = Dense(d, H * (dn + dr), device=device)
+        # KV: compress to latent r (+ the shared rope key), then up-project
+        self.wkv_down = Dense(d, r + dr, device=device)
+        self.kv_norm = RMSNorm(r, device)
+        self.wk_up = Dense(r, H * dn, device=device)
+        self.wv_up = Dense(r, H * dv, device=device)
+        self.wo = Dense(H * dv, d, device=device)
+
+    reset = reset_children
+
+
+def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, kv_cache=None,
+              cache_index: Optional[int] = None):
+    """MLA with the compressed latent as the KV cache: (B, S_cache, r +
+    dr) instead of (B, S, 2 H hd).  With ``cache_index`` the new latent is
+    written into ``kv_cache`` IN PLACE at ``cache_index`` and the queries
+    attend over the whole cache (``kv_valid_len = cache_index + S``); keys
+    and values are up-projected from the latent at every call, and the
+    shared rope key (rotated at the cache's absolute positions) is
+    broadcast over the heads.  Returns (out, new_cache): the cache, or the
+    new latent when ``kv_cache`` is given without an index, else None."""
+    H = cfg.n_heads
+    r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim,
+                     cfg.v_head_dim)
+    B, S, _ = x.shape
+
+    q = dense(p.wq, x).reshape(B, S, H, dn + dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    qf = torch.cat([q[..., :dn], q_rope], dim=-1)
+
+    latent = dense(p.wkv_down, x)                          # (B, S, r + dr)
+    if kv_cache is not None and cache_index is not None:
+        kv_cache[:, cache_index:cache_index + S] = latent
+        latent = kv_cache
+    new_cache = latent if kv_cache is not None else None
+    c_kv = rmsnorm(p.kv_norm, latent[..., :r])
+    Sk = c_kv.shape[1]
+    kpos = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
+    k_rope = apply_rope(latent[:, :, None, r:], kpos, cfg.rope_theta)
+    k_nope = dense(p.wk_up, c_kv).reshape(B, Sk, H, dn)
+    v = dense(p.wv_up, c_kv).reshape(B, Sk, H, dv)
+    k = torch.cat([k_nope, k_rope.expand(B, Sk, H, dr)], dim=-1)
+
+    kv_len = None if cache_index is None else cache_index + S
+    out = flash_attention(qf, k, v, mask_kind="causal", kv_valid_len=kv_len)
+    return dense(p.wo, out.reshape(B, S, H * dv)), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs: dense SwiGLU and capacity-factor MoE
+# ---------------------------------------------------------------------------
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 d_ff: Optional[int] = None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         self.wg = Dense(d, f, device=device)
         self.wu = Dense(d, f, device=device)
         self.wd = Dense(f, d, device=device)
 
-    def reset(self, gen: torch.Generator):
-        for m in (self.wg, self.wu, self.wd):
-            m.reset(gen)
+    reset = reset_children
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     return dense(p.wd, F.silu(dense(p.wg, x)) * dense(p.wu, x))
 
 
+class MoE(nn.Module):
+    """``router`` (d, E), expert tensors ``wg`` / ``wu`` (E, d, f) and
+    ``wd`` (E, f, d), and the ``shared`` experts' MLP (d_ff = f x
+    n_shared_experts) when the config has them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, E, f = cfg.d_model, cfg.n_experts, cfg.expert_ff
+        self.router = Dense(d, E, device=device, scale=0.02)
+        self.wg = new_param((E, d, f), device)
+        self.wu = new_param((E, d, f), device)
+        self.wd = new_param((E, f, d), device)
+        self.shared = (MLP(cfg, device, d_ff=f * cfg.n_shared_experts)
+                       if cfg.n_shared_experts else None)
+
+    def reset(self, gen: torch.Generator):
+        """The reference's ``moe_init`` distributions."""
+        d, f = self.wg.shape[1], self.wg.shape[2]
+        self.router.reset(gen)
+        normal_fill_(self.wg, gen, 1.0 / math.sqrt(d))
+        normal_fill_(self.wu, gen, 1.0 / math.sqrt(d))
+        normal_fill_(self.wd, gen, 1.0 / math.sqrt(f))
+        if self.shared is not None:
+            self.shared.reset(gen)
+
+
+def _moe_route(p: MoE, cfg: ModelConfig, xt: torch.Tensor):
+    """The router: softmax over E in float32, top-k renormalized, each
+    (token, choice)'s position in its expert's queue (token order), the
+    capacity, and the load-balancing aux loss.  Returns (gate_vals (T, K),
+    gate_idx (T, K), pos (T, K), in_cap (T, K), cap, onehot (T, K, E),
+    aux)."""
+    E, K = cfg.n_experts, cfg.top_k
+    T = xt.shape[0]
+    probs = torch.softmax(dense(p.router, xt).float(), dim=-1)   # (T, E)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)            # (T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    cap = max(int(cfg.capacity_factor * T * K / E), 1)
+    onehot = F.one_hot(gate_idx, E).to(torch.int32)              # (T, K, E)
+    pos = _queue_positions(onehot)
+    in_cap = (pos >= 0) & (pos < cap)
+    me = probs.mean(dim=0)
+    ce = onehot.sum(dim=1).float().mean(dim=0)
+    aux = E * torch.sum(me * ce)
+    return gate_vals, gate_idx, pos, in_cap, cap, onehot, aux
+
+
+def _queue_positions(onehot: torch.Tensor) -> torch.Tensor:
+    """onehot (..., T, K, E) -> (..., T, K): each choice's 0-based position
+    among the choices of its expert, in (token, choice) order."""
+    *lead, T, K, E = onehot.shape
+    flat = onehot.reshape(*lead, T * K, E)
+    pos_e = torch.cumsum(flat, dim=-2) * flat - 1
+    return pos_e.reshape(*lead, T, K, E).amax(dim=-1)
+
+
+def _moe_experts(p: MoE, xe: torch.Tensor) -> torch.Tensor:
+    """The batched expert FFN over (E, cap, d) buffers."""
+    dt = xe.dtype
+    h = torch.bmm(xe, p.wg.to(dt))
+    u = torch.bmm(xe, p.wu.to(dt))
+    return torch.bmm(F.silu(h) * u, p.wd.to(dt))              # (E, cap, d)
+
+
+def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
+    """Capacity-factor top-k MoE with static shapes: choices past an
+    expert's capacity are dropped (the residual passes through).  Three
+    dispatches (``cfg.moe_impl``), as in the reference:
+
+    * ``einsum``, ``moe_groups`` 1: one-hot dispatch / combine products
+      over (T, E, cap);
+    * ``einsum``, ``moe_groups`` G > 1: tokens compete for capacity only
+      within their group of T / G, the one-hots (G, T / G, E, cap / G);
+    * ``gather``: tokens scattered into an (E cap + 1, d) buffer by row
+      index (expert x cap + position; a dropped choice goes to the extra
+      last row, which is cut off: no index leaves the buffer) and the
+      results gathered back.
+
+    Returns (out, aux_loss)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    dt = x.dtype
+    xt = x.reshape(T, d)
+    gate_vals, gate_idx, pos, in_cap, cap, onehot, aux = _moe_route(p, cfg,
+                                                                    xt)
+
+    if cfg.moe_impl == "gather":
+        buf_idx = torch.where(in_cap, gate_idx * cap + pos,
+                              E * cap).reshape(-1)               # (T*K,)
+        tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+        xe = torch.zeros((E * cap + 1, d), dtype=dt, device=x.device)
+        xe.index_add_(0, buf_idx, xt[tok_idx])
+        ye = _moe_experts(p, xe[:E * cap].reshape(E, cap, d))
+        flat = torch.cat([ye.reshape(E * cap, d),
+                          torch.zeros((1, d), dtype=ye.dtype,
+                                      device=x.device)])
+        picked = flat[buf_idx].reshape(T, K, d)
+        w = (gate_vals * in_cap.float())[..., None].to(dt)
+        out = (picked * w).sum(dim=1)
+    elif cfg.moe_groups > 1:
+        G = cfg.moe_groups
+        Tg, capg = T // G, max(cap // G, 1)
+        pos = _queue_positions(onehot.reshape(G, Tg, K, E))     # (G, Tg, K)
+        in_cap_g = (pos >= 0) & (pos < capg)
+        pos_c = torch.clamp(pos, 0, capg - 1)
+        ohg = onehot.reshape(G, Tg, K, E).to(dt)
+        disp = torch.einsum(
+            "gtke,gtkc->gtec", ohg,
+            F.one_hot(pos_c, capg).to(dt) * in_cap_g[..., None].to(dt))
+        comb = disp * torch.einsum(
+            "gtk,gtke->gte", gate_vals.reshape(G, Tg, K) * in_cap_g.float(),
+            ohg.float()).to(dt)[..., None]
+        xe = torch.einsum("gtd,gtec->egcd", xt.reshape(G, Tg, d), disp)
+        ye = _moe_experts(p, xe.reshape(E, G * capg, d))
+        out = torch.einsum("egcd,gtec->gtd", ye.reshape(E, G, capg, d),
+                           comb).reshape(T, d)
+    else:
+        pos_c = torch.clamp(pos, 0, cap - 1)
+        disp = torch.einsum(
+            "tke,tkc->tec", onehot.to(dt),
+            F.one_hot(pos_c, cap).to(dt) * in_cap[..., None].to(dt))
+        comb = disp * torch.einsum(
+            "tk,tke->te", gate_vals * in_cap.float(),
+            onehot.float()).to(dt)[:, :, None]
+        xe = torch.einsum("td,tec->ecd", xt, disp)              # (E, cap, d)
+        out = torch.einsum("ecd,tec->td", _moe_experts(p, xe), comb)
+
+    if p.shared is not None:
+        out = out + mlp_apply(p.shared, xt)
+    return out.reshape(B, S, d), aux
+
+
 # ---------------------------------------------------------------------------
-# Mamba-1 block (the Hymba SSM heads)
+# Mamba-1 block (Falcon-Mamba, and the Hymba SSM heads)
 # ---------------------------------------------------------------------------
 class Mamba(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
@@ -257,6 +499,10 @@ def mamba_apply(p: Mamba, cfg: ModelConfig, x: torch.Tensor, state=None):
     xc = torch.cat([prev, xs], dim=1)
     new_conv = (xc[:, -(dc - 1):] if dc > 1
                 else torch.zeros((B, 0, di), dtype=xs.dtype, device=x.device))
+    if S > 1:
+        # a view would keep this layer's whole (B, S + dc - 1, di) input
+        # alive until the stack's new caches are stacked
+        new_conv = new_conv.clone()
     w = p.conv_w.to(xs.dtype)
     conv = xc[:, 0:S] * w[0]
     for i in range(1, dc):

@@ -1,16 +1,29 @@
 """Model assembly of the port's LM substrate: ``build_model(cfg)`` ->
-init / forward / init_cache / prefill / decode_step, the serving surface of
-the reference's ``repro/models/model.py`` for the ``hybrid`` (Hymba)
-family.
+init / forward / init_cache / prefill / decode_step for every family, the
+serving surface of the reference's ``repro/models/model.py``.
 
 As in the reference the functions take the parameters and caches
-explicitly: ``params`` is the ``HybridLM`` module that ``init`` returns (or
-that ``convert.lm_params_from_reference`` fills from reference weights),
-and a cache is the reference's nested tuple of tensors with a leading
-layer axis.  Prefill runs the flash-attention kernel once per layer and
-the Mamba scan once per layer; each decode step runs the scan once per
-layer.  ``loss`` and training are not ported yet, nor any family but
-``hybrid``: ``build_model`` raises ``NotImplementedError`` naming it.
+explicitly: ``params`` is the module that ``init`` returns (``DecoderLM``
+or ``EncDecLM``; ``convert.lm_params_from_reference`` fills one from
+reference weights), and a cache is the reference's nested tuple (a dict
+for ``encdec``) of tensors with a leading layer axis:
+
+    dense, vlm, moe   (k, v) each (L, B, max_seq, KV, hd); MLA's latent
+                      (L, B, max_seq, kv_lora_rank + qk_rope_dim)
+    ssm               (conv (L, B, ssm_conv - 1, d_inner), h (L, B,
+                      d_inner, ssm_state) float32)
+    hybrid            ((k, v, kpos) rolling over the window, (conv, h))
+    encdec            {"self": (k, v), "enc": (B, enc_positions, d)}
+
+``prefill`` and ``decode_step`` write into the cache they are given and
+return the cache to use next: a full KV cache (or MLA's latent, or
+Hymba's window after a prefill) is updated in place and returned, with
+no copy of it a step; SSM states and Hymba's decode window come back as
+new tensors.  A caller that needs the old cache again keeps a copy
+(``transformer.tree_map(torch.clone, cache)``).  Attention runs the
+flash-attention kernel once per layer (decode too, over the full cache
+with ``kv_valid_len``; Hymba's rolling decode excepted), the Mamba scan
+once per layer.  ``loss`` and training are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,13 +39,12 @@ from . import layers as Ly
 from . import transformer as Tr
 from .config import ModelConfig
 
-PORTED_FAMILIES = ("hybrid",)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
-class HybridLM(nn.Module):
-    """The parameters of a decoder LM, named as the reference's pytree:
-    ``embed`` (padded_vocab, d), ``final_norm``, ``lm_head`` (unless
-    tied), ``blocks`` (one module per layer) and ``meta`` (meta_tokens, d)."""
+class _LM(nn.Module):
+    """``embed`` (padded_vocab, d), ``final_norm`` and ``lm_head`` (unless
+    tied), named as the reference's pytree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -41,21 +53,47 @@ class HybridLM(nn.Module):
         self.final_norm = Ly.RMSNorm(d, device)
         self.lm_head = (None if cfg.tie_embeddings
                         else Ly.Dense(d, cfg.padded_vocab, device=device))
-        self.blocks = nn.ModuleList(Tr.HybridBlock(cfg, device)
-                                    for _ in range(cfg.n_layers))
-        self.meta = (Ly.new_param((cfg.meta_tokens, d), device)
-                     if cfg.meta_tokens else None)
 
     def reset(self, gen: torch.Generator):
         """The reference's init distributions, drawn from ``gen``."""
         Ly.normal_fill_(self.embed, gen, 0.02)
-        self.final_norm.reset(gen)
-        if self.lm_head is not None:
-            self.lm_head.reset(gen)
-        for blk in self.blocks:
-            blk.reset(gen)
+        Ly.reset_children(self, gen)
+
+
+class DecoderLM(_LM):
+    """A decoder-only LM: ``blocks`` (one module per layer, of the
+    family's kind) and ``meta`` (meta_tokens, d) where the config has
+    meta tokens."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        kind = "dense" if cfg.family == "vlm" else cfg.family
+        self.blocks = nn.ModuleList(Tr.Block(cfg, kind, device)
+                                    for _ in range(cfg.n_layers))
+        self.meta = (Ly.new_param((cfg.meta_tokens, cfg.d_model), device)
+                     if cfg.meta_tokens else None)
+
+    def reset(self, gen: torch.Generator):
+        super().reset(gen)
         if self.meta is not None:
             Ly.normal_fill_(self.meta, gen, 0.02)
+
+
+class EncDecLM(_LM):
+    """An encoder-decoder LM (Whisper): ``encoder`` (enc_layers ``enc``
+    blocks) and ``decoder`` (n_layers ``dec`` blocks)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.encoder = nn.ModuleList(Tr.Block(cfg, "enc", device)
+                                     for _ in range(cfg.enc_layers))
+        self.decoder = nn.ModuleList(Tr.Block(cfg, "dec", device)
+                                     for _ in range(cfg.n_layers))
+
+
+def lm_module(cfg: ModelConfig, device=None) -> _LM:
+    """The (uninitialized) parameter module of ``cfg``'s family."""
+    return (EncDecLM if cfg.family == "encdec" else DecoderLM)(cfg, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +107,7 @@ class Model:
     decode_step: Callable     # (params, tokens, cache, index) -> ...
 
 
-def _logits(p: HybridLM, cfg: ModelConfig, x):
+def _logits(p: _LM, cfg: ModelConfig, x):
     h = Ly.rmsnorm(p.final_norm, x)
     if cfg.tie_embeddings:
         out = h @ p.embed.t().to(h.dtype)
@@ -81,83 +119,202 @@ def _logits(p: HybridLM, cfg: ModelConfig, x):
     return out
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device)[None].expand(B, S)
+def _positions(B: int, S: int, cfg: ModelConfig, device) -> torch.Tensor:
+    """Positions 0..S-1 for every row: (B, S), or (B, S, 3) (equal
+    streams) with M-RoPE."""
+    pos = torch.arange(S, device=device)[None].expand(B, S)
+    return pos[..., None].expand(B, S, 3) if cfg.mrope_sections else pos
 
 
+def _decode_positions(B: int, index: int, cfg: ModelConfig, device):
+    """The decoded token's position ``index`` for every row (and every
+    M-RoPE stream)."""
+    shape = (B, 1, 3) if cfg.mrope_sections else (B, 1)
+    return torch.full(shape, int(index), dtype=torch.long, device=device)
+
+
+def _embed(p: _LM, tokens, dt, dev) -> torch.Tensor:
+    return p.embed[torch.as_tensor(tokens, device=dev)].to(dt)
+
+
+def _kv_cache(cfg: ModelConfig, L: int, B: int, max_seq: int, dt, dev):
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return tuple(torch.zeros((L, B, max_seq, KV, hd), dtype=dt, device=dev)
+                 for _ in range(2))
+
+
+def _ssm_cache(cfg: ModelConfig, B: int, dt, dev):
+    L = cfg.n_layers
+    return (torch.zeros((L, B, cfg.ssm_conv - 1, cfg.d_inner), dtype=dt,
+                        device=dev),
+            torch.zeros((L, B, cfg.d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# decoder-only families (dense / moe / ssm / hybrid / vlm)
+# ---------------------------------------------------------------------------
 def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
     dt = getattr(torch, cfg.dtype)
 
-    def init(seed: int) -> HybridLM:
-        p = HybridLM(cfg, dev)
+    def init(seed: int) -> DecoderLM:
+        p = DecoderLM(cfg, dev)
         p.reset(runtime.generator(seed, dev))
         return p
 
-    def embed_inputs(p: HybridLM, tokens):
-        tokens = torch.as_tensor(tokens, device=dev)
-        B = tokens.shape[0]
-        x = p.embed[tokens].to(dt)
+    def embed_inputs(p: DecoderLM, batch):
+        """Token embeddings; for ``vlm`` the batch's ``patch_embeds`` (B,
+        P, d) replace the first P positions (the vision frontend is a
+        stub); the meta tokens go in front."""
+        x = _embed(p, batch["tokens"], dt, dev)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = torch.as_tensor(batch["patch_embeds"], device=dev)
+            x[:, :pe.shape[1]] = pe.to(dt)
         if cfg.meta_tokens:
-            meta = p.meta.to(dt)[None].expand(B, -1, -1)
+            meta = p.meta.to(dt)[None].expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
         return x
 
+    def positions(batch, B: int, St: int):
+        if "positions" in batch:
+            return torch.as_tensor(batch["positions"], device=dev)
+        return _positions(B, St, cfg, dev)
+
     @torch.no_grad()
-    def forward(p: HybridLM, batch) -> torch.Tensor:
+    def forward(p: DecoderLM, batch) -> torch.Tensor:
         """Full-sequence logits (B, S, padded_vocab) of ``batch["tokens"]``
-        (the meta-token positions dropped)."""
-        x = embed_inputs(p, batch["tokens"])
+        (the meta-token positions dropped); ``vlm`` takes
+        ``patch_embeds`` and (B, S, 3) ``positions`` from the batch."""
+        x = embed_inputs(p, batch)
         B, St = x.shape[:2]
-        x, _ = Tr.stack_apply(p.blocks, cfg, x, _positions(B, St, dev))
+        x, _, _ = Tr.stack_apply(p.blocks, cfg, x, positions(batch, B, St))
         return _logits(p, cfg, x[:, cfg.meta_tokens:])
 
     def init_cache(batch_size: int, max_seq: int):
-        """((k, v, kpos), (conv, h)) for the hybrid rolling cache:
-        k, v (L, B, W, KV, hd) with W = min(window, max_seq) +
-        meta_tokens, kpos (L, B, W) int32 (-1 = empty), conv (L, B,
-        ssm_conv - 1, d_inner), h (L, B, d_inner, ssm_state) float32."""
+        """The family's empty cache (see the module docstring): hybrid
+        windows hold W = min(window, max_seq) + meta_tokens entries, kpos
+        -1 (empty)."""
         L, B = cfg.n_layers, batch_size
-        KV, hd = cfg.n_kv_heads, cfg.head_dim
-        W = min(cfg.window or max_seq, max_seq) + cfg.meta_tokens
-        attn = (torch.zeros((L, B, W, KV, hd), dtype=dt, device=dev),
-                torch.zeros((L, B, W, KV, hd), dtype=dt, device=dev),
-                torch.full((L, B, W), -1, dtype=torch.int32, device=dev))
-        ssm = (torch.zeros((L, B, cfg.ssm_conv - 1, cfg.d_inner), dtype=dt,
-                           device=dev),
-               torch.zeros((L, B, cfg.d_inner, cfg.ssm_state),
-                           dtype=torch.float32, device=dev))
-        return (attn, ssm)
+        if cfg.family == "ssm":
+            return _ssm_cache(cfg, B, dt, dev)
+        if cfg.family == "hybrid":
+            KV, hd = cfg.n_kv_heads, cfg.head_dim
+            W = min(cfg.window or max_seq, max_seq) + cfg.meta_tokens
+            attn = (torch.zeros((L, B, W, KV, hd), dtype=dt, device=dev),
+                    torch.zeros((L, B, W, KV, hd), dtype=dt, device=dev),
+                    torch.full((L, B, W), -1, dtype=torch.int32, device=dev))
+            return (attn, _ssm_cache(cfg, B, dt, dev))
+        if cfg.use_mla:
+            return torch.zeros(
+                (L, B, max_seq, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                dtype=dt, device=dev)
+        return _kv_cache(cfg, L, B, max_seq, dt, dev)
 
-    @torch.no_grad()
-    def prefill(p: HybridLM, batch, cache):
-        """Process the prompt; fill the rolling cache with the last W
-        keys/values and the Mamba states; return the last token's logits
-        (B, 1, padded_vocab) and the new cache."""
-        x = embed_inputs(p, batch["tokens"])
-        B, St = x.shape[:2]
-        x, raw = Tr.stack_apply(p.blocks, cfg, x,
-                                _positions(B, St, dev), collect_caches=True)
+    def hybrid_cache(raw, cache, St: int):
+        """The rolling cache after a hybrid prefill, written into
+        ``cache``'s window in place: the last W keys and values of the
+        sequence, with their positions, and the SSM states."""
         (k_full, v_full), m_state = raw
-        ck, cv, kpos = (t.clone() for t in cache[0])
+        ck, cv, kpos = cache[0]
         W = ck.shape[2]
         take = min(W, St)
         ck[:, :, W - take:] = k_full[:, :, St - take:].to(dt)
         cv[:, :, W - take:] = v_full[:, :, St - take:].to(dt)
         kpos[:, :, W - take:] = torch.arange(St - take, St, dtype=kpos.dtype,
                                              device=dev)
-        x = x[:, cfg.meta_tokens:]
-        return _logits(p, cfg, x[:, -1:]), ((ck, cv, kpos), m_state)
+        return ((ck, cv, kpos), m_state)
 
     @torch.no_grad()
-    def decode_step(p: HybridLM, tokens, cache, index: int):
+    def prefill(p: DecoderLM, batch, cache):
+        """Process the prompt; return the last token's logits (B, 1,
+        padded_vocab) and the filled cache: keys and values (or MLA's
+        latent) written at positions [0, S), SSM states after the prompt,
+        or the hybrid rolling window."""
+        x = embed_inputs(p, batch)
+        B, St = x.shape[:2]
+        pos = positions(batch, B, St)
+        if cfg.family == "ssm":
+            x, new_cache, _ = Tr.stack_apply(p.blocks, cfg, x, pos,
+                                             caches=cache)
+        elif cfg.family == "hybrid":
+            x, raw, _ = Tr.stack_apply(p.blocks, cfg, x, pos,
+                                       collect_caches=True)
+            new_cache = hybrid_cache(raw, cache, St)
+        else:
+            x, new_cache, _ = Tr.stack_apply(p.blocks, cfg, x, pos,
+                                             caches=cache, cache_index=0)
+        x = x[:, cfg.meta_tokens:]
+        return _logits(p, cfg, x[:, -1:]), new_cache
+
+    @torch.no_grad()
+    def decode_step(p: DecoderLM, tokens, cache, index: int):
         """One decode step.  tokens: (B, 1); index: the token's absolute
-        position (prompt + meta tokens + tokens decoded so far)."""
-        x = p.embed[torch.as_tensor(tokens, device=dev)].to(dt)
-        B = x.shape[0]
-        pos = torch.full((B, 1), int(index), dtype=torch.long, device=dev)
-        x, new_cache = Tr.stack_apply(p.blocks, cfg, x, pos,
-                                      caches=cache, cache_index=int(index))
+        position (prompt + meta tokens + tokens decoded so far), on every
+        M-RoPE stream for ``vlm``."""
+        x = _embed(p, tokens, dt, dev)
+        pos = _decode_positions(x.shape[0], index, cfg, dev)
+        x, new_cache, _ = Tr.stack_apply(
+            p.blocks, cfg, x, pos, caches=cache,
+            cache_index=None if cfg.family == "ssm" else int(index))
         return _logits(p, cfg, x), new_cache
+
+    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+def _build_encdec(cfg: ModelConfig, dev: torch.device) -> Model:
+    dt = getattr(torch, cfg.dtype)
+
+    def init(seed: int) -> EncDecLM:
+        p = EncDecLM(cfg, dev)
+        p.reset(runtime.generator(seed, dev))
+        return p
+
+    def encode(p: EncDecLM, batch):
+        """``batch["audio_embeds"]`` (B, frames, d), the post-conv frame
+        embeddings (the conv frontend is a stub), through the encoder."""
+        x = torch.as_tensor(batch["audio_embeds"], device=dev).to(dt)
+        B, S = x.shape[:2]
+        x, _, _ = Tr.stack_apply(p.encoder, cfg, x, _positions(B, S, cfg, dev))
+        return x
+
+    def decode(p: EncDecLM, tokens, enc, pos, caches=None,
+               cache_index=None):
+        x = _embed(p, tokens, dt, dev)
+        x, self_kv, _ = Tr.stack_apply(p.decoder, cfg, x, pos, caches=caches,
+                                       cache_index=cache_index, enc_out=enc)
+        return x, self_kv
+
+    @torch.no_grad()
+    def forward(p: EncDecLM, batch) -> torch.Tensor:
+        B, S = batch["tokens"].shape
+        x, _ = decode(p, batch["tokens"], encode(p, batch),
+                      _positions(B, S, cfg, dev))
+        return _logits(p, cfg, x)
+
+    def init_cache(batch_size: int, max_seq: int):
+        """{"self": the decoder's (k, v), "enc": the encoder output}."""
+        return {"self": _kv_cache(cfg, cfg.n_layers, batch_size, max_seq, dt,
+                                  dev),
+                "enc": torch.zeros((batch_size, cfg.enc_positions,
+                                    cfg.d_model), dtype=dt, device=dev)}
+
+    @torch.no_grad()
+    def prefill(p: EncDecLM, batch, cache):
+        enc = encode(p, batch)
+        B, S = batch["tokens"].shape
+        x, self_kv = decode(p, batch["tokens"], enc,
+                            _positions(B, S, cfg, dev), cache["self"], 0)
+        return _logits(p, cfg, x[:, -1:]), {"self": self_kv, "enc": enc}
+
+    @torch.no_grad()
+    def decode_step(p: EncDecLM, tokens, cache, index: int):
+        pos = _decode_positions(len(tokens), index, cfg, dev)
+        x, self_kv = decode(p, tokens, cache["enc"], pos, cache["self"],
+                            int(index))
+        return _logits(p, cfg, x), {"self": self_kv, "enc": cache["enc"]}
 
     return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
 
@@ -166,7 +323,9 @@ def build_model(cfg: ModelConfig, device=runtime.DEFAULT_DEVICE) -> Model:
     """The serving functions of ``cfg`` on ``device`` (default: the card;
     raises without one unless ``device="cpu"``)."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet; "
-            f"the port builds {PORTED_FAMILIES}")
-    return _build_decoder(cfg, runtime.resolve_device(device))
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); "
+                         f"known: {PORTED_FAMILIES}")
+    dev = runtime.resolve_device(device)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg, dev)
+    return _build_decoder(cfg, dev)

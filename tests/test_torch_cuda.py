@@ -668,6 +668,70 @@ def test_reduced_hymba_bf16_prefill_runs_on_the_tensor_core_kernel(cuda):
     assert torch.equal(r.tokens, generate(model, params, prompt, 4).tokens)
 
 
+def _family_run(arch, dev, dtype=None, n_new=5, batch=2, prompt=40):
+    """A reduced-config ``generate`` of ``arch`` on ``dev`` with the
+    family's stub inputs, weights from seed 0."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import generate, stub_inputs
+    from repro_torch.models.model import build_model
+    cfg = get_reduced(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen)
+    inputs = stub_inputs(cfg, batch, prompt, gen)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    return cfg, lambda p=params, m=model: generate(m, p, tokens, n_new,
+                                                   **inputs), params
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-236b",
+                                  "whisper-tiny"])
+def test_reduced_family_generate_goes_through_the_kernels(cuda, arch):
+    """The configured dtype (bfloat16): one tensor-core attention launch a
+    layer in prefill and in every decode step (over the full KV cache, or
+    MLA's latent; whisper's decoder two, self and cross, and its encoder
+    one a layer in prefill), and two runs give the same tokens."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    n_new = 5
+    cfg, run, _ = _family_run(arch, cuda, n_new=n_new)
+    per_step = cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+    fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
+    r = run()
+    want = cfg.enc_layers + per_step * n_new
+    assert fa.flash_attention.launches == want
+    assert fa.flash_attention.launches_tc == want
+    assert bool(torch.isfinite(r.logits).all())
+    assert torch.equal(r.tokens, run().tokens)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "falcon-mamba-7b",
+                                  "qwen2-vl-72b", "deepseek-v2-236b",
+                                  "grok-1-314b", "whisper-tiny"])
+def test_reduced_family_float32_generate_equals_the_cpus(cuda, arch):
+    """Float32 on the card (the SIMT attention kernel, the scan) and on the
+    CPU (plain versions), one weight set: the same greedy tokens, logits
+    within 1e-3."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    cfg, run, params = _family_run(arch, cuda, dtype="float32")
+    fa.flash_attention.launches = ms.selective_scan.launches = 0
+    fa.flash_attention.launches_tc = 0
+    r = run()
+    if cfg.family == "ssm":
+        assert ms.selective_scan.launches == cfg.n_layers * 5
+        assert fa.flash_attention.launches == 0
+    else:
+        assert fa.flash_attention.launches > 0
+        assert fa.flash_attention.launches_tc == 0
+    _, run_cpu, _ = _family_run(arch, "cpu", dtype="float32")
+    r_cpu = run_cpu(p=params.to("cpu"))
+    assert torch.equal(r.tokens.cpu(), r_cpu.tokens)
+    assert float((r.logits.cpu() - r_cpu.logits).abs().max()) <= 1e-3
+
+
 def test_calibration_fit_on_the_card_matches_the_cpu(cuda):
     """The default calibration (the simulator sweep plus the published
     baseline rows under ``DEFAULT_FREE``) fit on the card: its constants
