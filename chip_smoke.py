@@ -8,9 +8,10 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
    as ``nvidia-smi`` reports them;
 2. build every kernel of the driven paths from its sources (``pareto_rank``
    with its lane axis,
-   ``gp_cov``, ``flash_attention`` — its float32 SIMT kernel and its
-   bfloat16 tensor-core kernel in one library — and ``mamba_scan``), all
-   ``nvcc`` processes started together; print the build seconds, the
+   ``gp_cov``, ``flash_attention`` — its float32 SIMT kernel, its
+   bfloat16 tensor-core kernel and its backward kernels in one library —
+   and ``mamba_scan`` with its backward), one ``nvcc`` a source, all
+   started together; print the build seconds, the
    ``-Xptxas -v`` report of the attention and scan kernels (registers,
    shared memory, spills, per instantiation: the attention kernels' padded
    head dims (PD, PV), 192 / 128 for MLA; a scan kernel that spills fails
@@ -225,7 +226,41 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     and every cache leaf) within 1e-3, the float32 SIMT attention kernel
     counted; for deepseek-v2 each token's routed experts compared first (a
     difference fails unless the swapped experts' probabilities are within
-    1e-5: such a tie is printed and counted).
+    1e-5: such a tie is printed and counted);
+17. training on the card (phase 2 built the two backward kernels,
+    ``flash_attention_bwd.cu`` into the attention library and
+    ``mamba_scan_bwd.cu`` into the scan's):
+    (a) each backward kernel against its plain version on the same
+    residuals: attention in float32 (3e-5, the reference's gradient
+    tolerance) and bfloat16 (two bf16 roundings plus 1e-4 of the largest
+    gradient) at Hymba's training shape (4, 1152, 25 / 5 heads, 64, window
+    1024), internlm2's (1, 1024, 16 / 8, 128, causal), MLA's head dims (1,
+    512, 16 heads, 192 / 128), whisper's encoder (1, 1500, 6, 64, ``none``),
+    a ragged ``kv_valid_len`` and small head dims, with the forward's
+    log-sum-exp against the plain one; the scan (1e-4) at Hymba's width,
+    at Falcon-Mamba's (8192) with h0 and a gradient on h_T, and at ragged
+    shapes; every call twice, bitwise equal; the main shapes timed beside
+    their bound, the plain version and, for attention, the backward of
+    ``scaled_dot_product_attention`` under autograd (its forward
+    subtracted);
+    (b) one ``make_train_step`` of Hymba at full width and 2 layers,
+    float32, batch 1, 64 tokens: the card (kernels, counted) against the
+    CPU (plain versions): loss and gradient norm within rtol 1e-4, every
+    updated parameter within a quarter of the step's learning rate;
+    (c) ``hymba-1.5b`` as configured (32 layers, bf16 activations, float32
+    weights, remat ``dots`` in groups of 4), AdamW with bf16 moments (lr
+    3e-4, 2 warmup steps), 6 steps of ``SyntheticLM`` batches (4 x 1024
+    tokens, 1152 positions with the meta tokens) through ``train_loop``,
+    with the counts set to 0 just before and read just after (each layer's
+    attention and scan forward twice a step, its recomputation included,
+    and backward once): every loss finite and the last below the first;
+    step walls, tokens/s, the optimizer's share, peak device memory, and
+    the last step's device time and kernels from ``torch.profiler``;
+    (d) ``FaultTolerantTrainer`` on the reduced Hymba with a
+    ``CheckpointManager`` in a temporary directory (a checkpoint every 2
+    steps) and a ``TransientError`` injected once at step 3: one restart,
+    6 steps; a second trainer on the directory resumes at step 6, its first
+    loss bit for bit the loss of the first trainer's state continued.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -264,7 +299,8 @@ from repro_torch.calib import (CalibratedTech,  # noqa: E402
                                simulator_sweep)
 from repro_torch.calib.fit import DEFAULT_FREE  # noqa: E402
 from repro_torch.calib.measurements import SWEEP_SHAPES  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import presets  # noqa: E402
 from repro_torch.core.constants import (DEFAULT_TECH,  # noqa: E402
                                         FITTABLE_FIELDS, METRIC_FIELDS,
@@ -280,6 +316,7 @@ from repro_torch.core.optimizer import (METRIC_KEYS, OBJ_EDP,  # noqa: E402
                                         prob_improvement)
 from repro_torch.core.workload import (MAX_LOOPS,  # noqa: E402
                                        WorkloadGraph, matmul)
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.explore.archive import (HV_LOG_REF,  # noqa: E402
                                          MANIFEST_NAME, ArchiveManifest,
                                          ManifestPolicy, ParetoArchive,
@@ -290,17 +327,26 @@ from repro_torch.explore import quantize  # noqa: E402
 from repro_torch.explore.service import BudgetPolicy  # noqa: E402
 from repro_torch.kernels.gp_cov import ops as gp_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    NEG_INF, attention_ref, flash_attention_blocked,
+    flash_attention_bwd_blocked)
 from repro_torch.kernels.gp_cov.ref import matern52_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
-from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
+    selective_scan_bwd_ref, selective_scan_ref)
 from repro_torch.launch.serve import generate, stub_inputs  # noqa: E402
+from repro_torch.launch.train import (make_train_state,  # noqa: E402
+                                      make_train_step, train_loop)
 from repro_torch.models import layers as Ly  # noqa: E402
 from repro_torch.models import transformer as Tr  # noqa: E402
 from repro_torch.models.model import build_model, lm_module  # noqa: E402
 from repro_torch.kernels.pareto_rank import ops as pareto_ops  # noqa: E402
 from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref  # noqa: E402
 from repro_torch.obs.report import render  # noqa: E402
+from repro_torch.optim.adamw import (AdamWConfig,  # noqa: E402
+                                     adamw_init, adamw_update)
+from repro_torch.runtime.driver import (FaultTolerantTrainer,  # noqa: E402
+                                        TransientError)
 from repro_torch.serve import (CANCELLED, DONE, RUNNING,  # noqa: E402
                                CancelledError, Executor, JobStore,
                                query_to_payload)
@@ -1078,6 +1124,14 @@ def attention_build_report(lib: Path) -> dict:
                  f"head dims)")
     print(f"flash_attention build: {json.dumps(kernels)}; HGMMA "
           f"instructions in the SASS: {out['hgmma']}")
+    out["backward"] = ptxas_report(
+        lib, r"(attn_bwd_(?:dq|dkdv)_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi"
+             r"(\d+)E")
+    if len(out["backward"]) != 20:
+        fail(f"the flash_attention build log names "
+             f"{len(out['backward'])} backward kernels, not 20 (dq and dk / "
+             f"dv, 2 types, 5 head-dim classes)")
+    print(f"flash_attention backward build: {json.dumps(out['backward'])}")
     return out
 
 
@@ -1106,7 +1160,12 @@ def scan_build_report(lib: Path) -> dict:
     if spills:
         fail(f"mamba_scan kernels spill registers: {json.dumps(spills)}")
     print(f"mamba_scan build: {json.dumps(kernels)}")
-    return kernels
+    bwd = ptxas_report(lib, r"(scan_bwd_kernel)ILi(\d+)E")
+    if len(bwd) != 6:
+        fail(f"the mamba_scan build log names {len(bwd)} backward kernels, "
+             f"not 6 (one a state-size class)")
+    print(f"mamba_scan backward build: {json.dumps(bwd)}")
+    return dict(forward=kernels, backward=bwd)
 
 
 def golden_design(spec):
@@ -1184,16 +1243,19 @@ def device_by_kernel(fn, host: bool = True) -> tuple:
 
 def kernel_split(by_name: dict, total_s: float, top: int = 5) -> dict:
     """Device seconds of the port's LM kernels (the two attention kernels
-    by their own names, the scan) and of the ``top`` kernels by device
-    time, each with its share of ``total_s``."""
+    by their own names, the scan, the two backward passes) and of the
+    ``top`` kernels by device time, each with its share of ``total_s``."""
     def share(keys):
         t = sum(by_name[k][0] for k in keys)
         return dict(s=t, share=t / total_s if total_s > 0 else 0.0,
                     count=sum(by_name[k][1] for k in keys))
-    out = {name: share([k for k in by_name if tag in k])
-           for name, tag in (("flash_attention_tc", "attn_fwd_wgmma_kernel"),
-                             ("flash_attention_simt", "attn_fwd_kernel"),
-                             ("mamba_scan", "scan_kernel"))}
+    out = {name: share([k for k in by_name if any(t in k for t in tags)])
+           for name, tags in (
+               ("flash_attention_tc", ("attn_fwd_wgmma_kernel",)),
+               ("flash_attention_simt", ("attn_fwd_kernel",)),
+               ("mamba_scan", ("scan_kernel",)),
+               ("flash_attention_bwd", ("attn_bwd_",)),
+               ("mamba_scan_bwd", ("scan_bwd_kernel", "sum_middle_kernel")))}
     out["top"] = [dict(kernel=k[:120], s=t, count=c,
                        share=t / total_s if total_s > 0 else 0.0)
                   for k, (t, c) in sorted(by_name.items(),
@@ -3837,6 +3899,540 @@ def families_phase() -> dict:
 
 
 
+# ---- 17. training on the card ---------------------------------------------
+# (a) the backward kernels against their plain versions: (B, Sq, Sk, H, KV,
+# D, Dv, mask, window, kv_valid_len, tag).  Hymba's training shape (the
+# phase 11 request: 1024 tokens + 128 meta tokens, batch 4), internlm2's
+# (one 1024-token sequence), MLA's head dims, whisper's encoder over its
+# 1500 frames, a ragged kv_valid_len, and small shapes for the other head
+# dim classes (16, 32) and D != Dv under a window
+FA_BWD_TRAIN = (4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None,
+                "hymba train")
+FA_BWD_SHAPES = (FA_BWD_TRAIN,
+                 (1, 1024, 1024, 16, 8, 128, 128, "causal", 0, None,
+                  "internlm2 train"),
+                 (1, 512, 512, 16, 16, 192, 128, "causal", 0, None,
+                  "MLA train"),
+                 (1, 1500, 1500, 6, 6, 64, 64, "none", 0, None,
+                  "whisper encoder train"),
+                 (2, 200, 333, 25, 5, 64, 64, "causal", 0, 317,
+                  "kv_valid_len"),
+                 (1, 40, 48, 4, 2, 16, 16, "causal", 0, None, "head dim 16"),
+                 (2, 96, 160, 4, 1, 16, 64, "window", 48, 150, "Dv != D"),
+                 (1, 64, 64, 4, 4, 32, 32, "none", 0, None, "head dim 32"))
+FA_BWD_TIMED = ("hymba train", "internlm2 train", "MLA train",
+                "whisper encoder train")
+# float32: the reference's gradient tolerance (tests/test_kernels.py);
+# bfloat16: kernel and plain version compute in float32 from the same bf16
+# inputs and round once to bf16, so they differ by at most two bf16
+# roundings (rtol 2^-7) plus float32 order differences, held to 1e-4 of
+# the largest gradient
+FA_BWD_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (None, 2 ** -7)}
+FA_BWD_BF16_ATOL_OF_MAX = 1e-4
+# the forward's log-sum-exp against the plain version's: float32 within
+# the float32 forward tolerance, bf16 within ex2.approx's and the sums'
+# rounding
+FA_LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
+# the scan backward: (B, S, Di, Ds, h0 and dhT given, tag)
+MS_BWD_TRAIN = (4, 1152, 3200, 16, False, "hymba train")
+MS_BWD_SHAPES = (MS_BWD_TRAIN, (1, 512, 8192, 16, True, "falcon-mamba width"),
+                 (2, 37, 70, 3, True, "ragged"), (1, 5, 33, 16, False,
+                                                  "ragged"),
+                 (3, 77, 130, 32, True, "ragged"), (1, 1, 64, 1, True,
+                                                    "one step"))
+MS_BWD_TIMED = ("hymba train", "falcon-mamba width")
+MS_BWD_TOL = 1e-4
+FA_BWD_SOURCE = FA_SOURCES + "flash_attention_bwd.cu"
+MS_BWD_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu"
+# (b) one train step at full width, 2 layers, float32, batch 1, 64 tokens:
+# card against CPU.  Each parameter's gradient of the loss, before the
+# optimizer, within 2e-5 of its tensor's largest magnitude plus rtol 1e-4
+# (the tolerance of tests/test_torch_train.py against jax.grad).  Then one
+# make_train_step on each: loss and gradient norm within 1e-4 (relative),
+# and the updated weights as a second check.  AdamW's first step moves each weight by lr g / (|g| + eps) + lr wd p: where the
+# gradient stands clear of the float32 noise of the two devices' sums (|g|
+# at least TRAIN_GRAD_FLOOR of its tensor's largest, read from the CPU's
+# first moment) the two moves agree to the weight's rounding (1e-6); where
+# it does not, its direction is noise and the moves may differ by up to
+# 2 lr, so those weights are held to 2 lr + 1e-6 and counted
+TRAIN_PARITY_TOKENS = 64
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_ATOL_OF_MAX, TRAIN_GRAD_RTOL = 2e-5, 1e-4
+TRAIN_GRAD_FLOOR = 1e-3
+TRAIN_PARAM_ATOL = 1e-6
+# (c) hymba-1.5b as configured, 6 steps of a batch 4 x 1024 tokens
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
+TRAIN_OPT = AdamWConfig(lr=3e-4, warmup_steps=2)
+# (d) the fault-tolerant driver on the reduced config
+FT_STEPS, FT_CKPT_EVERY, FT_FAULT_AT = 6, 2, 3
+
+
+def fa_bwd_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask, window, kvl,
+                    dtype) -> tuple:
+    """Least time for one attention backward: 2 (3 D + 2 Dv) operations per
+    visible (q, k) pair and head (S = q k, dP = dout v, dv += P dout,
+    dq += dS k, dk += dS q: 5 products where the forward has 2) at the
+    input type's peak, or q, k, v, out, dout and lse read once and dq, dk,
+    dv written once at the memory rate, whichever is larger.  Per query
+    row and head: q and dq (D each), out and dout (Dv each); per visible
+    key row and kv head: k and dk (D each), v and dv (Dv each)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    valid = Sk if kvl is None else kvl
+    t_bytes = (size * (B * Sq * H * (D + Dv) * 2
+                       + B * valid * KV * (D + Dv) * 2)
+               + 4 * B * H * Sq) / PEAK_BYTES_PER_S * 1e3
+    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 \
+        else PEAK_FP32_OPS_PER_S
+    ops = 2 * B * H * (3 * D + 2 * Dv) * visible_pairs(Sq, Sk, mask, window,
+                                                       kvl)
+    t_ops = ops / peak * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ms_bwd_bound_ms(B, S, Di, Ds, with_h0: bool) -> tuple:
+    """Least time for one scan backward: u, delta, dy, A, Bc, Cc (h0, dhT)
+    read once and du, ddelta, dA, dB, dC (dh0) written once at the memory
+    rate, or 10 FP32 operations per (b, t, di, n) at the FP32 rate,
+    whichever is larger."""
+    elems = (5 * B * S * Di + 2 * Di * Ds + 4 * B * S * Ds
+             + (3 * B * Di * Ds if with_h0 else 0))
+    t_bytes = 4 * elems / PEAK_BYTES_PER_S * 1e3
+    t_ops = 10 * B * S * Di * Ds / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_bwd_ms(q, k, v, dout, mask, w, kvl) -> float:
+    """The backward of one ``scaled_dot_product_attention`` call under
+    autograd (boolean mask, ``enable_gqa``; the port never calls it): its
+    forward and backward timed together, its forward subtracted."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gt = dout.transpose(1, 2).contiguous()
+    valid = Sk if kvl is None else kvl
+    qp = torch.arange(Sq, device="cuda")[:, None] + (
+        valid - Sq if kvl is not None else 0)
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    allowed = kp < valid
+    if mask != "none":
+        allowed = allowed & (kp <= qp)
+    if mask == "window":
+        allowed = allowed & (qp - kp < w)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+    both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt), 5)
+    with torch.no_grad():
+        fwd = cuda_ms(sdpa, 5)
+    return both - fwd
+
+
+def check_attention_bwd() -> list:
+    """(a) for attention: the forward's log-sum-exp and the backward kernel
+    against the plain versions, twice bitwise equal, timed."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for shape in FA_BWD_SHAPES:
+        B, Sq, Sk, H, KV, D, Dv, mask, w, kvl, tag = shape
+        for dt in (torch.float32, torch.bfloat16):
+            r = lambda *s: torch.randn(*s, generator=gen,
+                                       device="cuda").to(dt)
+            q, k, v = r(B, Sq, H, D), r(B, Sk, KV, D), r(B, Sk, KV, Dv)
+            dout = r(B, Sq, H, Dv)
+            out, lse = fa_ops.flash_attention_fwd_lse(q, k, v, mask, w, kvl)
+            torch.cuda.synchronize()
+            _, lse_want = flash_attention_blocked(q, k, v, mask, w, kvl,
+                                                  return_lse=True)
+            seen = lse_want > NEG_INF / 2
+            lse_err = float((lse - lse_want)[seen].abs().max()) \
+                if bool(seen.any()) else 0.0
+            if not lse_err <= FA_LSE_TOL[dt]:
+                fail(f"flash_attention's log-sum-exp disagrees with its plain "
+                     f"version at {shape[:-1]} {dt}: max abs err {lse_err}")
+            before = fa_ops.flash_attention.launches_bwd
+            got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, mask,
+                                             w, kvl)
+            torch.cuda.synchronize()
+            if fa_ops.flash_attention.launches_bwd != \
+                    before + fa_ops.BWD_LAUNCHES:
+                fail("flash_attention_bwd did not count its launches")
+            want = flash_attention_bwd_blocked(q, k, v, out, lse, dout, mask,
+                                               w, kvl)
+            atol, rtol = FA_BWD_TOL[dt]
+            errs = {}
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                a, b = a.float(), b.float()
+                tol_a = atol if atol is not None else \
+                    FA_BWD_BF16_ATOL_OF_MAX * float(b.abs().max())
+                diff = (a - b).abs()
+                errs[name] = float(diff.max())
+                if not bool((diff <= tol_a + rtol * b.abs()).all()):
+                    fail(f"flash_attention_bwd disagrees with its plain "
+                         f"version at {shape[:-1]} {dt}: {name} max abs err "
+                         f"{errs[name]} (atol {tol_a}, rtol {rtol})")
+            again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, mask,
+                                               w, kvl)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"flash_attention_bwd is not deterministic at "
+                     f"{shape[:-1]} {dt}")
+            row = dict(shape=list(shape[:-1]), tag=tag, dtype=str(dt),
+                       max_abs_err=max(errs.values()), errs=errs,
+                       lse_max_abs_err=lse_err, atol=atol, rtol=rtol)
+            if tag in FA_BWD_TIMED:
+                call = lambda: fa_ops.flash_attention_bwd(
+                    q, k, v, out, lse, dout, mask, w, kvl)
+                b_ms, b_by = fa_bwd_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask,
+                                             w, kvl, dt)
+                row.update(
+                    ms=cuda_ms(call, 5),
+                    plain_ms=cuda_ms(lambda: flash_attention_bwd_blocked(
+                        q, k, v, out, lse, dout, mask, w, kvl), 2, warmup=1),
+                    library_ms=sdpa_bwd_ms(q, k, v, dout, mask, w, kvl),
+                    bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            timing = (f", kernel {row['ms'] * 1e3:.1f} us, plain "
+                      f"{row['plain_ms'] * 1e3:.1f} us, sdpa backward "
+                      f"{row['library_ms'] * 1e3:.1f} us, bound "
+                      f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
+                      if "ms" in row else "")
+            print(f"flash_attention_bwd {shape[:-1]} {tag} {dt}: max abs err "
+                  f"{json.dumps(errs)}, lse {lse_err:.3g}, deterministic"
+                  f"{timing}")
+    return rows
+
+
+def check_scan_bwd() -> list:
+    """(a) for the scan: the backward kernel against the plain reverse-time
+    version (1e-4), twice bitwise equal, timed."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rows = []
+    for B, S, Di, Ds, with_h0, tag in MS_BWD_SHAPES:
+        u, dl = r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di))
+        A = -torch.exp(r(Di, Ds) * 0.3)
+        Bc, Cc, dy = r(B, S, Ds), r(B, S, Ds), r(B, S, Di)
+        h0 = r(B, Di, Ds) if with_h0 else None
+        dhT = r(B, Di, Ds) if with_h0 else None
+        args = (u, dl, A, Bc, Cc, h0, dy, dhT)
+        before = ms_ops.selective_scan.launches_bwd
+        got = ms_ops.selective_scan_bwd(*args)
+        torch.cuda.synchronize()
+        if ms_ops.selective_scan.launches_bwd != \
+                before + ms_ops.BWD_LAUNCHES:
+            fail("selective_scan_bwd did not count its launches")
+        want = selective_scan_bwd_ref(*args)
+        errs = {}
+        for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC", "dh0"), got,
+                              want):
+            if b is None:
+                continue
+            diff = (a - b).abs()
+            errs[name] = float(diff.max())
+            if not bool((diff <= MS_BWD_TOL + MS_BWD_TOL * b.abs()).all()):
+                fail(f"selective_scan_bwd disagrees with its plain version at "
+                     f"{(B, S, Di, Ds)} {tag}: {name} max abs err "
+                     f"{errs[name]}")
+        again = ms_ops.selective_scan_bwd(*args)
+        if not all(a is None or torch.equal(a, b) for a, b in zip(got,
+                                                                  again)):
+            fail(f"selective_scan_bwd is not deterministic at "
+                 f"{(B, S, Di, Ds)} {tag}")
+        row = dict(shape=[B, S, Di, Ds], tag=tag, h0=with_h0,
+                   max_abs_err=max(errs.values()), errs=errs,
+                   tolerance=MS_BWD_TOL)
+        if tag in MS_BWD_TIMED:
+            b_ms, b_by = ms_bwd_bound_ms(B, S, Di, Ds, with_h0)
+            row.update(ms=cuda_ms(lambda: ms_ops.selective_scan_bwd(*args),
+                                  5),
+                       plain_ms=cuda_ms(lambda: selective_scan_bwd_ref(*args),
+                                        1, warmup=0),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        rows.append(row)
+        timing = (f", kernel {row['ms'] * 1e3:.1f} us, plain "
+                  f"{row['plain_ms'] * 1e3:.1f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
+                  if "ms" in row else "")
+        print(f"mamba_scan_bwd {(B, S, Di, Ds)} {tag} h0/dhT={with_h0}: max "
+              f"abs err {json.dumps(errs)} (tol {MS_BWD_TOL}), deterministic"
+              f"{timing}")
+    return rows
+
+
+def reset_train_counts():
+    reset_lm_counts()
+    fa_ops.flash_attention.launches_bwd = 0
+    ms_ops.selective_scan.launches_bwd = 0
+
+
+def train_counts() -> dict:
+    return dict(lm_counts(),
+                flash_attention_bwd=fa_ops.flash_attention.launches_bwd,
+                mamba_scan_bwd=ms_ops.selective_scan.launches_bwd)
+
+
+def expected_train_counts(cfg, steps: int) -> dict:
+    """The launches of ``steps`` hybrid train steps under remat: each layer's
+    attention and scan forward run twice (the forward and its
+    recomputation in the backward) and backward once (three kernels for
+    attention, four for the scan); bf16 attention on the tensor cores."""
+    L = cfg.n_layers
+    tc = 2 * L * steps if cfg.dtype == "bfloat16" else 0
+    return dict(flash_attention=2 * L * steps, flash_attention_tc=tc,
+                mamba_scan=2 * L * steps,
+                flash_attention_bwd=fa_ops.BWD_LAUNCHES * L * steps,
+                mamba_scan_bwd=ms_ops.BWD_LAUNCHES * L * steps)
+
+
+def loss_grads(model, params, batch) -> dict:
+    """Each parameter's gradient of ``model.loss`` on ``batch`` (zeros
+    where the loss does not reach it)."""
+    names, ps = zip(*params.named_parameters())
+    loss, _ = model.loss(params, batch)
+    gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g
+            for n, p, g in zip(names, ps, gs)}
+
+
+def grads_card_vs_cpu(card, cpu, params, params_cpu, batch) -> dict:
+    """(b)'s gradient check: the card's gradients against the CPU's, tensor
+    by tensor, at 2e-5 of the CPU tensor's largest magnitude plus rtol
+    1e-4."""
+    got = loss_grads(card, params, batch)
+    want = loss_grads(cpu, params_cpu, batch)
+    worst, name_worst = 0.0, None
+    for n, b in want.items():
+        a = got[n].cpu()
+        scale = float(b.abs().max())
+        diff = (a - b).abs()
+        if not bool((diff <= TRAIN_GRAD_ATOL_OF_MAX * scale
+                     + TRAIN_GRAD_RTOL * b.abs()).all()):
+            fail(f"hymba train step card vs CPU: the gradient of {n} "
+                 f"differs by {float(diff.max())} (its largest magnitude "
+                 f"{scale}; gate {TRAIN_GRAD_ATOL_OF_MAX} of it + rtol "
+                 f"{TRAIN_GRAD_RTOL})")
+        rel = float(diff.max()) / scale if scale > 0 else float(diff.max())
+        if rel >= worst:
+            worst, name_worst = rel, n
+    return dict(grad_worst_of_max=worst, grad_worst=name_worst,
+                grad_tensors=len(want))
+
+
+def train_card_vs_cpu() -> dict:
+    """(b): Hymba at full width and 2 layers, float32, on the card
+    (kernels) and on the CPU (plain versions), from one seeded state: the
+    gradients of the loss, then one make_train_step."""
+    cfg = dataclasses.replace(get_config(HYMBA), n_layers=2, dtype="float32")
+    card, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2)
+    st = make_train_state(card, 0, opt)
+    params_cpu = lm_module(cfg, "cpu")
+    params_cpu.load_state_dict(st["params"].state_dict())
+    params_cpu.requires_grad_(True)
+    st_cpu = {"params": params_cpu, "opt": adamw_init(opt, params_cpu)}
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_PARITY_TOKENS,
+                                   global_batch=1)).batch_at(0)
+    t0 = time.perf_counter()
+    grads = grads_card_vs_cpu(card, cpu, st["params"], params_cpu, batch)
+    reset_train_counts()
+    _, m = make_train_step(card, opt)(st, batch)
+    torch.cuda.synchronize()
+    launches = train_counts()
+    _, m_cpu = make_train_step(cpu, opt)(st_cpu, batch)
+    want = expected_train_counts(cfg, 1)
+    if launches != want:
+        fail(f"hymba train step on the card launched {launches}, expected "
+             f"{want}")
+    loss, loss_cpu = float(m["loss"]), float(m_cpu["loss"])
+    gn, gn_cpu = float(m["grad_norm"]), float(m_cpu["grad_norm"])
+    for name, a, b in (("loss", loss, loss_cpu), ("grad norm", gn, gn_cpu)):
+        if not abs(a - b) <= TRAIN_LOSS_RTOL * abs(b):
+            fail(f"hymba train step card vs CPU: {name} {a} against {b}")
+    lr = float(m["lr"])
+    worst, name_worst, noise, noise_worst = 0.0, None, 0, 0.0
+    for (n, a), b in zip(st["params"].named_parameters(),
+                         st_cpu["params"].parameters()):
+        d = (a.detach().cpu() - b.detach()).abs()
+        mu = st_cpu["opt"]["mu"][n].float().abs()
+        clear = mu >= TRAIN_GRAD_FLOOR * float(mu.max())
+        noise += int((~clear).sum())
+        if bool((~clear).any()):
+            noise_worst = max(noise_worst, float(d[~clear].max()))
+        if bool(clear.any()) and float(d[clear].max()) > worst:
+            worst, name_worst = float(d[clear].max()), n
+    if not worst <= TRAIN_PARAM_ATOL:
+        fail(f"hymba train step card vs CPU: parameter {name_worst} differs "
+             f"by {worst} > {TRAIN_PARAM_ATOL} where its gradient is clear "
+             f"of the noise")
+    if not noise_worst <= 2 * lr + TRAIN_PARAM_ATOL:
+        fail(f"hymba train step card vs CPU: a weight with a noise-level "
+             f"gradient moved {noise_worst} apart, more than 2 lr")
+    out = dict(loss=loss, loss_cpu=loss_cpu, grad_norm=gn,
+               grad_norm_cpu=gn_cpu, **grads, param_max_abs_err=worst,
+               param_worst=name_worst, param_atol=TRAIN_PARAM_ATOL,
+               noise_level_weights=noise, noise_level_max_abs_err=noise_worst,
+               lr=lr, launches=launches, wall_s=time.perf_counter() - t0)
+    print(f"hymba train step card vs CPU (d {cfg.d_model}, {cfg.n_layers} "
+          f"layers, float32, {TRAIN_PARITY_TOKENS} tokens + {cfg.meta_tokens} "
+          f"meta): loss {loss:.7f} / {loss_cpu:.7f}, grad norm {gn:.6f} / "
+          f"{gn_cpu:.6f}; {grads['grad_tensors']} gradients within "
+          f"{grads['grad_worst_of_max']:.3g} of their largest magnitude "
+          f"({grads['grad_worst']}; gate {TRAIN_GRAD_ATOL_OF_MAX} + rtol "
+          f"{TRAIN_GRAD_RTOL}); weights with a clear gradient within "
+          f"{worst:.3g} "
+          f"({name_worst}; gate {TRAIN_PARAM_ATOL}), the {noise} with a "
+          f"noise-level one within {noise_worst:.3g} (gate 2 lr = "
+          f"{2 * lr:.3g}); card launches {launches}; "
+          f"{out['wall_s']:.1f} s")
+    return out
+
+
+def hymba_train() -> dict:
+    """(c): hymba-1.5b as configured, 6 steps through ``train_loop``."""
+    cfg = get_config(HYMBA)
+    model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, 0, TRAIN_OPT)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    step = make_train_step(model, TRAIN_OPT)
+    walls, prof = [], {}
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(walls) == TRAIN_STEPS - 1:      # the last step, profiled
+            out = []
+            s, n, by = device_by_kernel(
+                lambda: out.append(step(state, batch)), host=False)
+            prof.update(device_s=s, kernels=n, split=kernel_split(by, s))
+            result = out[0]
+        else:
+            result = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return result
+
+    reset_train_counts()
+    res, state = train_loop(model, state, data.stream(0, TRAIN_STEPS), timed,
+                            log_every=0)
+    launches = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_counts(cfg, TRAIN_STEPS)
+    if launches != want:
+        fail(f"hymba-1.5b training launched {launches}, expected {want}")
+    if not all(np.isfinite(res.losses)):
+        fail(f"hymba-1.5b training: non-finite loss {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"hymba-1.5b training: loss did not fall {res.losses}")
+    # the optimizer alone, on zero gradients (its time does not depend on
+    # the values)
+    params = state["params"]
+    grads = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adamw_update(TRAIN_OPT, grads, state["opt"], params)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    del grads
+    rest = walls[1:-1]
+    step_s = sum(rest) / len(rest)
+    out = dict(params=sum(p.numel() for p in params.parameters()),
+               losses=res.losses, walls_s=walls, first_step_s=walls[0],
+               step_s=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+               optimizer_s=opt_s, optimizer_share=opt_s / step_s,
+               peak_bytes=peak, launches=launches,
+               launches_per_step={k: v // TRAIN_STEPS
+                                  for k, v in launches.items()},
+               profiled_step=prof)
+    print(f"hymba-1.5b training ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"bf16 activations, remat {cfg.remat}, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} + {cfg.meta_tokens} meta, {out['params']} "
+          f"parameters): losses {[round(x, 4) for x in res.losses]}; step "
+          f"walls {[round(x, 4) for x in walls]} s (first {walls[0]:.3f} s, "
+          f"steps 2-{TRAIN_STEPS - 1} mean {step_s:.4f} s; the last is "
+          f"profiled), {out['tokens_per_s']:.1f} tokens/s, optimizer "
+          f"{opt_s * 1e3:.1f} ms = {out['optimizer_share']:.1%} of a step, "
+          f"peak device memory {peak / 2**30:.3f} GiB; launches a step "
+          f"{out['launches_per_step']}")
+    if prof.get("device_s"):
+        print(f"hymba-1.5b training: one step under the profiler "
+              f"{prof['device_s'] * 1e3:.2f} ms device time, "
+              f"{prof['kernels']} kernels; split {json.dumps(prof['split'])}")
+    else:
+        print("hymba-1.5b training: device time not measured (the profiler "
+              "saw no device events)")
+    return out
+
+
+def fault_tolerant_train() -> dict:
+    """(d): FaultTolerantTrainer on the reduced Hymba on the card: a
+    transient fault at step 3, then a second trainer resuming from the
+    directory, its first loss bit for bit that of the first trainer's state
+    continued."""
+    cfg = get_reduced(HYMBA)
+    model = build_model(cfg, "cuda")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=2))
+    step = make_train_step(model, opt)
+    boom = {FT_FAULT_AT}
+
+    def fault(s):
+        if s in boom:
+            boom.clear()
+            raise TransientError("injected")
+
+    with tempfile.TemporaryDirectory() as d:
+        tr1 = FaultTolerantTrainer(step, CheckpointManager(d),
+                                   ckpt_every=FT_CKPT_EVERY, fault_hook=fault)
+        rep1, st1 = tr1.run(make_train_state(model, 0, opt), data.batch_at,
+                            num_steps=FT_STEPS)
+        if rep1.restarts != 1 or rep1.end_step != FT_STEPS:
+            fail(f"fault-tolerant training: restarts {rep1.restarts}, end "
+                 f"{rep1.end_step}")
+        tr2 = FaultTolerantTrainer(step, CheckpointManager(d),
+                                   ckpt_every=FT_CKPT_EVERY)
+        rep2, _ = tr2.run(make_train_state(model, 1, opt), data.batch_at,
+                          num_steps=2)
+        if rep2.start_step != FT_STEPS:
+            fail(f"the second trainer started at {rep2.start_step}, not "
+                 f"{FT_STEPS}")
+        _, m = step(st1, data.batch_at(FT_STEPS))
+        cont = float(m["loss"])
+    if rep2.losses[0] != cont:
+        fail(f"the resumed loss {rep2.losses[0]!r} differs from the "
+             f"continued run's {cont!r}")
+    out = dict(losses=rep1.losses, restarts=rep1.restarts,
+               resumed_losses=rep2.losses, continued_loss=cont,
+               wall_s=rep1.wall_s + rep2.wall_s)
+    print(f"fault-tolerant training ({cfg.name}, card): losses "
+          f"{[round(x, 4) for x in rep1.losses]}, restarts {rep1.restarts}, "
+          f"resumed at step {rep2.start_step} with loss {rep2.losses[0]!r} = "
+          f"the continued run's, bit for bit")
+    return out
+
+
+def train_phase() -> dict:
+    """Phase 17: (a) the backward kernels, (b) a train step card vs CPU,
+    (c) hymba-1.5b trained for 6 steps, (d) the fault-tolerant driver."""
+    t0 = time.perf_counter()
+    fa_rows = check_attention_bwd()
+    ms_rows = check_scan_bwd()
+    t1 = time.perf_counter()
+    parity = train_card_vs_cpu()
+    free_card()
+    t2 = time.perf_counter()
+    trained = hymba_train()
+    free_card()
+    t3 = time.perf_counter()
+    ft = fault_tolerant_train()
+    out = dict(fa_bwd=fa_rows, ms_bwd=ms_rows, card_vs_cpu=parity,
+               train=trained, fault_tolerant=ft,
+               seconds=dict(kernels=t1 - t0, card_vs_cpu=t2 - t1,
+                            train=t3 - t2, fault_tolerant=time.perf_counter()
+                            - t3, total=time.perf_counter() - t0))
+    print(f"phase 17: {json.dumps(out['seconds'])}")
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3947,6 +4543,9 @@ def main():
     # ---- 16. every LM family on the card -----------------------------------
     families = families_phase()
 
+    # ---- 17. training on the card -------------------------------------------
+    trained = train_phase()
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -4031,7 +4630,7 @@ def main():
         prefill_device_ms=served.get("scan_prefill_device_ms"),
         launches_families={r["arch"]: r["launches"]["mamba_scan"]
                            for r in families["serve"]},
-        build=ms_build, shapes=ms_rows)
+        build=ms_build["forward"], shapes=ms_rows)
     lane_rows = fused["lane_shapes"]
     lane_main = next(r for r in lane_rows if r["tag"] == "fused selection")
     lanes_record = dict(
@@ -4046,8 +4645,40 @@ def main():
         singles_ms=lane_main["singles_ms"],
         singles_device_ms=lane_main["singles_device_ms"], shapes=lane_rows,
         main_path=fused)
+    fa_bwd = next(r for r in trained["fa_bwd"] if r["tag"] == "hymba train"
+                  and r["dtype"] == str(torch.bfloat16))
+    fa_bwd_record = dict(
+        name="flash_attention_bwd", route="cuda", source=FA_BWD_SOURCE,
+        replaces="src/repro/kernels/flash_attention/ops.py:166 (_fa_diff_bwd,"
+                 " the custom VJP of " + FA_REPLACES + ")",
+        launches=trained["train"]["launches"]["flash_attention_bwd"],
+        launches_per_call=fa_ops.BWD_LAUNCHES,
+        max_abs_err=max(r["max_abs_err"] for r in trained["fa_bwd"]),
+        ms=fa_bwd["ms"], plain_ms=fa_bwd["plain_ms"],
+        bound_ms=fa_bwd["bound_ms"], bound_by=fa_bwd["bound_by"],
+        library_ms=fa_bwd["library_ms"], dtype="bfloat16",
+        build=fa_build["backward"],
+        tolerance={str(k): v for k, v in FA_BWD_TOL.items()},
+        shapes=trained["fa_bwd"],
+        main_path=dict(train=trained["train"],
+                       card_vs_cpu=trained["card_vs_cpu"],
+                       fault_tolerant=trained["fault_tolerant"]))
+    ms_bwd = next(r for r in trained["ms_bwd"] if r["tag"] == "hymba train")
+    ms_bwd_record = dict(
+        name="mamba_scan_bwd", route="cuda", source=MS_BWD_SOURCE,
+        replaces="src/repro/kernels/mamba_scan/ops.py:26 (autodiff of "
+                 "selective_scan_assoc; the forward is "
+                 "src/repro/kernels/mamba_scan/mamba_scan.py:63)",
+        launches=trained["train"]["launches"]["mamba_scan_bwd"],
+        launches_per_call=ms_ops.BWD_LAUNCHES,
+        max_abs_err=max(r["max_abs_err"] for r in trained["ms_bwd"]),
+        ms=ms_bwd["ms"], plain_ms=ms_bwd["plain_ms"],
+        bound_ms=ms_bwd["bound_ms"], bound_by=ms_bwd["bound_by"],
+        library_ms=None, tolerance=MS_BWD_TOL, build=ms_build["backward"],
+        shapes=trained["ms_bwd"])
     print(json.dumps({"kernels": [record, gp_record, fa_record,
-                                  fa_f32_record, ms_record, lanes_record]}))
+                                  fa_f32_record, ms_record, lanes_record,
+                                  fa_bwd_record, ms_bwd_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,6 +17,10 @@ JAX arrays that ``np.asarray`` accepts):
   or ``encoder`` and ``decoder``, stacked on a leading layer axis; expert
   tensors (E, d, f), MLA's keys, the shared experts) as the port's
   parameter modules;
+* ``train_state_from_reference`` — a reference training state
+  (``{"params", "opt": {"mu", "nu", "step"}}``) as the port's
+  (``launch.train.make_train_state``'s layout), the moments in their own
+  dtype;
 * ``surrogate_from_reference`` — a reference ``Surrogate`` or
   ``NonlinearTrustModel`` as the port's (the ensemble weights and
   normalization statistics as numpy), so both packages compute the same
@@ -122,6 +126,35 @@ def lm_params_from_reference(params: Dict, cfg: ModelConfig,
             stacked = tree.pop(name)
             tree[name] = {str(i): _layer(stacked, i) for i in range(n)}
     return load_reference_params(lm_module(cfg, dev), tree)
+
+
+def train_state_from_reference(state: Dict, cfg: ModelConfig,
+                               device="cuda") -> Dict:
+    """The port's training state (on ``device``: the card unless
+    ``device="cpu"``) holding a reference state: the parameters as
+    ``lm_params_from_reference`` makes them, taking gradients; each moment
+    tree through the same mapping into a dict keyed by the parameters'
+    names, in the moments' dtype (bfloat16 goes through float32, exactly);
+    the step count as an int32 0-dim tensor."""
+    dev = resolve_device(device)
+    params = lm_params_from_reference(state["params"], cfg, dev)
+    params.requires_grad_(True)
+    opt = {"step": torch.tensor(int(np.asarray(state["opt"]["step"])),
+                                dtype=torch.int32, device=dev)}
+    for key in ("mu", "nu"):
+        tree = state["opt"][key]
+        dtype = str(np.asarray(next(_flatten(tree))[1]).dtype)
+        as_f32 = _map_tree(lambda a: np.asarray(a, np.float32), tree)
+        moments = lm_params_from_reference(as_f32, cfg, dev)
+        opt[key] = {n: p.detach().to(getattr(torch, dtype))
+                    for n, p in moments.named_parameters()}
+    return {"params": params, "opt": opt}
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def surrogate_from_reference(model):

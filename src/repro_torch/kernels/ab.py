@@ -9,9 +9,13 @@ kernel wrapper's launch.
 
 Each DIR holds another version's ``csrc`` files under the kernel's own file
 names (for example the parent commit's, unpacked with ``git archive``) and
-must export the same C entry with the same arguments.  Every library is
+must export the same C entry with the same arguments (for
+``flash_attention`` the forward, ``flash_attention_fwd``, built from
+``flash_attention.cu`` and ``flash_attention_wgmma.cu``).  Every library is
 first checked against the kernel's plain version at every shape
-(``pareto_rank`` exactly, ``flash_attention`` in float32 within 2e-5); a
+(``pareto_rank`` exactly, ``flash_attention`` in float32 within 2e-5 and in
+bfloat16 within the serving tolerance, atol 4e-3 and rtol 8e-3) and, for
+``flash_attention``, against the first version's output bit for bit; a
 shape a library refuses (a nonzero return code) is reported and not timed.
 Then each round times every library once, in turns: ``REPS`` launches of
 the C entry captured in one CUDA graph, replayed between CUDA events, so
@@ -56,13 +60,25 @@ KERNELS = ("pareto_rank", "flash_attention")
 REPS = 20
 # (n, k, valid fraction): the search path's largest pool and the 8192 pool
 PARETO_SHAPES = ((768, 4, 1.0), (8192, 4, 0.8))
-# (B, Sq, Sk, H, KV, D, Dv, mask, window, tag), float32
-FA_SHAPES = ((4, 1152, 1152, 25, 5, 64, 64, "window", 1024, "hymba prefill"),
-             (1, 1024, 1024, 32, 8, 128, 128, "causal", 0, "head dim 128"),
-             (1, 64, 64, 4, 4, 192, 128, "causal", 0, "MLA"),
-             (1, 512, 512, 128, 128, 192, 128, "causal", 0,
-              "deepseek-v2 width"))
-FA_TOL = 2e-5
+# (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid_len, dtype, tag): the
+# float32 shapes, then the bfloat16 serving shapes (Hymba's prefill,
+# internlm2's prefill into a longer cache and its decode step, MLA decode)
+FA_SHAPES = ((4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None, "float32",
+              "hymba prefill"),
+             (1, 1024, 1024, 32, 8, 128, 128, "causal", 0, None, "float32",
+              "head dim 128"),
+             (1, 64, 64, 4, 4, 192, 128, "causal", 0, None, "float32", "MLA"),
+             (1, 512, 512, 128, 128, 192, 128, "causal", 0, None, "float32",
+              "deepseek-v2 width"),
+             (4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None, "bfloat16",
+              "hymba prefill"),
+             (4, 1024, 1057, 16, 8, 128, 128, "causal", 0, 1024, "bfloat16",
+              "internlm2 prefill"),
+             (4, 1, 1057, 16, 8, 128, 128, "causal", 0, 1025, "bfloat16",
+              "internlm2 decode"),
+             (4, 1, 1057, 128, 128, 192, 128, "causal", 0, 1025, "bfloat16",
+              "MLA decode"))
+FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 8e-3)}
 
 
 def emit(**row):
@@ -129,7 +145,7 @@ def stream_now() -> int:
 
 
 def pareto_cases(fn):
-    """Per shape: (label, launch, check) for one library."""
+    """Per shape: (label, launch, check, output) for one library."""
     from .pareto_rank.ref import dominance_counts_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -146,7 +162,7 @@ def pareto_cases(fn):
 
         def check(out=out, want=want):
             return dict(exact=bool(torch.equal(out, want)))
-        cases.append((f"({n}, {k})", launch, check))
+        cases.append((f"({n}, {k})", launch, check, out))
     return cases
 
 
@@ -154,26 +170,30 @@ def fa_cases(fn):
     from .flash_attention.ref import MASK_KINDS, attention_ref
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = []
-    for B, Sq, Sk, H, KV, D, Dv, mask, w, tag in FA_SHAPES:
-        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
-        k = torch.randn(B, Sk, KV, D, generator=gen, device="cuda")
-        v = torch.randn(B, Sk, KV, Dv, generator=gen, device="cuda")
-        out = torch.empty(B, Sq, H, Dv, device="cuda")
-        want = attention_ref(q, k, v, mask, w, None)
+    for B, Sq, Sk, H, KV, D, Dv, mask, w, kvl, dtype, tag in FA_SHAPES:
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, Sk, KV, D, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, Sk, KV, Dv, generator=gen, device="cuda").to(dt)
+        out = torch.empty(B, Sq, H, Dv, device="cuda", dtype=dt)
+        want = attention_ref(q, k, v, mask, w, kvl).float()
+        valid = Sk if kvl is None else kvl
+        offset = 0 if kvl is None else kvl - Sq
 
         def launch(q=q, k=k, v=v, out=out, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV,
-                   D=D, Dv=Dv, mask=mask, w=w):
+                   D=D, Dv=Dv, mask=mask, w=w, valid=valid, offset=offset,
+                   code=int(dt == torch.bfloat16)):
             return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), 0, B, Sq, Sk, H, KV, D, Dv,
-                      MASK_KINDS.index(mask), w, Sk, 0, stream_now())
+                      out.data_ptr(), code, B, Sq, Sk, H, KV, D, Dv,
+                      MASK_KINDS.index(mask), w, valid, offset, stream_now())
 
-        def check(out=out, want=want):
-            diff = (out - want).abs()
+        def check(out=out, want=want, tol=FA_TOL[dtype]):
+            diff = (out.float() - want).abs()
             err = float(diff.max())
-            ok = bool((diff <= FA_TOL + FA_TOL * want.abs()).all())
+            ok = bool((diff <= tol[0] + tol[1] * want.abs()).all())
             return dict(max_abs_err=err, within_tol=ok)
-        cases.append((f"{tag} {(B, Sq, Sk, H, KV, D, Dv, mask)}", launch,
-                       check))
+        cases.append((f"{tag} {dtype} {(B, Sq, Sk, H, KV, D, Dv, mask)}",
+                      launch, check, out))
     return cases
 
 
@@ -192,16 +212,19 @@ def compare(kernel: str, dirs, rounds: int):
         emit(kernel=kernel, version=label, build_s=time.perf_counter() - t0,
              ptxas=ptxas(log))
         cases[label] = make(fn)
-    timed = {}
+    timed, first = {}, {}
     for label, cs in cases.items():
-        for shape, launch, check in cs:
+        for shape, launch, check, out in cs:
             rc = launch()
             torch.cuda.synchronize()
             if rc != 0:
                 emit(kernel=kernel, version=label, shape=shape, refused=rc)
                 continue
             verdict = check()
-            emit(kernel=kernel, version=label, shape=shape, **verdict)
+            ref = first.setdefault(shape, out.clone())
+            emit(kernel=kernel, version=label, shape=shape,
+                 bitwise_equal_to_first=bool(torch.equal(out, ref)),
+                 **verdict)
             if all(v for key, v in verdict.items() if key != "max_abs_err"):
                 timed.setdefault(shape, []).append((label, launch))
     readings = {(s, lab): [] for s, ls in timed.items() for lab, _ in ls}

@@ -47,8 +47,12 @@
 // safe_m = 0 while m is still -inf, alpha = 0, l clamped to >= 1e-20, so
 // such a row writes 0.  expf, not __expf: the product leaves ~16 FMAs per
 // exponential, so the accurate one costs little against the 2e-5 float32
-// tolerance.  The kernel launches on the caller's stream and the C entry
-// returns cudaGetLastError().
+// tolerance.  With a non-null lse the kernel also writes each query row's
+// log-sum-exp of its scaled scores, m + log(l) (float32, (B, H, Sq); -FLT_MAX
+// for a fully masked row), which the backward (flash_attention_bwd.cu)
+// recomputes P from; with lse null nothing else changes.  The kernel
+// launches on the caller's stream and the C entry returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -70,7 +74,8 @@ __host__ __device__ constexpr int threads_per_query() {
 template <int PD, int PV>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ out, int Sq,
+                const float* __restrict__ v, float* __restrict__ out,
+                float* __restrict__ lse, int Sq,
                 int Sk, int H, int KV, int D, int Dv, float scale,
                 int mask_kind, int window, int valid_len, int q_offset) {
   constexpr int kT = threads_per_query<PD>();
@@ -202,6 +207,9 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!active) return;
+  if (lse != nullptr && part == 0)
+    lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+        m <= kNegInf / 2 ? kNegInf : m + logf(fmaxf(l, 1e-20f));
   const float inv = 1.0f / fmaxf(l, 1e-20f);
   float* op = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * Dv;
 #pragma unroll
@@ -215,47 +223,71 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int PD, int PV>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KV, int D, int Dv, int mask_kind,
-           int window, int valid_len, int q_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int KV, int D, int Dv,
+           int mask_kind, int window, int valid_len, int q_offset,
+           cudaStream_t stream) {
   constexpr int kBQ = kThreads / threads_per_query<PD>();
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   attn_fwd_kernel<PD, PV><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
-      D, Dv, 1.0f / sqrtf(static_cast<float>(D)), mask_kind, window,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk, H,
+      KV, D, Dv, 1.0f / sqrtf(static_cast<float>(D)), mask_kind, window,
       valid_len, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int KV, int D, int Dv,
-                 int mask_kind, int window, int valid_len, int q_offset,
-                 cudaStream_t stream) {
+                 float* lse, int B, int Sq, int Sk, int H, int KV, int D,
+                 int Dv, int mask_kind, int window, int valid_len,
+                 int q_offset, cudaStream_t stream) {
   const int need = D > Dv ? D : Dv;
   if (need <= 16)
-    return launch<16, 16>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                          window, valid_len, q_offset, stream);
+    return launch<16, 16>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                          mask_kind, window, valid_len, q_offset, stream);
   if (need <= 32)
-    return launch<32, 32>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                          window, valid_len, q_offset, stream);
+    return launch<32, 32>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                          mask_kind, window, valid_len, q_offset, stream);
   if (need <= 64)
-    return launch<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                          window, valid_len, q_offset, stream);
+    return launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                          mask_kind, window, valid_len, q_offset, stream);
   if (need <= 128)
-    return launch<128, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv,
+    return launch<128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
                             mask_kind, window, valid_len, q_offset, stream);
-  return launch<192, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                          window, valid_len, q_offset, stream);
+  return launch<192, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                          mask_kind, window, valid_len, q_offset, stream);
 }
 
 }  // namespace
 
 // The bf16 tensor-core kernel (flash_attention_wgmma.cu).
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
-                          void* out, int B, int Sq, int Sk, int H, int KV,
-                          int D, int Dv, int mask_kind, int window,
-                          int valid_len, int q_offset, cudaStream_t stream);
+                          void* out, float* lse, int B, int Sq, int Sk,
+                          int H, int KV, int D, int Dv, int mask_kind,
+                          int window, int valid_len, int q_offset,
+                          cudaStream_t stream);
+
+namespace {
+
+int forward(const void* q, const void* k, const void* v, void* out,
+            float* lse, int dtype, int B, int Sq, int Sk, int H, int KV,
+            int D, int Dv, int mask_kind, int window, int valid_len,
+            int q_offset, void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (KV <= 0 || H % KV != 0 || D <= 0 || Dv <= 0 || D > 192 || Dv > 128 ||
+      mask_kind < 0 || mask_kind > 2 || H > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_f32(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                        mask_kind, window, valid_len, q_offset, s);
+  if (dtype == 1)
+    return flash_attention_wgmma(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                                 mask_kind, window, valid_len, q_offset, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 // C interface, loaded with ctypes.  q: (B, Sq, H, D), k: (B, Sk, KV, D),
 // v: (B, Sk, KV, Dv), out: (B, Sq, H, Dv), all contiguous, of one type:
@@ -271,16 +303,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int D, int Dv, int mask_kind, int window,
                                    int valid_len, int q_offset,
                                    void* stream) {
-  if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
-  if (KV <= 0 || H % KV != 0 || D <= 0 || Dv <= 0 || D > 192 || Dv > 128 ||
-      mask_kind < 0 || mask_kind > 2 || H > 65535 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_f32(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                        window, valid_len, q_offset, s);
-  if (dtype == 1)
-    return flash_attention_wgmma(q, k, v, out, B, Sq, Sk, H, KV, D, Dv,
-                                 mask_kind, window, valid_len, q_offset, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return forward(q, k, v, out, nullptr, dtype, B, Sq, Sk, H, KV, D, Dv,
+                 mask_kind, window, valid_len, q_offset, stream);
+}
+
+// flash_attention_fwd that also writes lse (B, H, Sq) float32: each query
+// row's log-sum-exp of its scaled scores, the residual of the backward.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
+                                       const void* v, void* out, void* lse,
+                                       int dtype, int B, int Sq, int Sk,
+                                       int H, int KV, int D, int Dv,
+                                       int mask_kind, int window,
+                                       int valid_len, int q_offset,
+                                       void* stream) {
+  return forward(q, k, v, out, static_cast<float*>(lse), dtype, B, Sq, Sk,
+                 H, KV, D, Dv, mask_kind, window, valid_len, q_offset,
+                 stream);
 }

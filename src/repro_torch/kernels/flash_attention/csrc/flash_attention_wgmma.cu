@@ -79,6 +79,10 @@
 // warpgroup compares positions only on tiles that cross its diagonal, its
 // window's edge or kv_valid_len.  No atomics: the result does not depend
 // on scheduling.
+// With a non-null lse the epilogue also writes each row's log-sum-exp of
+// its scaled scores, m c ln 2 + log(l) with m the raw row max (float32,
+// (B, H, Sq); -FLT_MAX for a fully masked row), for the backward
+// (flash_attention_bwd.cu); with lse null nothing else changes.
 // The kernel launches on the caller's stream; the entry returns
 // cudaGetLastError().
 
@@ -399,9 +403,9 @@ template <int PD, int PV>
 __global__ void __launch_bounds__(kThreads, PD <= 64 && PV <= 64 ? 2 : 1)
 attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
-                      int Sq, int Sk, int H, int KV, int D, int Dv,
-                      float scale_log2, int mask_kind, int window,
-                      int valid_len, int q_offset) {
+                      float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                      int D, int Dv, float scale_log2, int mask_kind,
+                      int window, int valid_len, int q_offset) {
   constexpr int kQBytes = (PD / 64) * kBQ * 128;
   constexpr int kKBytes = (PD / 64) * kBK * 128;
   constexpr int kVBytes = (PV / 64) * kBK * 128;
@@ -537,6 +541,18 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv1 = 1.0f / fmaxf(l[1], 1e-20f);
   const int row0 = q0 + 64 * wg + r0;
   const int row1 = row0 + 8;
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m and l are the same on the four lanes of a row's quad
+    const float to_ln = scale_log2 * 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r == 0 ? row0 : row1;
+      if (row < Sq)
+        lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+            m[r] <= kNegInf / 2 ? kNegInf
+                                : m[r] * to_ln + logf(fmaxf(l[r], 1e-20f));
+    }
+  }
   bf16* ob = out + (static_cast<size_t>(b) * Sq * H + h) * Dv;
   const size_t stride = static_cast<size_t>(H) * Dv;
 #pragma unroll
@@ -554,9 +570,10 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int PD, int PV>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KV, int D, int Dv, int mask_kind,
-           int window, int valid_len, int q_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int KV, int D, int Dv,
+           int mask_kind, int window, int valid_len, int q_offset,
+           cudaStream_t stream) {
   // Q tile and the K/V stages, plus slack to align to 1024 bytes
   constexpr int kSmem =
       1024 + 128 * ((PD / 64) * kBQ + kStages * kBK * (PD / 64 + PV / 64));
@@ -569,29 +586,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const double log2e = 1.4426950408889634;
   attn_fwd_wgmma_kernel<PD, PV><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KV, D,
-      Dv, static_cast<float>(log2e / sqrt(static_cast<double>(D))), mask_kind,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Sk, H,
+      KV, D, Dv, static_cast<float>(log2e / sqrt(static_cast<double>(D))), mask_kind,
       window, valid_len, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Called by flash_attention_fwd (flash_attention.cu) for bf16 inputs, with
-// its arguments checked there; D and Dv multiples of 8, D at most 192, Dv
-// at most 128.
+// Called by the entries of flash_attention.cu for bf16 inputs, with their
+// arguments checked there; D and Dv multiples of 8, D at most 192, Dv at
+// most 128; lse (B, H, Sq) float32 or null.
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
-                          void* out, int B, int Sq, int Sk, int H, int KV,
-                          int D, int Dv, int mask_kind, int window,
-                          int valid_len, int q_offset, cudaStream_t stream) {
+                          void* out, float* lse, int B, int Sq, int Sk,
+                          int H, int KV, int D, int Dv, int mask_kind,
+                          int window, int valid_len, int q_offset,
+                          cudaStream_t stream) {
   if (D % 8 != 0 || Dv % 8 != 0 || D > 192 || Dv > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64 && Dv <= 64)
-    return launch<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                          window, valid_len, q_offset, stream);
+    return launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                          mask_kind, window, valid_len, q_offset, stream);
   if (D <= 128)
-    return launch<128, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv,
+    return launch<128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
                             mask_kind, window, valid_len, q_offset, stream);
-  return launch<192, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, Dv, mask_kind,
-                          window, valid_len, q_offset, stream);
+  return launch<192, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv,
+                          mask_kind, window, valid_len, q_offset, stream);
 }

@@ -9,6 +9,12 @@ held against, and the CPU path of ``ops.flash_attention``.
   a loop over KV blocks carrying the running max, sum and accumulator,
   with the same masks and the same guards for fully masked rows
   (``safe_m``, ``alpha = 0``, ``l >= 1e-20``).
+* ``flash_attention_bwd_blocked`` — the backward of the reference's custom
+  VJP (``_fa_diff_bwd``): delta = rowsum(dout * out), and per KV block
+  P = exp(S - lse), dv, dP, dS = P (dP - delta), dq, dk, with GQA's query
+  heads folded back onto their KV head.  The CPU path of
+  ``ops.flash_attention_bwd`` and the oracle its CUDA kernel is held
+  against.
 * ``flash_attention_tc_mirror`` — the bf16 tensor-core kernel's
   arithmetic (``csrc/flash_attention_wgmma.cu``) for tests: the scale
   applied after the product in the log2 domain, P rounded to bf16 before
@@ -76,9 +82,11 @@ def attention_ref(q, k, v, mask_kind: str = "causal", window: int = 0,
 def flash_attention_blocked(q, k, v, mask_kind: str = "causal",
                             window: int = 0,
                             kv_valid_len: Optional[int] = None,
-                            block_k: int = BLOCK_K):
+                            block_k: int = BLOCK_K, return_lse: bool = False):
     """Online-softmax attention over KV blocks of ``block_k`` keys; O(Sq *
-    block_k) scores live at a time.  A fully masked row gives 0."""
+    block_k) scores live at a time.  A fully masked row gives 0.  With
+    ``return_lse`` also each row's log-sum-exp of its scaled scores, (B,
+    H, Sq) float32 (the reference's ``_fwd_with_lse``)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -105,8 +113,50 @@ def flash_attention_blocked(q, k, v, mask_kind: str = "causal",
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p, vf)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-20)
-    return out.transpose(1, 2).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-20)).transpose(1, 2).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(torch.clamp(l, min=1e-20)))[..., 0]
+    return out
+
+
+def flash_attention_bwd_blocked(q, k, v, out, lse, dout,
+                                mask_kind: str = "causal", window: int = 0,
+                                kv_valid_len: Optional[int] = None,
+                                block_k: int = BLOCK_K):
+    """Gradients (dq, dk, dv) of attention, in q's, k's and v's dtypes, from
+    the forward's ``out`` and ``lse`` (B, H, Sq) and the gradient ``dout``
+    of ``out``: the reference's ``_fa_diff_bwd`` in float32, block by KV
+    block of ``block_k`` keys."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    rep = H // KV
+    bk = max(1, min(block_k, Sk))
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float()
+    dof = dout.float().transpose(1, 2)                   # (B, H, Sq, Dv)
+    delta = (dof * out.float().transpose(1, 2)).sum(-1)  # (B, H, Sq)
+    q_pos, valid_len = _positions(Sq, Sk, kv_valid_len, q.device)
+    dq = torch.zeros((B, Sq, H, D), device=q.device)
+    dk = torch.zeros((B, Sk, KV, D), device=q.device)
+    dv = torch.zeros((B, Sk, KV, Dv), device=q.device)
+    for k0 in range(0, Sk, bk):
+        kf = k[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
+        vf = v[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
+        n = kf.shape[1]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf)
+        mask = _mask(q_pos, torch.arange(k0, k0 + n, device=q.device),
+                     valid_len, mask_kind, window)[None, None]
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dv_b = torch.einsum("bhqk,bhqd->bkhd", p, dof)      # (B, n, H, Dv)
+        dp = torch.einsum("bhqd,bkhd->bhqk", dof, vf)
+        ds = p * (dp - delta[..., None])
+        dq += scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+        dk_b = scale * torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+        # GQA: fold query-head groups back onto their kv head
+        dv[:, k0:k0 + n] = dv_b.reshape(B, n, KV, rep, Dv).sum(3)
+        dk[:, k0:k0 + n] = dk_b.reshape(B, n, KV, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_tc_mirror(q, k, v, mask_kind: str = "causal",

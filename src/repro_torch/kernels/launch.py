@@ -8,7 +8,7 @@ building a ``Stream`` object, against about 0.2 us here; and entering
 ``torch.cuda.device`` on every call about 3 us, against about 0.9 us for
 the check that skips it.
 
-``count`` adds one to a wrapper's launch counters: exactly, when several
+``count`` adds a wrapper's launches to its counters: exactly, when several
 threads of one process launch at once (a bare ``+=`` on an attribute reads
 and writes in two steps, between which another thread may write)."""
 
@@ -37,9 +37,9 @@ def on(device: torch.device):
     return torch.cuda.device(device)
 
 
-def count(wrapper, *counters: str) -> None:
-    """Add one to each of ``wrapper``'s attributes ``counters``, under one
-    process-wide lock."""
+def count(wrapper, *counters: str, launches: int = 1) -> None:
+    """Add ``launches`` (the kernels one call launched) to each of
+    ``wrapper``'s attributes ``counters``, under one process-wide lock."""
     with _COUNT_LOCK:
         for c in counters:
-            setattr(wrapper, c, getattr(wrapper, c) + 1)
+            setattr(wrapper, c, getattr(wrapper, c) + launches)

@@ -8,6 +8,14 @@ contiguity and raises on anything the kernel does not take (state size up
 to 32).  ``selective_scan.launches`` counts kernel launches (and nothing
 else), so a run can show that it went through the kernel.  ``split``
 reports how the kernel divides a shape over the card.
+
+Gradients: when autograd records (grad enabled and an input requiring
+grad), ``selective_scan`` runs as ``SelectiveScanFn``: the forward saves
+its inputs, and the backward is ``selective_scan_bwd`` — on the card the
+kernels of ``csrc/mamba_scan_bwd.cu`` (a reverse-time scan and the three
+fixed-order sums of its partials, four launches, each counted in
+``selective_scan.launches_bwd``), on the CPU ``ref.selective_scan_bwd_ref``
+— giving du, ddelta, dA, dB, dC and dh0 from the gradients of y and h_T.
 """
 
 from __future__ import annotations
@@ -19,10 +27,12 @@ import torch
 
 from ..build import build_library, library_loader
 from ..launch import count, on, stream_of
-from .ref import selective_scan_ref
+from .ref import selective_scan_bwd_ref, selective_scan_ref
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu",)
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "mamba_scan.cu", CSRC / "mamba_scan_bwd.cu")
 MAX_STATE = 32
+BWD_LAUNCHES = 4  # kernels a selective_scan_bwd call launches
 
 
 def build() -> Path:
@@ -38,6 +48,11 @@ def _lib():
     lib.mamba_selective_scan.restype = ctypes.c_int
     lib.mamba_scan_split.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.mamba_scan_split.restype = ctypes.c_int
+    lib.mamba_selective_scan_bwd.argtypes = [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.mamba_selective_scan_bwd.restype = ctypes.c_int
+    lib.mamba_scan_bwd_scratch.argtypes = [ctypes.c_int] * 4
+    lib.mamba_scan_bwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -70,32 +85,36 @@ def _check_shapes(u, delta, A, Bc, Cc, h0):
                              f"{tuple(x.shape)}, expected {shape}")
 
 
-def selective_scan(u, delta, A, Bc, Cc, h0=None):
-    """u/delta (B, S, Di); A (Di, Ds); Bc/Cc (B, S, Ds); h0 (B, Di, Ds) or
-    None -> (y (B, S, Di), h_T (B, Di, Ds)), float32."""
-    _check_shapes(u, delta, A, Bc, Cc, h0)
-    args = [u, delta, A, Bc, Cc] + ([] if h0 is None else [h0])
+def _check_card(names, args):
+    """The checks of a CUDA call: one device, float32, contiguous, the
+    kernel's state sizes.  Returns the device."""
     devices = {x.device for x in args}
-    if devices == {torch.device("cpu")}:
-        return selective_scan_ref(u, delta, A, Bc, Cc, h0)
     if len(devices) != 1:
         raise ValueError(f"selective_scan: inputs lie on different devices "
                          f"{sorted(map(str, devices))}")
-    dev = u.device
+    dev = args[0].device
     if dev.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {dev}")
-    names = ("u", "delta", "A", "Bc", "Cc", "h0")
     for name, x in zip(names, args):
         if x.dtype != torch.float32:
             raise ValueError(f"selective_scan: {name} must be float32, got "
                              f"{x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"selective_scan: {name} must be contiguous")
-    B, S, Di = u.shape
-    Ds = A.shape[1]
+    Ds = args[2].shape[1]
     if not 1 <= Ds <= MAX_STATE:
         raise ValueError(f"selective_scan: state size {Ds} outside "
                          f"1..{MAX_STATE}")
+    return dev
+
+
+def _forward(u, delta, A, Bc, Cc, h0):
+    args = [u, delta, A, Bc, Cc] + ([] if h0 is None else [h0])
+    if {x.device for x in args} == {torch.device("cpu")}:
+        return selective_scan_ref(u, delta, A, Bc, Cc, h0)
+    dev = _check_card(("u", "delta", "A", "Bc", "Cc", "h0"), args)
+    B, S, Di = u.shape
+    Ds = A.shape[1]
     y = torch.empty((B, S, Di), dtype=torch.float32, device=dev)
     hT = torch.empty((B, Di, Ds), dtype=torch.float32, device=dev)
     if hT.numel() == 0:
@@ -112,4 +131,80 @@ def selective_scan(u, delta, A, Bc, Cc, h0=None):
     return y, hT
 
 
+def selective_scan_bwd(u, delta, A, Bc, Cc, h0, dy, dhT=None):
+    """(du, ddelta, dA, dB, dC, dh0) of ``selective_scan(u, delta, A, Bc,
+    Cc, h0)`` for the gradients ``dy`` of y and ``dhT`` of h_T (None:
+    zeros); dh0 is None without h0.  The plain version on the CPU, the
+    backward kernel on the card (counted in
+    ``selective_scan.launches_bwd``)."""
+    _check_shapes(u, delta, A, Bc, Cc, h0)
+    B, S, Di = u.shape
+    Ds = A.shape[1]
+    if tuple(dy.shape) != (B, S, Di) or (
+            dhT is not None and tuple(dhT.shape) != (B, Di, Ds)):
+        raise ValueError(f"selective_scan_bwd: dy {tuple(dy.shape)} or dhT "
+                         f"{None if dhT is None else tuple(dhT.shape)} do "
+                         f"not match {(B, S, Di)}, {(B, Di, Ds)}")
+    given = [(n, x) for n, x in (("u", u), ("delta", delta), ("A", A),
+                                 ("Bc", Bc), ("Cc", Cc), ("dy", dy),
+                                 ("h0", h0), ("dhT", dhT)) if x is not None]
+    if {x.device for _, x in given} == {torch.device("cpu")}:
+        return selective_scan_bwd_ref(u, delta, A, Bc, Cc, h0, dy, dhT)
+    dev = _check_card(*zip(*given))
+    du, ddelta = (torch.empty((B, S, Di), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    dB, dC = (torch.empty((B, S, Ds), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    dA = torch.zeros((Di, Ds), dtype=torch.float32, device=dev)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    if S == 0 or B == 0 or Di == 0:
+        if dh0 is not None:      # with S = 0, h_T is h0
+            dh0.copy_(dhT) if dhT is not None else dh0.zero_()
+        return du, ddelta, dA, dB, dC, dh0
+    lib = _lib()
+    scratch = torch.empty(lib.mamba_scan_bwd_scratch(B, S, Di, Ds),
+                          dtype=torch.float32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with on(dev):
+        rc = lib.mamba_selective_scan_bwd(
+            *(ptr(x) for x in (u, delta, A, Bc, Cc, h0, dy, dhT, du, ddelta,
+                               dA, dB, dC, dh0, scratch)),
+            B, S, Di, Ds, stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    # the reverse-time scan, then the sums of dA's, dB's and dC's partials
+    count(selective_scan, "launches_bwd", launches=BWD_LAUNCHES)
+    return du, ddelta, dA, dB, dC, dh0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The scan that autograd differentiates with ``selective_scan_bwd``:
+    the forward saves its inputs, the backward recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, Bc, Cc, h0):
+        y, hT = _forward(u, delta, A, Bc, Cc, h0)
+        ctx.save_for_backward(u, delta, A, Bc, Cc, h0)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        u, delta, A, Bc, Cc, h0 = ctx.saved_tensors
+        return selective_scan_bwd(u, delta, A, Bc, Cc, h0, dy.contiguous(),
+                                  dhT.contiguous())
+
+
+def selective_scan(u, delta, A, Bc, Cc, h0=None):
+    """u/delta (B, S, Di); A (Di, Ds); Bc/Cc (B, S, Ds); h0 (B, Di, Ds) or
+    None -> (y (B, S, Di), h_T (B, Di, Ds)), float32.  Differentiable
+    (``SelectiveScanFn``) when autograd records."""
+    _check_shapes(u, delta, A, Bc, Cc, h0)
+    args = [u, delta, A, Bc, Cc] + ([] if h0 is None else [h0])
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return SelectiveScanFn.apply(u, delta, A, Bc, Cc, h0)
+    return _forward(u, delta, A, Bc, Cc, h0)
+
+
 selective_scan.launches = 0
+selective_scan.launches_bwd = 0

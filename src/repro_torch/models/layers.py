@@ -4,12 +4,16 @@
 Parameters live in small ``nn.Module`` containers whose attribute names
 are the reference pytree's keys (``attn.wq.w``, ``moe.wg``,
 ``attn.wkv_down.w``, ``mamba.A_log``, ...), so a reference parameter tree
-loads by name (``repro_torch.convert``).  Their parameters never take
-gradients: the port serves, it does not train yet.  The arithmetic is in
-plain functions named as in the reference (``dense``, ``rmsnorm``,
-``apply_rope``, ``attention_apply``, ``attention_decode_rolling``,
-``mla_apply``, ``mlp_apply``, ``moe_apply``, ``mamba_apply``), each taking
-its module as ``p``:
+loads by name (``repro_torch.convert``).  Parameters are made with
+``requires_grad=False`` for serving; training turns them on
+(``launch.train.make_train_state``), and every layer function is then
+differentiable: nothing autograd needs is written in place (the caches'
+in-place writes belong to serving, under ``no_grad``), attention and the
+scan are differentiated by their kernels' backward passes.  The
+arithmetic is in plain functions named as in the reference (``dense``,
+``rmsnorm``, ``apply_rope``, ``attention_apply``,
+``attention_decode_rolling``, ``mla_apply``, ``mlp_apply``,
+``moe_apply``, ``mamba_apply``), each taking its module as ``p``:
 
 * weights are float32 (``param_dtype``) and ``dense`` casts them to the
   activation dtype at each call, as the reference does;
@@ -42,7 +46,8 @@ RMS_EPS = 1e-6
 
 
 def new_param(shape, device) -> nn.Parameter:
-    """An uninitialized float32 parameter that takes no gradient."""
+    """An uninitialized float32 parameter that takes no gradient until
+    training asks for one."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                     device=device), requires_grad=False)
 
@@ -406,8 +411,8 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
         buf_idx = torch.where(in_cap, gate_idx * cap + pos,
                               E * cap).reshape(-1)               # (T*K,)
         tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
-        xe = torch.zeros((E * cap + 1, d), dtype=dt, device=x.device)
-        xe.index_add_(0, buf_idx, xt[tok_idx])
+        xe = torch.zeros((E * cap + 1, d), dtype=dt,
+                         device=x.device).index_add(0, buf_idx, xt[tok_idx])
         ye = _moe_experts(p, xe[:E * cap].reshape(E, cap, d))
         flat = torch.cat([ye.reshape(E * cap, d),
                           torch.zeros((1, d), dtype=ye.dtype,

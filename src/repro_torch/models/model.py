@@ -1,6 +1,6 @@
 """Model assembly of the port's LM substrate: ``build_model(cfg)`` ->
-init / forward / init_cache / prefill / decode_step for every family, the
-serving surface of the reference's ``repro/models/model.py``.
+init / forward / init_cache / prefill / decode_step / loss for every
+family, the surface of the reference's ``repro/models/model.py``.
 
 As in the reference the functions take the parameters and caches
 explicitly: ``params`` is the module that ``init`` returns (``DecoderLM``
@@ -23,7 +23,14 @@ new tensors.  A caller that needs the old cache again keeps a copy
 (``transformer.tree_map(torch.clone, cache)``).  Attention runs the
 flash-attention kernel once per layer (decode too, over the full cache
 with ``kv_valid_len``; Hymba's rolling decode excepted), the Mamba scan
-once per layer.  ``loss`` and training are not ported yet.
+once per layer.
+
+``loss(params, batch) -> (total, {"xent", "aux"})`` is the training
+objective (the reference's ``_xent``, plus 0.01 x the MoE load-balancing
+loss for the decoder families): a forward that autograd records, through
+the layer stack's checkpointed groups, with labels defaulting to the
+shifted tokens and an optional ``loss_mask``.  ``forward``, ``prefill``
+and ``decode_step`` run under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -105,6 +112,7 @@ class Model:
     init_cache: Callable      # (batch, max_seq) -> cache
     prefill: Callable         # (params, batch, cache) -> (logits, cache)
     decode_step: Callable     # (params, tokens, cache, index) -> ...
+    loss: Callable            # (params, batch) -> (loss, metrics)
 
 
 def _logits(p: _LM, cfg: ModelConfig, x):
@@ -135,6 +143,33 @@ def _decode_positions(B: int, index: int, cfg: ModelConfig, device):
 
 def _embed(p: _LM, tokens, dt, dev) -> torch.Tensor:
     return p.embed[torch.as_tensor(tokens, device=dev)].to(dt)
+
+
+def _xent(logits, labels, mask=None):
+    """Mean next-token cross-entropy in float32 (over ``mask`` where given,
+    its sum floored at 1)."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - lf.gather(
+        -1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _loss_of(logits, aux, batch, dev, aux_weight: float):
+    """(total, {"xent", "aux"}): labels from the batch or the tokens
+    shifted left (0 at the end), ``loss_mask`` where given."""
+    labels = batch.get("labels")
+    if labels is None:
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    labels = torch.as_tensor(labels, device=dev)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev).float()
+    xent = _xent(logits, labels, mask)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+    return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
 
 def _kv_cache(cfg: ModelConfig, L: int, B: int, max_seq: int, dt, dev):
@@ -168,8 +203,8 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
         stub); the meta tokens go in front."""
         x = _embed(p, batch["tokens"], dt, dev)
         if cfg.family == "vlm" and "patch_embeds" in batch:
-            pe = torch.as_tensor(batch["patch_embeds"], device=dev)
-            x[:, :pe.shape[1]] = pe.to(dt)
+            pe = torch.as_tensor(batch["patch_embeds"], device=dev).to(dt)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
         if cfg.meta_tokens:
             meta = p.meta.to(dt)[None].expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
@@ -180,15 +215,23 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
             return torch.as_tensor(batch["positions"], device=dev)
         return _positions(B, St, cfg, dev)
 
+    def logits_and_aux(p: DecoderLM, batch):
+        x = embed_inputs(p, batch)
+        B, St = x.shape[:2]
+        x, _, aux = Tr.stack_apply(p.blocks, cfg, x, positions(batch, B, St))
+        return _logits(p, cfg, x[:, cfg.meta_tokens:]), aux
+
     @torch.no_grad()
     def forward(p: DecoderLM, batch) -> torch.Tensor:
         """Full-sequence logits (B, S, padded_vocab) of ``batch["tokens"]``
         (the meta-token positions dropped); ``vlm`` takes
         ``patch_embeds`` and (B, S, 3) ``positions`` from the batch."""
-        x = embed_inputs(p, batch)
-        B, St = x.shape[:2]
-        x, _, _ = Tr.stack_apply(p.blocks, cfg, x, positions(batch, B, St))
-        return _logits(p, cfg, x[:, cfg.meta_tokens:])
+        return logits_and_aux(p, batch)[0]
+
+    def loss(p: DecoderLM, batch):
+        """xent + 0.01 x the MoE aux loss, differentiable."""
+        logits, aux = logits_and_aux(p, batch)
+        return _loss_of(logits, aux, batch, dev, 0.01)
 
     def init_cache(batch_size: int, max_seq: int):
         """The family's empty cache (see the module docstring): hybrid
@@ -258,7 +301,8 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
             cache_index=None if cfg.family == "ssm" else int(index))
         return _logits(p, cfg, x), new_cache
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step,
+                 loss)
 
 
 # ---------------------------------------------------------------------------
@@ -287,12 +331,19 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> Model:
                                        cache_index=cache_index, enc_out=enc)
         return x, self_kv
 
-    @torch.no_grad()
-    def forward(p: EncDecLM, batch) -> torch.Tensor:
+    def logits(p: EncDecLM, batch):
         B, S = batch["tokens"].shape
         x, _ = decode(p, batch["tokens"], encode(p, batch),
                       _positions(B, S, cfg, dev))
         return _logits(p, cfg, x)
+
+    @torch.no_grad()
+    def forward(p: EncDecLM, batch) -> torch.Tensor:
+        return logits(p, batch)
+
+    def loss(p: EncDecLM, batch):
+        """The decoder's xent (aux 0), differentiable."""
+        return _loss_of(logits(p, batch), 0.0, batch, dev, 0.0)
 
     def init_cache(batch_size: int, max_seq: int):
         """{"self": the decoder's (k, v), "enc": the encoder output}."""
@@ -316,7 +367,8 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> Model:
                             int(index))
         return _logits(p, cfg, x), {"self": self_kv, "enc": cache["enc"]}
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step,
+                 loss)
 
 
 def build_model(cfg: ModelConfig, device=runtime.DEFAULT_DEVICE) -> Model:

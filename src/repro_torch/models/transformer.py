@@ -12,18 +12,27 @@ One ``Block`` module per kind, with the reference's parameter keys:
     dec         — causal attention + cross-attention (``ln_x``, ``xattn``)
                   + MLP                            (the whisper decoder)
 
-The reference scans the layers over stacked parameters with
-rematerialization; serving has no backward, so here the stack is a Python
-loop over an ``nn.ModuleList``.  Caches keep the reference's layout: one
-tensor per leaf with a leading layer axis.
+The reference scans the layers over stacked parameters; here the stack is
+a Python loop over an ``nn.ModuleList``.  Its training path (no caches,
+autograd recording, ``cfg.remat != "none"``) runs the layers in groups,
+each under ``torch.utils.checkpoint`` (the reference's ``_remat_group`` and
+``_remat_policy``): ``"full"`` saves nothing inside a group, ``"dots"``
+saves the matrix products without a batch dimension (the outputs of
+``aten.mm`` / ``aten.addmm``, the counterpart of JAX's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest.  Caches
+keep the reference's layout: one tensor per leaf with a leading layer axis.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as Ly
 from .config import ModelConfig
@@ -162,6 +171,53 @@ def _stack(trees):
     return tuple(_stack([t[j] for t in trees]) for j in range(len(trees[0])))
 
 
+def remat_group(L: int) -> int:
+    """Largest divisor of L <= ceil(sqrt(L)): the layers of one checkpoint
+    group (L / G group boundaries are kept instead of L)."""
+    g = max(int(math.ceil(math.sqrt(L))), 1)
+    while g > 1 and L % g != 0:
+        g -= 1
+    return g
+
+
+# the matrix products without a batch dimension: a dense layer's x @ w
+MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _group_apply(blocks, cfg: ModelConfig, x, positions, enc_out):
+    """Layers ``blocks`` in order, without caches: (x, aux)."""
+    aux = 0.0
+    for p in blocks:
+        x, _, a = block_apply(p, cfg, x, positions, enc_out=enc_out)
+        aux = aux + a
+    return x, aux
+
+
+def _remat_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions,
+                 enc_out):
+    """The training path: the layers in groups of ``cfg.remat_group`` (or
+    ``remat_group(L)``), each group under ``checkpoint`` with the policy of
+    ``cfg.remat``."""
+    L = len(blocks)
+    G = (cfg.remat_group if cfg.remat_group and L % cfg.remat_group == 0
+         else remat_group(L))
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    aux = 0.0
+    for g0 in range(0, L, G):
+        x, a = checkpoint(_group_apply, blocks[g0:g0 + G], cfg, x, positions,
+                          enc_out, use_reentrant=False, **kw)
+        aux = aux + a
+    return x, aux
+
+
 def stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions,
                 caches=None, cache_index: Optional[int] = None,
                 enc_out=None, collect_caches: bool = False):
@@ -172,7 +228,13 @@ def stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions,
     Hymba's rolling window) is read, and a new one stacked from the
     layers' returns.  Without ``caches``, ``collect_caches`` stacks the
     layers' own caches (hybrid prefill builds its rolling cache from
-    them), else the new caches are None."""
+    them), else the new caches are None.  Without caches, when autograd
+    records and ``cfg.remat`` is not ``"none"``, the layers run in
+    checkpointed groups (``_remat_apply``)."""
+    if (caches is None and not collect_caches and cfg.remat != "none"
+            and torch.is_grad_enabled()):
+        x, aux = _remat_apply(blocks, cfg, x, positions, enc_out)
+        return x, None, aux
     in_place = (caches is not None and cache_index is not None
                 and blocks[0].kind in FULL_CACHE_KINDS)
     collected = []

@@ -11,6 +11,9 @@
 * ``LaneGenerators`` / ``rand`` — the random draws of a fused run: L
   problems evolve as lanes of one population, each drawing from its own
   generator exactly what its unfused run draws.
+
+The training runtime lives beside them: ``driver`` (the fault-tolerant
+trainer) and ``straggler`` (the step-time monitor).
 """
 
 from __future__ import annotations

@@ -745,3 +745,136 @@ def test_calibration_fit_on_the_card_matches_the_cpu(cuda):
     assert a.digest == b.digest
     for f, v in cpu.fitted.items():
         assert a.fitted[f] == pytest.approx(v, rel=1e-3), f
+
+
+# ---------------------------------------------------------------------------
+# training: the two backward kernels and a train step on the card
+# ---------------------------------------------------------------------------
+# (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid_len): chip_smoke's phase
+# 17 (a) shapes
+FA_BWD_SHAPES = [(4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None),
+                 (1, 1024, 1024, 16, 8, 128, 128, "causal", 0, None),
+                 (1, 512, 512, 16, 16, 192, 128, "causal", 0, None),
+                 (1, 1500, 1500, 6, 6, 64, 64, "none", 0, None),
+                 (2, 200, 333, 25, 5, 64, 64, "causal", 0, 317),
+                 (1, 40, 48, 4, 2, 16, 16, "causal", 0, None),
+                 (2, 96, 160, 4, 1, 16, 64, "window", 48, 150)]
+
+
+@pytest.mark.parametrize("shape", FA_BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, shape, dtype):
+    """The backward kernel against the plain backward on the same residuals:
+    float32 at the reference's 3e-5; bfloat16 (both in float32 from one set
+    of bf16 inputs, each rounded once to bf16) within two bf16 roundings
+    plus 1e-4 of the largest gradient.  Two calls bitwise equal, each
+    adding its three kernel launches to ``launches_bwd``."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_blocked
+    B, Sq, Sk, H, KV, D, Dv, mask, w, kvl = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dt)
+    q, k, v, do = r(B, Sq, H, D), r(B, Sk, KV, D), r(B, Sk, KV, Dv), \
+        r(B, Sq, H, Dv)
+    out, lse = ops.flash_attention_fwd_lse(q, k, v, mask, w, kvl)
+    before = ops.flash_attention.launches_bwd
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, mask, w, kvl)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, mask, w, kvl)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches_bwd == before + 2 * ops.BWD_LAUNCHES
+    want = flash_attention_bwd_blocked(q, k, v, out, lse, do, mask, w, kvl)
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        a, b = a.float(), b.float()
+        atol, rtol = ((3e-5, 3e-5) if dt == torch.float32
+                      else (1e-4 * float(b.abs().max()), 2 ** -7))
+        assert bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+@pytest.mark.parametrize("B,S,Di,Ds,with_h0", [
+    (4, 1152, 3200, 16, False), (1, 512, 8192, 16, True),
+    (2, 37, 70, 3, True), (3, 77, 130, 32, True), (1, 1, 64, 1, True)])
+def test_mamba_scan_bwd_kernel_matches_plain(cuda, B, S, Di, Ds, with_h0):
+    """The scan backward against the plain reverse-time version within
+    1e-4, two calls bitwise equal, each adding its four kernel launches to
+    ``launches_bwd``."""
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+    gen = torch.Generator(device=cuda).manual_seed(S + Di)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    args = (r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di)),
+            -torch.exp(r(Di, Ds) * 0.3), r(B, S, Ds), r(B, S, Ds),
+            r(B, Di, Ds) if with_h0 else None, r(B, S, Di),
+            r(B, Di, Ds) if with_h0 else None)
+    before = ops.selective_scan.launches_bwd
+    got = ops.selective_scan_bwd(*args)
+    again = ops.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert ops.selective_scan.launches_bwd == before + 2 * ops.BWD_LAUNCHES
+    for a, a2, b in zip(got, again, selective_scan_bwd_ref(*args)):
+        if b is None:
+            assert a is None
+            continue
+        assert torch.equal(a, a2)
+        assert bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """A CUDA call the backward kernels do not take raises; nothing falls
+    back to the plain versions."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    q = torch.randn(1, 8, 2, 16, device=cuda)
+    out, lse = fa.flash_attention_fwd_lse(q, q, q)
+    before = fa.flash_attention.launches_bwd
+    with pytest.raises(ValueError):          # a head dim past 192
+        big = torch.randn(1, 8, 2, 200, device=cuda)
+        fa.flash_attention_bwd(big, big, big[..., :16].contiguous(), out,
+                               lse, out)
+    with pytest.raises(ValueError):          # float16
+        h = q.half()
+        fa.flash_attention_bwd(h, h, h, out.half(), lse, out.half())
+    with pytest.raises(ValueError):          # lse on the CPU
+        fa.flash_attention_bwd(q, q, q, out, lse.cpu(), out)
+    assert fa.flash_attention.launches_bwd == before
+    u = torch.randn(1, 4, 8, device=cuda)
+    A = -torch.ones(8, 40, device=cuda)      # state size past 32
+    Bc = torch.randn(1, 4, 40, device=cuda)
+    with pytest.raises(ValueError):
+        ms.selective_scan_bwd(u, u, A, Bc, Bc, None, u)
+
+
+def test_reduced_hymba_train_step_runs_every_kernel(cuda):
+    """A reduced Hymba train step on the card (bf16, remat ``dots``): every
+    attention and scan, forward (and its recomputation) and backward, on the
+    kernels; the loss finite, the parameters moved."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_reduced("hymba-1.5b")
+    model = build_model(cfg, cuda)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    st = make_train_state(model, 0, opt)
+    before = [p.detach().clone() for p in st["params"].parameters()]
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=2)).batch_at(0)
+    fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
+    fa.flash_attention.launches_bwd = 0
+    ms.selective_scan.launches = ms.selective_scan.launches_bwd = 0
+    st, m = make_train_step(model, opt)(st, batch)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_tc,
+            fa.flash_attention.launches_bwd) == (2 * L, 2 * L,
+                                                 fa.BWD_LAUNCHES * L)
+    assert (ms.selective_scan.launches,
+            ms.selective_scan.launches_bwd) == (2 * L, ms.BWD_LAUNCHES * L)
+    assert np.isfinite(float(m["loss"]))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(before, st["params"].parameters()))

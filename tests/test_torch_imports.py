@@ -62,6 +62,29 @@ def test_serving_modules_exist(module):
     assert module in _modules()
 
 
+# the twelfth slice: training
+SLICE_12 = ("repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.compress", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.manager", "repro_torch.runtime",
+            "repro_torch.runtime.driver", "repro_torch.runtime.straggler",
+            "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("module", SLICE_12)
+def test_training_modules_exist(module):
+    assert module in _modules()
+
+
+def test_runtime_package_keeps_its_names():
+    """``runtime.py`` became the package ``runtime/``: every name it
+    exported still imports from ``repro_torch.runtime``."""
+    from repro_torch import runtime
+    for name in ("DEFAULT_DEVICE", "resolve_device", "fold_in", "generator",
+                 "LaneGenerators", "rand"):
+        assert hasattr(runtime, name), name
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

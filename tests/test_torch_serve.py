@@ -775,13 +775,15 @@ def test_recorded_problem_key_is_the_references(tmp_path):
 # several threads in one process: builds, loads, counters, records
 # ---------------------------------------------------------------------------
 def test_two_threads_build_one_library(tmp_path, monkeypatch):
-    """Two threads that reach a kernel's first use at once: one compiler
-    run, one library, no temporary file left behind."""
+    """Two threads that reach a kernel's first use at once: one build (one
+    compile of the source and one link), one library, no temporary file
+    left behind."""
     stub = tmp_path / "nvcc"
     calls = tmp_path / "calls"
     stub.write_text(
         "#!/bin/sh\n"
-        f"echo run >> {calls}\n"
+        'case " $* " in *" -c "*) step=compile;; *) step=link;; esac\n'
+        f"echo $step >> {calls}\n"
         "sleep 0.3\n"
         "while [ $# -gt 0 ]; do\n"
         '  if [ "$1" = "-o" ]; then shift; echo lib > "$1"; fi\n'
@@ -804,7 +806,7 @@ def test_two_threads_build_one_library(tmp_path, monkeypatch):
     for t in threads:
         t.join()
     assert len(out) == 2 and out[0] == out[1] and out[0].read_text() == "lib\n"
-    assert calls.read_text().split() == ["run"]
+    assert calls.read_text().split() == ["compile", "link"]
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) \
         == sorted([out[0].name, out[0].with_suffix(".log").name])
 
