@@ -228,25 +228,39 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     difference fails unless the swapped experts' probabilities are within
     1e-5: such a tie is printed and counted);
 17. training on the card (phase 2 built the two backward kernels,
-    ``flash_attention_bwd.cu`` into the attention library and
-    ``mamba_scan_bwd.cu`` into the scan's):
+    ``flash_attention_bwd.cu`` with ``flash_attention_bwd_wgmma.cu`` into
+    the attention library and ``mamba_scan_bwd.cu`` into the scan's):
     (a) each backward kernel against its plain version on the same
-    residuals: attention in float32 (3e-5, the reference's gradient
-    tolerance) and bfloat16 (two bf16 roundings plus 1e-4 of the largest
-    gradient) at Hymba's training shape (4, 1152, 25 / 5 heads, 64, window
-    1024), internlm2's (1, 1024, 16 / 8, 128, causal), MLA's head dims (1,
-    512, 16 heads, 192 / 128), whisper's encoder (1, 1500, 6, 64, ``none``),
-    a ragged ``kv_valid_len`` and small head dims, with the forward's
-    log-sum-exp against the plain one; the scan (1e-4) at Hymba's width,
-    at Falcon-Mamba's (8192) with h0 and a gradient on h_T, and at ragged
-    shapes; every call twice, bitwise equal; the main shapes timed beside
-    their bound, the plain version and, for attention, the backward of
-    ``scaled_dot_product_attention`` under autograd (its forward
-    subtracted);
+    residuals: attention in float32 (the SIMT kernels; 3e-5, the
+    reference's gradient tolerance) and bfloat16 (the tensor-core kernels:
+    against ``flash_attention_bwd_tc_mirror``, their arithmetic, within
+    two bf16 roundings plus 1e-4 of the largest gradient, at most 64
+    elements a tensor past that and each within 2^-7 of the tensor's
+    largest magnitude (a P or dS rounded to the neighbouring bf16 value),
+    and against the
+    float32 plain version on the same inputs, each gradient within twice
+    the error of ``scaled_dot_product_attention``'s backward against that
+    version, measured beside it) at Hymba's training shape (4, 1152, 25 / 5
+    heads, 64, window 1024), internlm2's (1, 1024, 16 / 8, 128, causal),
+    MLA's head dims (1, 512, 16 heads, 192 / 128), whisper's encoder (1,
+    1500, 6, 64, ``none``), a ragged ``kv_valid_len`` and small head dims,
+    with the forward's log-sum-exp against the plain one and the blocks
+    an SM holds of each bf16 backward kernel; the scan (1e-4, its forward's
+    chunk states against the plain ones, the backward from them) at Hymba's
+    width, at Falcon-Mamba's (8192) with h0 and a gradient on h_T, and at
+    ragged shapes, with its split of the card and the training forward
+    (writing the chunk states) timed beside serving's; every call twice, bitwise
+    equal; the main shapes timed beside their bound (for the scan the
+    larger of its byte bound and its floor of one exponential a (b, t, di,
+    n) on the special-function units, both printed), the plain version
+    and, for attention, the backward of ``scaled_dot_product_attention``
+    under autograd (its forward subtracted);
     (b) one ``make_train_step`` of Hymba at full width and 2 layers,
     float32, batch 1, 64 tokens: the card (kernels, counted) against the
-    CPU (plain versions): loss and gradient norm within rtol 1e-4, every
-    updated parameter within a quarter of the step's learning rate;
+    CPU (plain versions): each gradient tensor within 2e-5 of its largest
+    magnitude plus rtol 1e-4, loss and gradient norm within rtol 1e-4, the
+    updated weights with a gradient clear of the noise within 1e-6 and the
+    others within 2 lr;
     (c) ``hymba-1.5b`` as configured (32 layers, bf16 activations, float32
     weights, remat ``dots`` in groups of 4), AdamW with bf16 moments (lr
     3e-4, 2 warmup steps), 6 steps of ``SyntheticLM`` batches (4 x 1024
@@ -263,7 +277,17 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     loss bit for bit the loss of the first trainer's state continued.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
-result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+result line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --loss-drift
+
+runs only phase 17 (c)'s 6 seeded steps, once for each way of taking the
+attention backward: the port's (bf16 on the tensor cores; twice, to show
+the trajectory repeats), ``scaled_dot_product_attention``'s backward
+swapped in by this script alone (the library's own bf16 rounding), and
+the port's float32 SIMT kernels on float32 copies of the same inputs (no
+rounding but the result's); it prints each arm's losses and the largest
+differences between them, one JSON line.  Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits non-zero and
 prints no result.
 """
@@ -329,7 +353,9 @@ from repro_torch.kernels.gp_cov import ops as gp_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     NEG_INF, attention_ref, flash_attention_blocked,
-    flash_attention_bwd_blocked)
+    flash_attention_bwd_blocked, flash_attention_bwd_tc_mirror,
+    tc_bwd_agreement, TC_BWD_ATOL_OF_MAX, TC_BWD_MAX_PAST,
+    TC_BWD_PAST_OF_MAX, TC_BWD_RTOL)
 from repro_torch.kernels.gp_cov.ref import matern52_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
@@ -1096,26 +1122,42 @@ def ptxas_report(lib: Path, kernel_re: str) -> dict:
         if name is None:
             continue
         num = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
-        kernels[f"{name[1]}<{','.join(name.groups()[1:])}>"] = dict(
+        args = [g for g in name.groups()[1:] if g is not None]
+        kernels[f"{name[1]}<{','.join(args)}>"] = dict(
             registers=num(r"Used (\d+) registers"),
             static_smem_bytes=num(r"(\d+) bytes smem"),
             spill_stores=num(r"(\d+) bytes spill stores"),
-            spill_loads=num(r"(\d+) bytes spill loads"))
+            spill_loads=num(r"(\d+) bytes spill loads"),
+            stack_frame_bytes=num(r"(\d+) bytes stack frame"))
     return kernels
+
+
+def hgmma_by_function(lib: Path):
+    """{mangled function name: HGMMA (wgmma) instructions in its SASS} of a
+    library, from ``cuobjdump -sass``; None where it is not installed."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        out[name] = out.get(name, 0) + chunk.count("HGMMA")
+    return out
 
 
 def attention_build_report(lib: Path) -> dict:
     """The attention kernels' ``ptxas_report`` and the count of ``HGMMA``
     (wgmma) instructions in the library's SASS where ``cuobjdump`` is
-    installed; fails if the tensor-core kernel has none."""
+    installed, in all and per backward tensor-core kernel; fails if a
+    tensor-core kernel has none, or if the build lacks an instantiation."""
     kernels = ptxas_report(lib,
                            r"(attn_fwd(?:_wgmma)?_kernel)ILi(\d+)ELi(\d+)E")
+    hgmma = hgmma_by_function(lib)
     out = dict(kernels=kernels, hgmma="not checked (no cuobjdump)")
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if Path(tool).is_file():
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                              text=True, check=True).stdout
-        out["hgmma"] = sass.count("HGMMA")
+    if hgmma is not None:
+        out["hgmma"] = sum(hgmma.values())
         if out["hgmma"] == 0:
             fail("the flash_attention library holds no HGMMA instruction")
     for name in ("attn_fwd_kernel<192,128>", "attn_fwd_wgmma_kernel<192,128>"):
@@ -1124,14 +1166,32 @@ def attention_build_report(lib: Path) -> dict:
                  f"head dims)")
     print(f"flash_attention build: {json.dumps(kernels)}; HGMMA "
           f"instructions in the SASS: {out['hgmma']}")
-    out["backward"] = ptxas_report(
-        lib, r"(attn_bwd_(?:dq|dkdv)_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi"
-             r"(\d+)E")
-    if len(out["backward"]) != 20:
-        fail(f"the flash_attention build log names "
-             f"{len(out['backward'])} backward kernels, not 20 (dq and dk / "
-             f"dv, 2 types, 5 head-dim classes)")
-    print(f"flash_attention backward build: {json.dumps(out['backward'])}")
+    # float32: the SIMT dk / dv and dq kernels, 5 head-dim classes;
+    # bfloat16: the tensor-core ones, 3 classes (PD, PV, and the dk / dv
+    # kernel's query tile BQ)
+    simt = ptxas_report(
+        lib, r"(attn_bwd_(?:dq|dkdv)_kernel)I(f)Li(\d+)ELi(\d+)E")
+    tc = ptxas_report(
+        lib, r"(attn_bwd_(?:dq|dkdv)_wgmma_kernel)ILi(\d+)ELi(\d+)E"
+             r"(?:Li(\d+)E)?")
+    if len(simt) != 10 or len(tc) != 6:
+        fail(f"the flash_attention build log names {len(simt)} float32 "
+             f"SIMT and {len(tc)} bf16 tensor-core backward kernels, not 10 "
+             f"(dq and dk / dv, 5 head-dim classes) and 6 (3 classes)")
+    if hgmma is not None:
+        for name, rec in tc.items():
+            kind = name.split("<")[0]
+            dims = name[name.index("<") + 1:-1].split(",")
+            mangled = [f for f in hgmma if kind in f and "ILi" + "ELi".join(
+                dims) + "E" in f]
+            rec["hgmma"] = sum(hgmma[f] for f in mangled)
+            if rec["hgmma"] == 0:
+                fail(f"the backward kernel {name} holds no HGMMA "
+                     f"instruction")
+    out["backward"] = dict(simt_float32=simt, wgmma_bf16=tc)
+    print(f"flash_attention backward build: float32 SIMT {json.dumps(simt)};"
+          f" bf16 tensor cores (registers, spills, HGMMA in the SASS) "
+          f"{json.dumps(tc)}")
     return out
 
 
@@ -1149,10 +1209,12 @@ def small_build_report(libs: dict) -> dict:
 
 
 def scan_build_report(lib: Path) -> dict:
-    """The scan kernels' ``ptxas_report`` (one instantiation per state-size
-    class: states a thread, threads a channel, steps ahead); fails if one
-    spills."""
-    kernels = ptxas_report(lib, r"(scan_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E")
+    """The scan kernels' ``ptxas_report`` (the forward: one instantiation
+    per state-size class — states a thread, threads a channel, steps
+    ahead — and per kept-states flag, 1 for training; fails if one spills;
+    the backward: one per state-size class, reported)."""
+    kernels = ptxas_report(
+        lib, r"(scan_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E")
     if not kernels:
         fail("the mamba_scan build log names no scan_kernel")
     spills = {k: v for k, v in kernels.items()
@@ -1160,10 +1222,11 @@ def scan_build_report(lib: Path) -> dict:
     if spills:
         fail(f"mamba_scan kernels spill registers: {json.dumps(spills)}")
     print(f"mamba_scan build: {json.dumps(kernels)}")
-    bwd = ptxas_report(lib, r"(scan_bwd_kernel)ILi(\d+)E")
+    bwd = ptxas_report(lib, r"(scan_bwd_kernel)ILi(\d+)ELi(\d+)E")
     if len(bwd) != 6:
         fail(f"the mamba_scan build log names {len(bwd)} backward kernels, "
-             f"not 6 (one a state-size class)")
+             f"not 6 (one a state-size class: states a thread, threads a "
+             f"channel)")
     print(f"mamba_scan backward build: {json.dumps(bwd)}")
     return dict(forward=kernels, backward=bwd)
 
@@ -1255,7 +1318,8 @@ def kernel_split(by_name: dict, total_s: float, top: int = 5) -> dict:
                ("flash_attention_simt", ("attn_fwd_kernel",)),
                ("mamba_scan", ("scan_kernel",)),
                ("flash_attention_bwd", ("attn_bwd_",)),
-               ("mamba_scan_bwd", ("scan_bwd_kernel", "sum_middle_kernel")))}
+               ("mamba_scan_bwd", ("scan_bwd_kernel",
+                                   "sum_partials_kernel")))}
     out["top"] = [dict(kernel=k[:120], s=t, count=c,
                        share=t / total_s if total_s > 0 else 0.0)
                   for k, (t, c) in sorted(by_name.items(),
@@ -3923,12 +3987,20 @@ FA_BWD_SHAPES = (FA_BWD_TRAIN,
 FA_BWD_TIMED = ("hymba train", "internlm2 train", "MLA train",
                 "whisper encoder train")
 # float32: the reference's gradient tolerance (tests/test_kernels.py);
-# bfloat16: kernel and plain version compute in float32 from the same bf16
-# inputs and round once to bf16, so they differ by at most two bf16
-# roundings (rtol 2^-7) plus float32 order differences, held to 1e-4 of
-# the largest gradient
-FA_BWD_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (None, 2 ** -7)}
-FA_BWD_BF16_ATOL_OF_MAX = 1e-4
+# bfloat16: the tensor-core kernels against their mirror
+# (flash_attention_bwd_tc_mirror: P and dS rounded to bf16 before the
+# products they feed, as the kernels do) within ref.tc_bwd_agreement's
+# gate: two bf16 roundings of the result plus 1e-4 of the largest
+# gradient, and at most TC_BWD_MAX_PAST elements a tensor past that, each
+# within one bf16 rounding (TC_BWD_PAST_OF_MAX) of the tensor's largest
+# magnitude (a P or dS that the two, computing it in float32 in another
+# order, round to neighbouring bf16 values)
+FA_BWD_F32_TOL = 3e-5
+# bfloat16 against the float32 plain version on the same (bf16-valued)
+# inputs: each gradient's max abs error at most this many times that of
+# the backward of scaled_dot_product_attention on the same inputs (the
+# library's own rounding, measured in the same run)
+FA_BWD_SDPA_FACTOR = 2.0
 # the forward's log-sum-exp against the plain version's: float32 within
 # the float32 forward tolerance, bf16 within ex2.approx's and the sums'
 # rounding
@@ -3942,7 +4014,7 @@ MS_BWD_SHAPES = (MS_BWD_TRAIN, (1, 512, 8192, 16, True, "falcon-mamba width"),
                                                     "one step"))
 MS_BWD_TIMED = ("hymba train", "falcon-mamba width")
 MS_BWD_TOL = 1e-4
-FA_BWD_SOURCE = FA_SOURCES + "flash_attention_bwd.cu"
+FA_BWD_SOURCE = FA_SOURCES + "flash_attention_bwd_wgmma.cu"
 MS_BWD_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu"
 # (b) one train step at full width, 2 layers, float32, batch 1, 64 tokens:
 # card against CPU.  Each parameter's gradient of the loss, before the
@@ -3989,26 +4061,36 @@ def fa_bwd_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask, window, kvl,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def ms_bwd_bound_ms(B, S, Di, Ds, with_h0: bool) -> tuple:
-    """Least time for one scan backward: u, delta, dy, A, Bc, Cc (h0, dhT)
-    read once and du, ddelta, dA, dB, dC (dh0) written once at the memory
-    rate, or 10 FP32 operations per (b, t, di, n) at the FP32 rate,
-    whichever is larger."""
+def ms_bwd_bound_ms(B, S, Di, Ds, with_h0: bool,
+                    sm_clock_hz: float) -> tuple:
+    """Least time for one scan backward: the larger of its byte bound (u,
+    delta, dy, A, Bc, Cc (h0, dhT) read once and du, ddelta, dA, dB, dC
+    (dh0) written once at the memory rate; 10 FP32 operations per (b, t,
+    di, n) at the FP32 rate stay below it) and its floor on the
+    special-function units (the exponentials exp(delta A) the gradient
+    needs, one per (b, t, di, n), at SFU_PER_SM per SM per clock at the
+    max SM clock).  Returns (ms, "bytes" | "operations", byte bound ms,
+    SFU floor ms)."""
     elems = (5 * B * S * Di + 2 * Di * Ds + 4 * B * S * Ds
              + (3 * B * Di * Ds if with_h0 else 0))
     t_bytes = 4 * elems / PEAK_BYTES_PER_S * 1e3
     t_ops = 10 * B * S * Di * Ds / PEAK_FP32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    t_sfu = B * S * Di * Ds / (SFU_PER_SM * n_sm * sm_clock_hz) * 1e3
+    t_bytes = max(t_bytes, t_ops)
+    if t_sfu > t_bytes:
+        return t_sfu, "operations", t_bytes, t_sfu
+    return t_bytes, "bytes", t_bytes, t_sfu
 
 
-def sdpa_bwd_ms(q, k, v, dout, mask, w, kvl) -> float:
-    """The backward of one ``scaled_dot_product_attention`` call under
-    autograd (boolean mask, ``enable_gqa``; the port never calls it): its
-    forward and backward timed together, its forward subtracted."""
+def sdpa_call(q, k, v, mask, w, kvl):
+    """(qt, kt, vt, fn): q, k, v in SDPA's (B, H, S, D) layout, requiring
+    grad, and ``fn()``: one ``scaled_dot_product_attention`` call with the
+    port's mask as a boolean mask and ``enable_gqa`` (the port never calls
+    it)."""
     Sq, Sk = q.shape[1], k.shape[1]
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    gt = dout.transpose(1, 2).contiguous()
     valid = Sk if kvl is None else kvl
     qp = torch.arange(Sq, device="cuda")[:, None] + (
         valid - Sq if kvl is not None else 0)
@@ -4018,19 +4100,39 @@ def sdpa_bwd_ms(q, k, v, dout, mask, w, kvl) -> float:
         allowed = allowed & (kp <= qp)
     if mask == "window":
         allowed = allowed & (qp - kp < w)
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+    return qt, kt, vt, lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+
+
+def sdpa_bwd_ms(q, k, v, dout, mask, w, kvl) -> float:
+    """The backward of one ``scaled_dot_product_attention`` call under
+    autograd: its forward and backward timed together, its forward
+    subtracted."""
+    qt, kt, vt, sdpa = sdpa_call(q, k, v, mask, w, kvl)
+    gt = dout.transpose(1, 2).contiguous()
     both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt), 5)
     with torch.no_grad():
         fwd = cuda_ms(sdpa, 5)
     return both - fwd
 
 
+def sdpa_grads(q, k, v, dout, mask, w, kvl) -> tuple:
+    """(dq, dk, dv) of ``scaled_dot_product_attention`` in the port's (B,
+    S, H, D) layout, in the inputs' dtype."""
+    qt, kt, vt, sdpa = sdpa_call(q, k, v, mask, w, kvl)
+    gs = torch.autograd.grad(sdpa(), (qt, kt, vt),
+                             dout.transpose(1, 2).contiguous())
+    return tuple(g.transpose(1, 2) for g in gs)
+
+
 def check_attention_bwd() -> list:
-    """(a) for attention: the forward's log-sum-exp and the backward kernel
-    against the plain versions, twice bitwise equal, timed."""
+    """(a) for attention: the forward's log-sum-exp and the backward kernels
+    against the plain versions (bf16: the tensor-core mirror, and the
+    float32 plain version beside SDPA's backward), twice bitwise equal,
+    timed."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     rows = []
+    occupancy = {}
     for shape in FA_BWD_SHAPES:
         B, Sq, Sk, H, KV, D, Dv, mask, w, kvl, tag = shape
         for dt in (torch.float32, torch.bfloat16):
@@ -4055,20 +4157,34 @@ def check_attention_bwd() -> list:
             if fa_ops.flash_attention.launches_bwd != \
                     before + fa_ops.BWD_LAUNCHES:
                 fail("flash_attention_bwd did not count its launches")
-            want = flash_attention_bwd_blocked(q, k, v, out, lse, dout, mask,
-                                               w, kvl)
-            atol, rtol = FA_BWD_TOL[dt]
-            errs = {}
+            if dt == torch.bfloat16:
+                want = flash_attention_bwd_tc_mirror(q, k, v, out, lse, dout,
+                                                     mask, w, kvl)
+            else:
+                want = flash_attention_bwd_blocked(q, k, v, out, lse, dout,
+                                                   mask, w, kvl)
+            errs, past = {}, {}
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
-                a, b = a.float(), b.float()
-                tol_a = atol if atol is not None else \
-                    FA_BWD_BF16_ATOL_OF_MAX * float(b.abs().max())
-                diff = (a - b).abs()
-                errs[name] = float(diff.max())
-                if not bool((diff <= tol_a + rtol * b.abs()).all()):
+                if dt == torch.bfloat16:
+                    agr = tc_bwd_agreement(a, b)
+                    errs[name] = agr["max_abs_err"]
+                    past[name] = dict(elements=agr["past_two_roundings"],
+                                      of_max=agr["past_of_max"])
+                    ok = agr["ok"]
+                else:
+                    diff = (a - b).abs()
+                    errs[name] = float(diff.max())
+                    ok = bool((diff <= FA_BWD_F32_TOL
+                               + FA_BWD_F32_TOL * b.abs()).all())
+                if not ok:
                     fail(f"flash_attention_bwd disagrees with its plain "
                          f"version at {shape[:-1]} {dt}: {name} max abs err "
-                         f"{errs[name]} (atol {tol_a}, rtol {rtol})")
+                         f"{errs[name]}"
+                         + (f", past two roundings {json.dumps(past[name])} "
+                            f"(at most {TC_BWD_MAX_PAST} elements, "
+                            f"{TC_BWD_PAST_OF_MAX} of the largest)"
+                            if name in past
+                            else f" (tol {FA_BWD_F32_TOL})"))
             again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, mask,
                                                w, kvl)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -4076,7 +4192,39 @@ def check_attention_bwd() -> list:
                      f"{shape[:-1]} {dt}")
             row = dict(shape=list(shape[:-1]), tag=tag, dtype=str(dt),
                        max_abs_err=max(errs.values()), errs=errs,
-                       lse_max_abs_err=lse_err, atol=atol, rtol=rtol)
+                       lse_max_abs_err=lse_err)
+            sdpa_text = ""
+            if dt == torch.bfloat16:
+                row["past_two_roundings"] = past
+                sdpa_text = (f"; past two roundings (elements, largest "
+                             f"difference of the tensor's largest) "
+                             f"{json.dumps(past)}")
+                # against the float32 plain version, beside SDPA's backward
+                f32 = flash_attention_bwd_blocked(
+                    q.float(), k.float(), v.float(), out.float(), lse,
+                    dout.float(), mask, w, kvl)
+                lib = sdpa_grads(q, k, v, dout, mask, w, kvl)
+                vs32 = {}
+                for name, a, s, b in zip(("dq", "dk", "dv"), got, lib, f32):
+                    ours = float((a.float() - b).abs().max())
+                    theirs = float((s.float() - b).abs().max())
+                    vs32[name] = dict(kernel=ours, sdpa=theirs)
+                    if not ours <= FA_BWD_SDPA_FACTOR * theirs:
+                        fail(f"flash_attention_bwd bf16 at {shape[:-1]}: "
+                             f"{name} is {ours} from the float32 plain "
+                             f"version, more than {FA_BWD_SDPA_FACTOR} x "
+                             f"SDPA's backward's {theirs}")
+                row["vs_float32"] = vs32
+                if (D, Dv) not in occupancy:
+                    occupancy[(D, Dv)] = fa_ops.bwd_occupancy(D, Dv)
+                row["occupancy"] = occupancy[(D, Dv)]
+                sdpa_text += (
+                    f"; against float32 (kernel / sdpa) "
+                    + ", ".join(f"{n} {e['kernel']:.3g} / {e['sdpa']:.3g}"
+                                for n, e in vs32.items())
+                    + f"; blocks an SM dk/dv "
+                    f"{row['occupancy']['dkdv']['blocks_per_sm']}, dq "
+                    f"{row['occupancy']['dq']['blocks_per_sm']}")
             if tag in FA_BWD_TIMED:
                 call = lambda: fa_ops.flash_attention_bwd(
                     q, k, v, out, lse, dout, mask, w, kvl)
@@ -4095,14 +4243,16 @@ def check_attention_bwd() -> list:
                       f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
                       if "ms" in row else "")
             print(f"flash_attention_bwd {shape[:-1]} {tag} {dt}: max abs err "
-                  f"{json.dumps(errs)}, lse {lse_err:.3g}, deterministic"
-                  f"{timing}")
+                  f"{json.dumps(errs)} against the "
+                  f"{'mirror' if dt == torch.bfloat16 else 'plain version'}"
+                  f", lse {lse_err:.3g}, deterministic{sdpa_text}{timing}")
     return rows
 
 
-def check_scan_bwd() -> list:
-    """(a) for the scan: the backward kernel against the plain reverse-time
-    version (1e-4), twice bitwise equal, timed."""
+def check_scan_bwd(sm_clock_hz: float) -> list:
+    """(a) for the scan: the forward's chunk states against the plain ones,
+    the backward kernel from them against the plain reverse-time version
+    (1e-4), twice bitwise equal, its split of the card, timed."""
     gen = torch.Generator(device="cuda").manual_seed(18)
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     rows = []
@@ -4113,8 +4263,16 @@ def check_scan_bwd() -> list:
         h0 = r(B, Di, Ds) if with_h0 else None
         dhT = r(B, Di, Ds) if with_h0 else None
         args = (u, dl, A, Bc, Cc, h0, dy, dhT)
+        _, _, states = ms_ops.selective_scan_fwd_states(u, dl, A, Bc, Cc, h0)
+        _, _, states_want = selective_scan_ref(u, dl, A, Bc, Cc, h0,
+                                               return_states=True)
+        st_err = float((states - states_want).abs().max())
+        if not bool(((states - states_want).abs()
+                     <= MS_BWD_TOL + MS_BWD_TOL * states_want.abs()).all()):
+            fail(f"the scan forward's chunk states disagree with the plain "
+                 f"ones at {(B, S, Di, Ds)} {tag}: max abs err {st_err}")
         before = ms_ops.selective_scan.launches_bwd
-        got = ms_ops.selective_scan_bwd(*args)
+        got = ms_ops.selective_scan_bwd(*args, states)
         torch.cuda.synchronize()
         if ms_ops.selective_scan.launches_bwd != \
                 before + ms_ops.BWD_LAUNCHES:
@@ -4131,28 +4289,48 @@ def check_scan_bwd() -> list:
                 fail(f"selective_scan_bwd disagrees with its plain version at "
                      f"{(B, S, Di, Ds)} {tag}: {name} max abs err "
                      f"{errs[name]}")
-        again = ms_ops.selective_scan_bwd(*args)
+        again = ms_ops.selective_scan_bwd(*args, states)
         if not all(a is None or torch.equal(a, b) for a, b in zip(got,
                                                                   again)):
             fail(f"selective_scan_bwd is not deterministic at "
                  f"{(B, S, Di, Ds)} {tag}")
+        split = ms_ops.bwd_split(B, Di, Ds)
         row = dict(shape=[B, S, Di, Ds], tag=tag, h0=with_h0,
                    max_abs_err=max(errs.values()), errs=errs,
-                   tolerance=MS_BWD_TOL)
+                   states_max_abs_err=st_err, tolerance=MS_BWD_TOL,
+                   split=split, states_bytes=states.numel() * 4)
         if tag in MS_BWD_TIMED:
-            b_ms, b_by = ms_bwd_bound_ms(B, S, Di, Ds, with_h0)
-            row.update(ms=cuda_ms(lambda: ms_ops.selective_scan_bwd(*args),
-                                  5),
+            b_ms, b_by, b_bytes, b_sfu = ms_bwd_bound_ms(B, S, Di, Ds,
+                                                         with_h0, sm_clock_hz)
+            # the training forward (writing the chunk states the backward
+            # starts from) beside serving's, which writes none
+            row.update(fwd_states_ms=cuda_ms(
+                           lambda: ms_ops.selective_scan_fwd_states(
+                               u, dl, A, Bc, Cc, h0), 5),
+                       fwd_ms=cuda_ms(lambda: ms_ops.selective_scan(
+                           u, dl, A, Bc, Cc, h0), 5))
+            row.update(ms=cuda_ms(lambda: ms_ops.selective_scan_bwd(
+                           *args, states), 5),
                        plain_ms=cuda_ms(lambda: selective_scan_bwd_ref(*args),
                                         1, warmup=0),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by, byte_bound_ms=b_bytes,
+                       sfu_floor_ms=b_sfu, sm_clock_hz=sm_clock_hz,
+                       library_ms=None)
         rows.append(row)
         timing = (f", kernel {row['ms'] * 1e3:.1f} us, plain "
                   f"{row['plain_ms'] * 1e3:.1f} us, bound "
-                  f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
+                  f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}; bytes "
+                  f"{row['byte_bound_ms'] * 1e3:.3f} us, exponentials "
+                  f"{row['sfu_floor_ms'] * 1e3:.3f} us at "
+                  f"{sm_clock_hz / 1e6:.0f} MHz); the forward with "
+                  f"states {row['fwd_states_ms'] * 1e3:.1f} us, without "
+                  f"{row['fwd_ms'] * 1e3:.1f} us"
                   if "ms" in row else "")
         print(f"mamba_scan_bwd {(B, S, Di, Ds)} {tag} h0/dhT={with_h0}: max "
-              f"abs err {json.dumps(errs)} (tol {MS_BWD_TOL}), deterministic"
+              f"abs err {json.dumps(errs)} (tol {MS_BWD_TOL}), chunk states "
+              f"{st_err:.3g} ({row['states_bytes']} bytes), deterministic; "
+              f"{split['warps_per_block']} warps a block, {split['blocks']} "
+              f"blocks, {split['blocks_per_sm_max_resident']} an SM at most"
               f"{timing}")
     return rows
 
@@ -4353,10 +4531,19 @@ def hymba_train() -> dict:
           f"{opt_s * 1e3:.1f} ms = {out['optimizer_share']:.1%} of a step, "
           f"peak device memory {peak / 2**30:.3f} GiB; launches a step "
           f"{out['launches_per_step']}")
+    print(f"hymba-1.5b training: losses {json.dumps(res.losses)}")
     if prof.get("device_s"):
+        sp = prof["split"]
         print(f"hymba-1.5b training: one step under the profiler "
               f"{prof['device_s'] * 1e3:.2f} ms device time, "
-              f"{prof['kernels']} kernels; split {json.dumps(prof['split'])}")
+              f"{prof['kernels']} kernels; the attention backward "
+              f"{sp['flash_attention_bwd']['s'] * 1e3:.2f} ms "
+              f"({sp['flash_attention_bwd']['share']:.1%}, "
+              f"{sp['flash_attention_bwd']['count']} launches), the scan "
+              f"backward {sp['mamba_scan_bwd']['s'] * 1e3:.2f} ms "
+              f"({sp['mamba_scan_bwd']['share']:.1%}, "
+              f"{sp['mamba_scan_bwd']['count']} launches); split "
+              f"{json.dumps(sp)}")
     else:
         print("hymba-1.5b training: device time not measured (the profiler "
               "saw no device events)")
@@ -4411,12 +4598,12 @@ def fault_tolerant_train() -> dict:
     return out
 
 
-def train_phase() -> dict:
+def train_phase(sm_clock_hz: float) -> dict:
     """Phase 17: (a) the backward kernels, (b) a train step card vs CPU,
     (c) hymba-1.5b trained for 6 steps, (d) the fault-tolerant driver."""
     t0 = time.perf_counter()
     fa_rows = check_attention_bwd()
-    ms_rows = check_scan_bwd()
+    ms_rows = check_scan_bwd(sm_clock_hz)
     t1 = time.perf_counter()
     parity = train_card_vs_cpu()
     free_card()
@@ -4544,7 +4731,7 @@ def main():
     families = families_phase()
 
     # ---- 17. training on the card -------------------------------------------
-    trained = train_phase()
+    trained = train_phase(sm_clock_hz)
 
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
@@ -4657,8 +4844,15 @@ def main():
         ms=fa_bwd["ms"], plain_ms=fa_bwd["plain_ms"],
         bound_ms=fa_bwd["bound_ms"], bound_by=fa_bwd["bound_by"],
         library_ms=fa_bwd["library_ms"], dtype="bfloat16",
+        float32_source=FA_SOURCES + "flash_attention_bwd.cu",
+        occupancy=fa_bwd["occupancy"], vs_float32=fa_bwd["vs_float32"],
         build=fa_build["backward"],
-        tolerance={str(k): v for k, v in FA_BWD_TOL.items()},
+        tolerance={"torch.float32": [FA_BWD_F32_TOL, FA_BWD_F32_TOL],
+                   "torch.bfloat16": dict(
+                       atol_of_max=TC_BWD_ATOL_OF_MAX, rtol=TC_BWD_RTOL,
+                       max_past=TC_BWD_MAX_PAST,
+                       past_of_max=TC_BWD_PAST_OF_MAX)},
+        sdpa_factor=FA_BWD_SDPA_FACTOR,
         shapes=trained["fa_bwd"],
         main_path=dict(train=trained["train"],
                        card_vs_cpu=trained["card_vs_cpu"],
@@ -4674,6 +4868,11 @@ def main():
         max_abs_err=max(r["max_abs_err"] for r in trained["ms_bwd"]),
         ms=ms_bwd["ms"], plain_ms=ms_bwd["plain_ms"],
         bound_ms=ms_bwd["bound_ms"], bound_by=ms_bwd["bound_by"],
+        byte_bound_ms=ms_bwd["byte_bound_ms"],
+        sfu_floor_ms=ms_bwd["sfu_floor_ms"], split=ms_bwd["split"],
+        states_bytes=ms_bwd["states_bytes"],
+        forward_with_states_ms=ms_bwd["fwd_states_ms"],
+        forward_ms=ms_bwd["fwd_ms"],
         library_ms=None, tolerance=MS_BWD_TOL, build=ms_build["backward"],
         shapes=trained["ms_bwd"])
     print(json.dumps({"kernels": [record, gp_record, fa_record,
@@ -4685,5 +4884,78 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+# --loss-drift: the attention backwards each arm trains with
+DRIFT_ARMS = ("kernel", "kernel again", "sdpa", "float32")
+
+
+def sdpa_bwd(q, k, v, out, lse, dout, mask_kind="causal", window=0,
+             kv_valid_len=None):
+    """``flash_attention_bwd``'s contract through the backward of one
+    ``scaled_dot_product_attention`` call."""
+    with torch.enable_grad():       # autograd's backward runs without it
+        return tuple(g.contiguous() for g in sdpa_grads(
+            q, k, v, dout, mask_kind, window, kv_valid_len))
+
+
+def float32_bwd(kernel):
+    """``flash_attention_bwd``'s contract through the float32 SIMT kernels
+    on float32 copies of the inputs, each gradient rounded once to its
+    input's dtype."""
+    def bwd(q, k, v, out, lse, dout, mask_kind="causal", window=0,
+            kv_valid_len=None):
+        grads = kernel(q.float(), k.float(), v.float(), out.float(), lse,
+                       dout.float(), mask_kind, window, kv_valid_len)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
+    return bwd
+
+
+def loss_drift():
+    """Phase 17 (c)'s 6 steps from seed 0 under each arm of DRIFT_ARMS."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    kernel = fa_ops.flash_attention_bwd
+    swap = {"sdpa": sdpa_bwd, "float32": float32_bwd(kernel)}
+    cfg = get_config(HYMBA)
+    losses = {}
+    for arm in DRIFT_ARMS:
+        t0 = time.perf_counter()
+        model = build_model(cfg, "cuda")
+        state = make_train_state(model, 0, TRAIN_OPT)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+        fa_ops.flash_attention_bwd = swap.get(arm, kernel)
+        try:
+            res, state = train_loop(model, state,
+                                    data.stream(0, TRAIN_STEPS),
+                                    make_train_step(model, TRAIN_OPT),
+                                    log_every=0)
+        finally:
+            fa_ops.flash_attention_bwd = kernel
+        losses[arm] = res.losses
+        del model, state
+        free_card()
+        print(f"loss drift, {arm}: losses {json.dumps(res.losses)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not all(np.isfinite(res.losses)):
+            fail(f"loss drift, {arm}: non-finite loss {res.losses}")
+    spread = {f"{a} - {b}": max(abs(x - y) for x, y in zip(losses[a],
+                                                             losses[b]))
+              for a, b in (("kernel", "kernel again"), ("kernel", "float32"),
+                           ("sdpa", "float32"), ("kernel", "sdpa"))}
+    print(json.dumps({"loss_drift": dict(steps=TRAIN_STEPS, losses=losses,
+                                         largest_difference=spread)}))
+    print(smi)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--loss-drift"]:
+        loss_drift()
+    else:
+        main()

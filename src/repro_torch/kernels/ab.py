@@ -4,23 +4,37 @@ kernel wrapper's launch.
 
     python -m repro_torch.kernels.ab pareto_rank DIR [DIR ...]
     python -m repro_torch.kernels.ab flash_attention DIR [DIR ...]
+    python -m repro_torch.kernels.ab flash_attention_bwd DIR [DIR ...]
+    python -m repro_torch.kernels.ab mamba_scan DIR [DIR ...]
+    python -m repro_torch.kernels.ab mamba_scan_bwd DIR [DIR ...]
     python -m repro_torch.kernels.ab wrapper
     python -m repro_torch.kernels.ab evaluate ROOT [ROOT ...]
 
 Each DIR holds another version's ``csrc`` files under the kernel's own file
 names (for example the parent commit's, unpacked with ``git archive``) and
-must export the same C entry with the same arguments (for
+must export the same C entry with the same arguments: for
 ``flash_attention`` the forward, ``flash_attention_fwd``, built from
-``flash_attention.cu`` and ``flash_attention_wgmma.cu``).  Every library is
+``flash_attention.cu`` and ``flash_attention_wgmma.cu``; for
+``flash_attention_bwd`` the backward entry of the same name, built from
+those and ``flash_attention_bwd.cu`` (and ``flash_attention_bwd_wgmma.cu``
+where the DIR has it); for ``mamba_scan`` the forward
+``mamba_selective_scan`` and for ``mamba_scan_bwd`` the backward
+``mamba_selective_scan_bwd``, both built from ``mamba_scan.cu`` and
+``mamba_scan_bwd.cu`` (a backward without ``mamba_scan_bwd_split`` takes h0
+and plans its own launch where this checkout's takes the forward's chunk
+states and the plan of ``mamba_scan_bwd_split``).  Every library is
 first checked against the kernel's plain version at every shape
-(``pareto_rank`` exactly, ``flash_attention`` in float32 within 2e-5 and in
-bfloat16 within the serving tolerance, atol 4e-3 and rtol 8e-3) and, for
-``flash_attention``, against the first version's output bit for bit; a
-shape a library refuses (a nonzero return code) is reported and not timed.
-Then each round times every library once, in turns: ``REPS`` launches of
-the C entry captured in one CUDA graph, replayed between CUDA events, so
-the wrapper's Python is not in the number.  ``ptxas`` registers and spills
-of each build are printed from the build log.
+(``pareto_rank`` exactly; ``flash_attention`` in float32 within 2e-5 and in
+bfloat16 within the serving tolerance, atol 4e-3 and rtol 8e-3; the
+attention backward in float32 within 3e-5 of the plain backward and in
+bfloat16 within ``tc_bwd_agreement``'s gate of
+``flash_attention_bwd_tc_mirror``; the scan forward and backward within
+1e-4) and against the first version's output bit for bit; a shape a library refuses (a nonzero return
+code) is reported and not timed.  Then each round times every library
+once, in turns: ``REPS`` launches of the C entry captured in one CUDA
+graph, replayed between CUDA events, so the wrapper's Python is not in the
+number.  ``ptxas`` registers and spills of each build are printed from the
+build log.
 
 ``wrapper`` times, on the host, the parts in which ways of handing a
 launch its stream and device differ (``torch.cuda.current_stream(dev)
@@ -56,7 +70,20 @@ import torch
 
 from .build import build_library
 
-KERNELS = ("pareto_rank", "flash_attention")
+KERNELS = ("pareto_rank", "flash_attention", "flash_attention_bwd",
+           "mamba_scan", "mamba_scan_bwd")
+# the library each mode builds, and the C sources it takes from a DIR (the
+# optional ones where the DIR has them)
+SOURCES = {"pareto_rank": ("pareto_rank", ("pareto_rank.cu",), ()),
+           "flash_attention": ("flash_attention", (
+               "flash_attention.cu", "flash_attention_wgmma.cu"), ()),
+           "flash_attention_bwd": ("flash_attention", (
+               "flash_attention.cu", "flash_attention_wgmma.cu",
+               "flash_attention_bwd.cu"), ("flash_attention_bwd_wgmma.cu",)),
+           "mamba_scan": ("mamba_scan", ("mamba_scan.cu",
+                                         "mamba_scan_bwd.cu"), ()),
+           "mamba_scan_bwd": ("mamba_scan", ("mamba_scan.cu",
+                                             "mamba_scan_bwd.cu"), ())}
 REPS = 20
 # (n, k, valid fraction): the search path's largest pool and the 8192 pool
 PARETO_SHAPES = ((768, 4, 1.0), (8192, 4, 0.8))
@@ -79,24 +106,60 @@ FA_SHAPES = ((4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None, "float32",
              (4, 1, 1057, 128, 128, 192, 128, "causal", 0, 1025, "bfloat16",
               "MLA decode"))
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 8e-3)}
+# the attention backward: (B, Sq, Sk, H, KV, D, Dv, mask, window,
+# kv_valid_len, dtype, tag): the training shapes of chip_smoke's phase 17
+FA_BWD_SHAPES = ((4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None,
+                  "bfloat16", "hymba train"),
+                 (1, 1024, 1024, 16, 8, 128, 128, "causal", 0, None,
+                  "bfloat16", "internlm2 train"),
+                 (1, 512, 512, 16, 16, 192, 128, "causal", 0, None,
+                  "bfloat16", "MLA train"),
+                 (1, 1500, 1500, 6, 6, 64, 64, "none", 0, None, "bfloat16",
+                  "whisper encoder train"),
+                 (4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None,
+                  "float32", "hymba train"))
+# the scan: (B, S, Di, Ds, h0, tag): serving (forward) and training
+# (backward) shapes of Hymba and Falcon-Mamba
+MS_SHAPES = ((4, 1152, 3200, 16, False, "hymba prefill"),
+             (4, 1, 3200, 16, True, "hymba decode"),
+             (4, 1024, 8192, 16, True, "falcon-mamba prefill"),
+             (4, 1, 8192, 16, True, "falcon-mamba decode"))
+MS_BWD_SHAPES = ((4, 1152, 3200, 16, False, "hymba train"),
+                 (1, 512, 8192, 16, True, "falcon-mamba width"))
 
 
 def emit(**row):
     print(json.dumps(row), flush=True)
 
 
-def bind(name: str, sources):
-    """Build ``sources`` and return (C entry, build log path)."""
-    path = build_library(name, sources)
+def bind(kernel: str, sources):
+    """Build ``sources`` and return (C entry, build log path); the scan
+    backward's entry also carries ``takes_states`` (this checkout's ABI:
+    the forward's chunk states and the plan of ``mamba_scan_bwd_split``)
+    and ``lib``."""
+    path = build_library(SOURCES[kernel][0], sources)
     lib = ctypes.CDLL(str(path))
-    if name == "pareto_rank":
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    if kernel == "pareto_rank":
         fn = lib.pareto_rank_dominance_counts
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
-    else:
+        fn.argtypes = [ptr] * 3 + [i] * 2 + [ptr]
+    elif kernel == "flash_attention":
         fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
-                       + [ctypes.c_void_p])
+        fn.argtypes = [ptr] * 4 + [i] * 12 + [ptr]
+    elif kernel == "flash_attention_bwd":
+        fn = lib.flash_attention_bwd
+        fn.argtypes = [ptr] * 10 + [i] * 12 + [ptr]
+    elif kernel == "mamba_scan":
+        fn = lib.mamba_selective_scan
+        fn.argtypes = [ptr] * 8 + [i] * 4 + [ptr]
+    else:
+        fn = lib.mamba_selective_scan_bwd
+        fn.takes_states = hasattr(lib, "mamba_scan_bwd_split")
+        fn.argtypes = [ptr] * (16 if fn.takes_states else 15) + [i] * 4 + [
+            ptr]
+        if fn.takes_states:
+            lib.mamba_scan_bwd_split.argtypes = [i] * 3 + [ptr]
+        fn.lib = lib
     fn.restype = ctypes.c_int
     return fn, path.with_suffix(".log")
 
@@ -197,14 +260,175 @@ def fa_cases(fn):
     return cases
 
 
+def fa_bwd_cases(fn):
+    """The attention backward at the training shapes: residuals from this
+    checkout's forward (the port's wrapper), checked against the plain
+    backward (float32) or the tensor-core mirror (bfloat16)."""
+    from .flash_attention import ops
+    from .flash_attention.ref import (MASK_KINDS, flash_attention_bwd_blocked,
+                                      flash_attention_bwd_tc_mirror,
+                                      tc_bwd_agreement)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = []
+    for B, Sq, Sk, H, KV, D, Dv, mask, w, kvl, dtype, tag in FA_BWD_SHAPES:
+        dt = getattr(torch, dtype)
+        r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+        q, k, v, dout = r(B, Sq, H, D), r(B, Sk, KV, D), r(B, Sk, KV, Dv), \
+            r(B, Sq, H, Dv)
+        out, lse = ops.flash_attention_fwd_lse(q, k, v, mask, w, kvl)
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty((B, H, Sq), device="cuda")
+        if dt == torch.float32:
+            want = flash_attention_bwd_blocked(q, k, v, out, lse, dout, mask,
+                                               w, kvl)
+        else:
+            want = flash_attention_bwd_tc_mirror(q, k, v, out, lse, dout,
+                                                 mask, w, kvl)
+        valid = Sk if kvl is None else kvl
+        offset = 0 if kvl is None else kvl - Sq
+
+        def launch(q=q, k=k, v=v, out=out, lse=lse, dout=dout, grads=grads,
+                   delta=delta, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D, Dv=Dv,
+                   mask=mask, w=w, valid=valid, offset=offset,
+                   code=int(dt == torch.bfloat16)):
+            return fn(*(x.data_ptr() for x in (q, k, v, out, lse, dout,
+                                               *grads, delta)),
+                      code, B, Sq, Sk, H, KV, D, Dv, MASK_KINDS.index(mask),
+                      w, valid, offset, stream_now())
+
+        def check(grads=grads, want=want, dt=dt):
+            err, ok = 0.0, True
+            for a, b in zip(grads, want):
+                if dt == torch.bfloat16:
+                    agreement = tc_bwd_agreement(a, b)
+                    err = max(err, agreement["max_abs_err"])
+                    ok = ok and agreement["ok"]
+                    continue
+                diff = (a - b).abs()
+                err = max(err, float(diff.max()))
+                ok = ok and bool((diff <= 3e-5 + 3e-5 * b.abs()).all())
+            return dict(max_abs_err=err, within_tol=ok)
+        cases.append((f"{tag} {dtype} {(B, Sq, Sk, H, KV, D, Dv, mask)}",
+                      launch, check, _Joined(grads)))
+    return cases
+
+
+class _Joined:
+    """Several output tensors compared and cloned as one."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def clone(self):
+        return _Joined(tuple(p.clone() for p in self.parts))
+
+    def equal(self, other) -> bool:
+        return all(torch.equal(a, b) for a, b in zip(self.parts,
+                                                     other.parts))
+
+
+def _scan_inputs(gen, B, S, Di, Ds, h0: bool):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    u, dl = r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di))
+    A = -torch.exp(r(Di, Ds) * 0.3)
+    return u, dl, A, r(B, S, Ds), r(B, S, Ds), r(B, Di, Ds) if h0 else None
+
+
+def ms_cases(fn):
+    """The scan forward at the serving shapes, against the plain scan."""
+    from .mamba_scan.ref import selective_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = []
+    for B, S, Di, Ds, with_h0, tag in MS_SHAPES:
+        u, dl, A, Bc, Cc, h0 = _scan_inputs(gen, B, S, Di, Ds, with_h0)
+        outs = (torch.empty(B, S, Di, device="cuda"),
+                torch.empty(B, Di, Ds, device="cuda"))
+        want = selective_scan_ref(u, dl, A, Bc, Cc, h0)
+
+        def launch(args=(u, dl, A, Bc, Cc, h0), outs=outs, B=B, S=S, Di=Di,
+                   Ds=Ds):
+            return fn(*(None if x is None else x.data_ptr()
+                        for x in (*args, *outs)), B, S, Di, Ds, stream_now())
+
+        def check(outs=outs, want=want):
+            err, ok = 0.0, True
+            for a, b in zip(outs, want):
+                diff = (a - b).abs()
+                err = max(err, float(diff.max()))
+                ok = ok and bool((diff <= 1e-4 + 1e-4 * b.abs()).all())
+            return dict(max_abs_err=err, within_tol=ok)
+        cases.append((f"{tag} {(B, S, Di, Ds)}", launch, check,
+                      _Joined(outs)))
+    return cases
+
+
+def ms_bwd_cases(fn):
+    """The scan backward at the training shapes, against the plain
+    reverse-time backward; a backward that takes the forward's chunk
+    states gets them from this checkout's forward."""
+    from .mamba_scan import ops
+    from .mamba_scan.ref import selective_scan_bwd_ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for B, S, Di, Ds, with_h0, tag in MS_BWD_SHAPES:
+        u, dl, A, Bc, Cc, h0 = _scan_inputs(gen, B, S, Di, Ds, with_h0)
+        dy = torch.randn(B, S, Di, generator=gen, device="cuda")
+        dhT = torch.randn(B, Di, Ds, generator=gen, device="cuda") \
+            if with_h0 else None
+        states = ops.selective_scan_fwd_states(u, dl, A, Bc, Cc, h0)[2]
+        outs = (torch.empty(B, S, Di, device="cuda"),
+                torch.empty(B, S, Di, device="cuda"),
+                torch.empty(Di, Ds, device="cuda"),
+                torch.empty(B, S, Ds, device="cuda"),
+                torch.empty(B, S, Ds, device="cuda"),
+                torch.empty(B, Di, Ds, device="cuda") if with_h0 else None)
+        want = selective_scan_bwd_ref(u, dl, A, Bc, Cc, h0, dy, dhT)
+        if fn.takes_states:
+            plan = (ctypes.c_int * 6)()
+            if fn.lib.mamba_scan_bwd_split(B, Di, Ds, plan) != 0:
+                raise RuntimeError("mamba_scan_bwd_split failed")
+            n = B * Di * Ds + B * S * plan[1] * 2 * Ds
+            sixth, more = states, (plan,)
+        else:           # a backward that plans itself and takes h0
+            fn.lib.mamba_scan_bwd_scratch.argtypes = [ctypes.c_int] * 4
+            fn.lib.mamba_scan_bwd_scratch.restype = ctypes.c_longlong
+            n = fn.lib.mamba_scan_bwd_scratch(B, S, Di, Ds)
+            sixth, more = h0, ()
+        scratch = torch.empty(max(1, n), device="cuda")
+
+        def launch(args=(u, dl, A, Bc, Cc, sixth, dy, dhT), outs=outs,
+                   more=more, scratch=scratch, B=B, S=S, Di=Di, Ds=Ds):
+            return fn(*(None if x is None else x.data_ptr()
+                        for x in (*args, *outs)), *more,
+                      scratch.data_ptr(), B, S, Di, Ds, stream_now())
+
+        def check(outs=outs, want=want):
+            err, ok = 0.0, True
+            for a, b in zip(outs, want):
+                if b is None:
+                    continue
+                diff = (a - b).abs()
+                err = max(err, float(diff.max()))
+                ok = ok and bool((diff <= 1e-4 + 1e-4 * b.abs()).all())
+            return dict(max_abs_err=err, within_tol=ok)
+        cases.append((f"{tag} {(B, S, Di, Ds)}", launch, check,
+                      _Joined(tuple(o for o in outs if o is not None))))
+    return cases
+
+
+MAKE = {"pareto_rank": pareto_cases, "flash_attention": fa_cases,
+        "flash_attention_bwd": fa_bwd_cases, "mamba_scan": ms_cases,
+        "mamba_scan_bwd": ms_bwd_cases}
+
+
 def compare(kernel: str, dirs, rounds: int):
-    here = Path(__file__).resolve().parent / kernel / "csrc"
-    names = (("pareto_rank.cu",) if kernel == "pareto_rank" else
-             ("flash_attention.cu", "flash_attention_wgmma.cu"))
-    versions = {"this checkout": [here / f for f in names]}
+    lib, names, optional = SOURCES[kernel]
+    here = Path(__file__).resolve().parent / lib / "csrc"
+    versions = {"this checkout": [here / f for f in names + optional]}
     for d in dirs:
-        versions[str(d)] = [Path(d) / f for f in names]
-    make = pareto_cases if kernel == "pareto_rank" else fa_cases
+        versions[str(d)] = [Path(d) / f for f in names + optional
+                            if f in names or (Path(d) / f).is_file()]
+    make = MAKE[kernel]
     cases = {}
     for label, sources in versions.items():
         t0 = time.perf_counter()
@@ -222,9 +446,10 @@ def compare(kernel: str, dirs, rounds: int):
                 continue
             verdict = check()
             ref = first.setdefault(shape, out.clone())
+            same = ref.equal(out) if isinstance(out, _Joined) else \
+                bool(torch.equal(out, ref))
             emit(kernel=kernel, version=label, shape=shape,
-                 bitwise_equal_to_first=bool(torch.equal(out, ref)),
-                 **verdict)
+                 bitwise_equal_to_first=same, **verdict)
             if all(v for key, v in verdict.items() if key != "max_abs_err"):
                 timed.setdefault(shape, []).append((label, launch))
     readings = {(s, lab): [] for s, ls in timed.items() for lab, _ in ls}

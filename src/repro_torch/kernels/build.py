@@ -3,8 +3,8 @@
 Each kernel folder keeps its sources under ``csrc/``; the first call that
 needs a kernel compiles them for Hopper (``sm_90a``) into the repository's
 ``build/kernels/`` directory, under a file name that carries a digest of the
-sources and flags — an edited source gets a fresh library, an unchanged one
-is reused.  Each source of a library compiles with an ``nvcc -c`` of its
+sources, the ``*.cuh`` headers beside them and the flags — an edited source
+or header gets a fresh library, an unchanged one is reused.  Each source of a library compiles with an ``nvcc -c`` of its
 own, all started together, and one ``nvcc -shared`` links them.  The library is
 loaded with ``ctypes`` by the kernel's ``ops.py`` through a
 ``LibraryLoader``.  Nothing here runs at import time.
@@ -58,10 +58,17 @@ def nvcc_path() -> str:
                        "are compiled from their csrc/ sources at first use")
 
 
+def headers_of(sources: Sequence[Path]) -> list:
+    """The ``*.cuh`` headers beside ``sources`` (what they may include)."""
+    dirs = sorted({Path(s).resolve().parent for s in sources})
+    return [h for d in dirs for h in sorted(d.glob("*.cuh"))]
+
+
 def library_path(name: str, sources: Sequence[Path]) -> Path:
-    """Where ``name``'s library for these exact sources and flags lives."""
+    """Where ``name``'s library for these exact sources, the headers beside
+    them, and flags lives."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers_of(sources)):
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

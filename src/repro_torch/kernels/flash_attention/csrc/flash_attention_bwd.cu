@@ -1,8 +1,9 @@
-// Flash-attention backward on NVIDIA Hopper (sm_90a).
+// Flash-attention backward on NVIDIA Hopper (sm_90a): the C entry, the
+// delta kernel, and the float32 SIMT kernels.
 //
 // Replaces no TPU kernel: the TPU reference differentiates its attention
 // through the custom VJP of src/repro/kernels/flash_attention/ops.py
-// (_fa_diff_fwd / _fa_diff_bwd), which saves the forward's log-sum-exp and
+// (_fa_diff_bwd / _fa_diff_fwd), which saves the forward's log-sum-exp and
 // recomputes the probabilities block by block.  Without this kernel the
 // port's forwards (flash_attention.cu, flash_attention_wgmma.cu) could not
 // be differentiated on the card.  For q (B, Sq, H, D), k (B, Sk, KV, D),
@@ -17,20 +18,28 @@
 // with GQA folded back: dk and dv of KV head g sum over its H / KV query
 // heads.  Masks as the forward: "causal" (k <= q), "window" (k <= q and
 // q - k < window) or "none", plus k < kv_valid_len, the queries at
-// absolute positions q_offset + i.  Everything is computed in float32.
+// absolute positions q_offset + i.
 //
-// What bounds it on the H100: 4 (D + Dv) operations per visible (q, k)
-// pair and head for the four products that need P (S = q k, dP = dout v,
-// dv += P dout, dk += dS q) and 2 D more for dq += dS k, i.e. 5 of the
-// forward's 2 matrix products, at 67 TFLOP/s in FP32, against q, k, v, out,
-// dout, lse read once and dq, dk, dv written once at 3.35 TB/s.  At Hymba's
-// training shape (q (4, 1152, 25, 64), window 1024) that is 4.2e10
-// operations, 627 us, against 71 MB, 21 us: bound by operations.
+// bfloat16 runs the delta kernel below, then the tensor-core kernels of
+// flash_attention_bwd_wgmma.cu (dk / dv and dq on wgmma).  float32 runs the
+// delta kernel and the SIMT kernels below, everything in float32: on
+// tensor cores float32 would run as TF32 and miss the reference's 3e-5
+// float32 gradient tolerance, and only the float32 card-against-CPU checks
+// launch it; a float32 backward on tensor cores (e.g. 3xTF32) is later
+// work.
 //
-// Design (simple first; tensor cores and TMA are later work).  Three
-// launches in FlashAttention-2's order, none with atomics, so two runs on
-// the same inputs are bitwise equal:
-// 1. delta: one warp a (b, i, h) row.
+// What bounds the float32 kernels on the H100: 4 (D + Dv) operations per
+// visible (q, k) pair and head for the four products that need P (S = q k,
+// dP = dout v, dv += P dout, dk += dS q) and 2 D more for dq += dS k, i.e.
+// 5 of the forward's 2 matrix products, at 67 TFLOP/s in FP32, against q,
+// k, v, out, dout, lse read once and dq, dk, dv written once at 3.35 TB/s.
+// At Hymba's training shape (q (4, 1152, 25, 64), window 1024) that is
+// 4.2e10 operations, 627 us, against 71 MB, 21 us: bound by operations.
+//
+// Design of the float32 path (simple first).  Three launches in
+// FlashAttention-2's order, none with atomics, so two runs on the same
+// inputs are bitwise equal:
+// 1. delta: one warp a (b, i, h) row (both types).
 // 2. dk / dv: one block a (b, KV head, tile of keys); L threads share a key
 //    (each holds every L-th 16-byte piece of its k and v rows and of their
 //    float32 gradients in registers, partial dot products added with
@@ -70,10 +79,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
 
 // threads that share one key (dk/dv) or one query (dq): keeps the float32
 // rows and gradients of a thread at or below 128 registers
@@ -436,11 +441,11 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* out,
-             const void* lse, const void* dout, void* dq, void* dk, void* dv,
-             float* delta, int B, int Sq, int Sk, int H, int KV, int D,
-             int Dv, int mask_kind, int window, int valid_len, int q_offset,
-             cudaStream_t s) {
+int dispatch_simt(const void* q, const void* k, const void* v,
+                  const void* out, const void* lse, const void* dout,
+                  void* dq, void* dk, void* dv, float* delta, int B, int Sq,
+                  int Sk, int H, int KV, int D, int Dv, int mask_kind,
+                  int window, int valid_len, int q_offset, cudaStream_t s) {
   const int need = D > Dv ? D : Dv;
   if (need <= 16)
     return launch<T, 16, 16>(q, k, v, out, lse, dout, dq, dk, dv, delta, B,
@@ -465,13 +470,24 @@ int dispatch(const void* q, const void* k, const void* v, const void* out,
 
 }  // namespace
 
+// flash_attention_bwd_wgmma.cu: the bf16 dk / dv and dq kernels on tensor
+// cores, after the delta kernel; its arguments as flash_attention_bwd's.
+int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dq, void* dk,
+                              void* dv, int B, int Sq, int Sk, int H, int KV,
+                              int D, int Dv, int mask_kind, int window,
+                              int valid_len, int q_offset,
+                              cudaStream_t stream);
+
 // C interface, loaded with ctypes.  q, k, v, out as flash_attention_fwd;
 // lse: (B, H, Sq) float32 from flash_attention_fwd_lse; dout: (B, Sq, H,
 // Dv); dq, dk, dv: the gradients, shaped as q, k, v; delta: (B, H, Sq)
 // float32 scratch.  All contiguous; q, k, v, out, dout, dq, dk, dv of one
-// type: dtype 0 = float32, 1 = bfloat16.  mask_kind, valid_len, q_offset
-// as the forward.  D at most 192, Dv at most 128.  Three launches on
-// stream.  Returns a cudaError_t code (0 = launched).
+// type: dtype 0 = float32, 1 = bfloat16 (D and Dv multiples of 8).
+// mask_kind, valid_len, q_offset as the forward.  D at most 192, Dv at
+// most 128.  Three launches on stream (two when Sk is 0).  Returns a
+// cudaError_t code (0 = launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* lse, const void* dout,
@@ -487,12 +503,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, lse, dout, dq, dk, dv, dl, B, Sq,
-                           Sk, H, KV, D, Dv, mask_kind, window, valid_len,
-                           q_offset, s);
-  if (dtype == 1)
-    return dispatch<bf16>(q, k, v, out, lse, dout, dq, dk, dv, dl, B, Sq,
-                          Sk, H, KV, D, Dv, mask_kind, window, valid_len,
-                          q_offset, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_simt<float>(q, k, v, out, lse, dout, dq, dk, dv, dl, B,
+                                Sq, Sk, H, KV, D, Dv, mask_kind, window,
+                                valid_len, q_offset, s);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = B * Sq * H;
+  attn_bwd_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), dl, rows,
+      Sq, H, Dv);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return flash_attention_bwd_wgmma(q, k, v, dout,
+                                   static_cast<const float*>(lse), dl, dq, dk,
+                                   dv, B, Sq, Sk, H, KV, D, Dv, mask_kind,
+                                   window, valid_len, q_offset, s);
 }

@@ -83,17 +83,14 @@
 // its scaled scores, m c ln 2 + log(l) with m the raw row max (float32,
 // (B, H, Sq); -FLT_MAX for a fully masked row), for the backward
 // (flash_attention_bwd.cu); with lse null nothing else changes.
+// The wgmma wrappers, descriptors, swizzle and copies are in
+// wgmma_common.cuh, shared with the backward (flash_attention_bwd_wgmma.cu).
 // The kernel launches on the caller's stream; the entry returns
 // cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "wgmma_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kWarpgroups = 2;              // 64 query rows each
 constexpr int kBQ = 64 * kWarpgroups;       // queries per block
@@ -103,203 +100,6 @@ constexpr int kStages = 4;                  // K/V ring depth
 constexpr float kNegInf = -3.4028234663852886e38f;   // finfo(float32).min
 
 enum MaskKind { kCausal = 0, kWindow = 1, kNone = 2 };
-
-// d (64 x 64, f32) = [d if scale_d] + A (64 x 16, shared) * B (64 x 16,
-// shared)^T, both K-major under the 128-byte swizzle.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 128, f32) = [d if scale_d] + A (64 x 16, shared) * B (128 x 16,
-// shared)^T, both K-major under the 128-byte swizzle.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64,
-// shared, N-major under the 128-byte swizzle: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128,
-// shared, N-major under the 128-byte swizzle: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads of accumulator registers above the
-// wgmma wait: the asynchronous product writes them behind its back.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
-                                         int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
-  else wgmma_ss_n128(d, a, b, scale_d);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// Byte offset of 16-byte chunk c of row r in a swizzled tile of `rows` rows.
-__device__ __forceinline__ uint32_t swizzled(int rows, int r, int c) {
-  return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// 16-byte global -> shared copy; zero-fills the chunk when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [first, first + ROWS) of a bf16 array with `stride` elements between
-// rows, `width` elements each, into a swizzled tile; rows at or past
-// `n_valid` and columns at or past `width` (up to P) are zero-filled.  P is
-// the padded width of the array: PD for Q and K, PV for V.
-template <int P, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
-                                          size_t stride, int first,
-                                          int n_valid, int width, int tid) {
-  constexpr int kChunks = P / 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "whole chunks per thread");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / kChunks;
-    const int c = e % kChunks;
-    const bool ok = r < n_valid && c * 8 < width;
-    const bf16* src =
-        ok ? base + static_cast<size_t>(first + r) * stride + c * 8 : base;
-    cp_async16(dst + swizzled(ROWS, r, c), src, ok);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // S = Q K^T for one warpgroup's 64 rows and one K tile, issued (async):
 // PD / 16 steps of 16 along the head dim, four to a 64-column block.  Its
@@ -380,25 +180,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBK / 2],
   for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + ps[r];
 }
 
-// P as bf16 A fragments: keys 16 kk .. 16 kk + 15 are the 8-blocks 2 kk and
-// 2 kk + 1 of the accumulator layout.
-__device__ __forceinline__ void pack_p(const float (&s)[kBK / 2],
-                                       uint32_t (&a)[kBK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
 template <int PD, int PV>
 __global__ void __launch_bounds__(kThreads, PD <= 64 && PV <= 64 ? 2 : 1)
 attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -451,10 +232,11 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // K/V tile t into its ring stage: one cp.async group per tile
   const auto load_kv = [&](int t) {
     const int k0 = lo + t * kBK;
-    load_tile<PD, kBK>(stage(t), kb, static_cast<size_t>(KV) * D, k0,
-                       kv_end - k0, D, tid);
-    load_tile<PV, kBK>(stage(t) + kKBytes, vb, static_cast<size_t>(KV) * Dv,
-                       k0, kv_end - k0, Dv, tid);
+    load_tile<PD, kBK, kThreads>(stage(t), kb, static_cast<size_t>(KV) * D,
+                                 k0, kv_end - k0, D, tid);
+    load_tile<PV, kBK, kThreads>(stage(t) + kKBytes, vb,
+                                 static_cast<size_t>(KV) * Dv, k0,
+                                 kv_end - k0, Dv, tid);
   };
 
   float o[PV / 2];
@@ -464,8 +246,8 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l[2] = {0.0f, 0.0f};
 
   if (n_tiles > 0) {
-    load_tile<PD, kBQ>(s_q, qb, static_cast<size_t>(H) * D, q0, Sq - q0, D,
-                      tid);
+    load_tile<PD, kBQ, kThreads>(s_q, qb, static_cast<size_t>(H) * D, q0,
+                                 Sq - q0, D, tid);
     load_kv(0);
     cp_async_commit();
     for (int t = 1; t < kStages - 2; ++t) {
@@ -506,7 +288,7 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<kBK / 2>(s);
     softmax_step(s, m, l, alpha, scale_log2, bites(0), lo, wg_first + r0,
                  cq, kv_end, mask_kind, window);
-    pack_p(s, a);
+    pack_frags<kBK>(s, a);
   }
   // Tile t: S of tile t and P V of tile t - 1 on the tensor cores, then
   // tile t's softmax while P V still runs.
@@ -523,7 +305,7 @@ attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_frags<kBK / 16>(a);
 #pragma unroll
     for (int i = 0; i < PV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    pack_p(s, a);
+    pack_frags<kBK>(s, a);
   }
   if (n_tiles > 0) {
     wgmma_fence();

@@ -18,11 +18,14 @@ Gradients: when autograd records (grad enabled and q, k or v requiring
 grad), ``flash_attention`` runs as ``FlashAttentionFn``, the counterpart of
 the reference's custom VJP ``_fa_diff``: the forward also writes each
 row's log-sum-exp and saves (q, k, v, out, lse); the backward is
-``flash_attention_bwd`` — on the card the kernels of
-``csrc/flash_attention_bwd.cu`` (three launches, or two when Sk is 0, each
-counted in ``flash_attention.launches_bwd``), on the CPU
+``flash_attention_bwd`` — on the card three launches, or two when Sk is 0,
+each counted in ``flash_attention.launches_bwd``: the delta kernel of
+``csrc/flash_attention_bwd.cu``, then for bfloat16 the tensor-core dk / dv
+and dq kernels of ``csrc/flash_attention_bwd_wgmma.cu`` and for float32
+the SIMT ones of ``csrc/flash_attention_bwd.cu``; on the CPU
 ``ref.flash_attention_bwd_blocked``.  Without autograd nothing is saved
 and the forward writes no log-sum-exp, so serving is unchanged.
+``bwd_occupancy`` reports the bfloat16 backward kernels' launch shape.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from .ref import (MASK_KINDS, flash_attention_blocked,
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu",
-           CSRC / "flash_attention_bwd.cu")
+           CSRC / "flash_attention_bwd.cu",
+           CSRC / "flash_attention_bwd_wgmma.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 192       # q/k head dim
 MAX_DV = 128      # v/out head dim
@@ -64,9 +68,25 @@ def _lib():
     bwd = lib.flash_attention_bwd
     bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
                     + [ctypes.c_void_p])
-    for fn in (fwd, fwd_lse, bwd):
+    occ = lib.flash_attention_bwd_occupancy
+    occ.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for fn in (fwd, fwd_lse, bwd, occ):
         fn.restype = ctypes.c_int
     return lib
+
+
+def bwd_occupancy(D: int, Dv: int) -> dict:
+    """The bfloat16 backward kernels' launch shape for head dims (D, Dv):
+    threads a block, dynamic shared memory and the blocks one SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), for the dk /
+    dv kernel and the dq kernel."""
+    out = (ctypes.c_int * 6)()
+    rc = _lib().flash_attention_bwd_occupancy(D, Dv, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_occupancy failed: CUDA "
+                           f"error {rc}")
+    keys = ("threads", "smem_bytes", "blocks_per_sm")
+    return {"dkdv": dict(zip(keys, out[:3])), "dq": dict(zip(keys, out[3:]))}
 
 
 def _check_shapes(q, k, v, mask_kind: str, kv_valid_len):

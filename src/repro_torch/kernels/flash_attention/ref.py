@@ -19,6 +19,12 @@ held against, and the CPU path of ``ops.flash_attention``.
   arithmetic (``csrc/flash_attention_wgmma.cu``) for tests: the scale
   applied after the product in the log2 domain, P rounded to bf16 before
   P V, l summed from the float32 P.  Never on the main path.
+* ``flash_attention_bwd_tc_mirror`` — the bf16 tensor-core backward's
+  arithmetic (``csrc/flash_attention_bwd_wgmma.cu``) for tests: float32
+  products of the inputs, P = exp2(S c - lse log2 e), P and dS rounded to
+  the inputs' dtype before the products they feed, the scale at the end.
+  Never on the main path.  ``tc_bwd_agreement`` is the gate the kernels
+  are held to against it.
 
 Layouts are the reference's: q (B, Sq, H, D); k/v (B, Sk, KV, D | Dv) with
 H % KV == 0.  Masks: ``causal`` — key j visible to the query at absolute
@@ -196,3 +202,107 @@ def flash_attention_tc_mirror(q, k, v, mask_kind: str = "causal",
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_bwd_tc_mirror(q, k, v, out, lse, dout,
+                                  mask_kind: str = "causal", window: int = 0,
+                                  kv_valid_len: Optional[int] = None,
+                                  block_k: int = BLOCK_K,
+                                  with_terms: bool = False):
+    """The tensor-core backward's rounding scheme: delta = rowsum(dout *
+    out) in float32; S = q k^T and dP = dout v^T in float32 from the
+    inputs; P = exp2(S c - lse log2 e) with c = log2(e) / sqrt(D) applied
+    after the product, 0 where masked; dS = P (dP - delta); P and dS
+    rounded to q's dtype before dv += P^T dout, dk += dS^T q and dq += dS
+    k, which sum in float32; dq and dk times 1/sqrt(D) at the end, each
+    result rounded once to its dtype.  On float32 inputs nothing rounds
+    but the float32 arithmetic.  Masks and GQA folding as
+    ``flash_attention_bwd_blocked``.
+
+    With ``with_terms`` it returns ((dq, dk, dv), (tq, tk, tv)): each
+    gradient's sum of the magnitudes of its rounded terms, float32 (tq =
+    sum_j |dS_ij| |k_j| / sqrt(D), tk likewise over i with |q_i|, tv =
+    sum_i |P_ij| |dout_i|), the scale of what a change of those roundings
+    can move."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    rep = H // KV
+    bk = max(1, min(block_k, Sk))
+    c = torch.tensor(math.log2(math.e) / math.sqrt(D), dtype=torch.float32)
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    nl = lse.float() * -math.log2(math.e)                # (B, H, Sq)
+    rnd = lambda x: x.to(q.dtype).float()
+    qf = q.float()
+    dof = dout.float().transpose(1, 2)                   # (B, H, Sq, Dv)
+    delta = (dof * out.float().transpose(1, 2)).sum(-1)  # (B, H, Sq)
+    q_pos, valid_len = _positions(Sq, Sk, kv_valid_len, q.device)
+    grads = [torch.zeros((B, Sq, H, D), device=q.device),
+             torch.zeros((B, Sk, KV, D), device=q.device),
+             torch.zeros((B, Sk, KV, Dv), device=q.device)]
+    terms = [torch.zeros_like(g) for g in grads] if with_terms else None
+    for k0 in range(0, Sk, bk):
+        kf = k[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
+        vf = v[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
+        n = kf.shape[1]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+        mask = _mask(q_pos, torch.arange(k0, k0 + n, device=q.device),
+                     valid_len, mask_kind, window)[None, None]
+        p = torch.where(mask, torch.exp2(s * c + nl[..., None]), 0.0)
+        dp = torch.einsum("bhqd,bkhd->bhqk", dof, vf)
+        ds = rnd(p * (dp - delta[..., None]))
+        for out_, mag in ((grads, lambda x: x),) + (
+                ((terms, torch.abs),) if with_terms else ()):
+            dsm = mag(ds)
+            out_[0] += torch.einsum("bhqk,bkhd->bqhd", dsm, mag(kf))
+            dk_b = torch.einsum("bhqk,bqhd->bkhd", dsm, mag(qf))
+            dv_b = torch.einsum("bhqk,bhqd->bkhd", mag(rnd(p)), mag(dof))
+            # GQA: fold query-head groups back onto their kv head
+            out_[1][:, k0:k0 + n] = dk_b.reshape(B, n, KV, rep, D).sum(3)
+            out_[2][:, k0:k0 + n] = dv_b.reshape(B, n, KV, rep, Dv).sum(3)
+    dq, dk, dv = grads
+    res = ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+           dv.to(v.dtype))
+    if not with_terms:
+        return res
+    return res, (terms[0] * scale, terms[1] * scale, terms[2])
+
+
+# The bf16 backward kernels against ``flash_attention_bwd_tc_mirror``.  Both
+# compute in float32 from the same bf16 inputs and round each result once,
+# so an element differs by two bf16 roundings (TC_BWD_RTOL of it) plus the
+# float32 sums' order (TC_BWD_ATOL_OF_MAX of its tensor's largest
+# magnitude).  They also compute each P and dS in float32 in another order
+# (wgmma's sums, ex2.approx), so a P or dS at a bf16 rounding boundary may
+# round to the neighbouring value in one of them, moving its term by one
+# bf16 ulp of it.  Where the terms cancel (dq's: each row of dS sums to
+# zero) that is many ulps of a small result, so the few elements a tensor
+# past two roundings (at most TC_BWD_MAX_PAST) are held to one bf16
+# rounding of the tensor's largest magnitude (TC_BWD_PAST_OF_MAX of it).
+# A kernel that drops or doubles a tile of queries or keys moves thousands
+# of elements and fails.
+TC_BWD_ATOL_OF_MAX = 1e-4
+TC_BWD_RTOL = 2 ** -7
+TC_BWD_MAX_PAST = 64
+TC_BWD_PAST_OF_MAX = 2 ** -7
+
+
+def tc_bwd_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How a bf16 backward gradient ``got`` agrees with the mirror's
+    ``want``: the max abs difference, the elements past two roundings, the
+    largest of their differences as a fraction of the tensor's largest
+    magnitude, and ``ok``: whether that is within the gate above."""
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    if diff.numel() == 0:
+        return dict(max_abs_err=0.0, past_two_roundings=0, past_of_max=0.0,
+                    ok=True)
+    big = float(b.abs().max())
+    atol = TC_BWD_ATOL_OF_MAX * big
+    past = diff > atol + TC_BWD_RTOL * b.abs()
+    n_past = int(past.sum())
+    worst = float(diff[past].max()) / big if n_past else 0.0
+    return dict(max_abs_err=float(diff.max()), past_two_roundings=n_past,
+                past_of_max=worst,
+                ok=n_past <= TC_BWD_MAX_PAST
+                and bool((diff <= atol + TC_BWD_PAST_OF_MAX * big).all()))

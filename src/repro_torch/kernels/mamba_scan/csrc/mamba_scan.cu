@@ -74,12 +74,20 @@
 //   partial tile (all of a decode step, S = 1) one step at a time; nothing
 //   is staged or computed past S.  No atomics: the result is bitwise the
 //   same from run to run.
+// - With a non-null `states` (training: mamba_selective_scan_states) it
+//   also writes h at the start of every chunk of kStateChunk = 16 steps,
+//   (B, ceil(S / 16), Di, Ds), which the backward (mamba_scan_bwd.cu)
+//   starts its recomputation from.  That is an instantiation of its own
+//   (kKeep): with states null the kernel is the serving one, unchanged in
+//   code, bits and time.
 // The kernel launches on the caller's stream and the C entry returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "mamba_scan_chunk.cuh"
 
 namespace {
 
@@ -278,18 +286,20 @@ __device__ __forceinline__ void update(float (&h)[NS], const float (&dA)[NS],
 // of batch row blockIdx.y) x G threads; thread (c, g) holds states
 // g*NS .. g*NS + NS - 1 of channel c.
 // U: steps whose exponentials are computed ahead of their updates.
-template <int NS, int G, int U>
+template <int NS, int G, int U, bool kKeep>
 __global__ void __launch_bounds__(32 * kWarps)
 scan_kernel(const float* __restrict__ u, const float* __restrict__ delta,
             const float* __restrict__ A, const float* __restrict__ Bc,
             const float* __restrict__ Cc, const float* __restrict__ h0,
-            float* __restrict__ y, float* __restrict__ hT, int S, int Di,
-            int Ds, bool vec) {
+            float* __restrict__ y, float* __restrict__ hT,
+            float* __restrict__ states, int S, int Di, int Ds, bool vec) {
   constexpr int NT = 32 * kWarps;
   constexpr int CH = NT / G;           // channels per block
   constexpr int DSP = NS * G;
   constexpr int kCW = 32 / G;          // channels per warp
   static_assert(kSteps % U == 0, "U must divide kSteps");
+  static_assert(kSteps % kStateChunk == 0 && kStateChunk % U == 0,
+                "a kept state starts a run of U steps");
   __shared__ Tiles<CH, DSP> sm;
 
   const int lane = threadIdx.x & 31;
@@ -344,6 +354,15 @@ scan_kernel(const float* __restrict__ u, const float* __restrict__ delta,
     for (int j = 0; j < NS; ++j) h[j] = 0.f;
   }
 
+  // h before step t into states (B, ceil(S / kStateChunk), Di, Ds)
+  const int n_kept = (S + kStateChunk - 1) / kStateChunk;
+  const auto keep = [&](int t) {
+    store_states(h, states + ((static_cast<size_t>(b) * n_kept +
+                               t / kStateChunk) * Di + di) * Ds,
+                 n0, Ds, vec);
+  };
+  const bool keeps = kKeep && live;
+
   for (int k = 0; k < ntiles; ++k) {
     cp_async_wait<kStages - 2>();   // tile k has landed (this thread's part)
     __syncthreads();                // ... everyone's; slot k - 1 is free
@@ -356,6 +375,7 @@ scan_kernel(const float* __restrict__ u, const float* __restrict__ delta,
     if (t0 + kSteps <= S) {
 #pragma unroll
       for (int i0 = 0; i0 < kSteps; i0 += U) {
+        if (keeps && i0 % kStateChunk == 0) keep(t0 + i0);
         float dA[U][NS], du[U];
 #pragma unroll
         for (int i = 0; i < U; ++i) {
@@ -372,6 +392,7 @@ scan_kernel(const float* __restrict__ u, const float* __restrict__ delta,
       }
     } else {
       for (int i = 0; i < S - t0; ++i) {
+        if (keeps && i % kStateChunk == 0) keep(t0 + i);
         const float d = sm.d[s][i][c];
         float dA[NS];
 #pragma unroll
@@ -409,15 +430,35 @@ bool aligned16(const void* p) {
 template <int NS, int G, int U>
 int launch(const float* u, const float* delta, const float* A,
            const float* Bc, const float* Cc, const float* h0, float* y,
-           float* hT, int B, int S, int Di, int Ds, cudaStream_t stream) {
+           float* hT, float* states, int B, int S, int Di, int Ds,
+           cudaStream_t stream) {
   const bool vec = Di % 4 == 0 && Ds % 4 == 0 && aligned16(u) &&
                    aligned16(delta) && aligned16(A) && aligned16(Bc) &&
-                   aligned16(Cc) && aligned16(h0) && aligned16(hT);
+                   aligned16(Cc) && aligned16(h0) && aligned16(hT) &&
+                   aligned16(states);
   constexpr int CH = 32 * kWarps / G;
   const dim3 grid((Di + CH - 1) / CH, B);
-  scan_kernel<NS, G, U><<<grid, 32 * kWarps, 0, stream>>>(
-      u, delta, A, Bc, Cc, h0, y, hT, S, Di, Ds, vec);
+  if (states != nullptr)
+    scan_kernel<NS, G, U, true><<<grid, 32 * kWarps, 0, stream>>>(
+        u, delta, A, Bc, Cc, h0, y, hT, states, S, Di, Ds, vec);
+  else
+    scan_kernel<NS, G, U, false><<<grid, 32 * kWarps, 0, stream>>>(
+        u, delta, A, Bc, Cc, h0, y, hT, nullptr, S, Di, Ds, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+int scan(const float* u, const float* delta, const float* A, const float* Bc,
+         const float* Cc, const float* h0, float* y, float* hT,
+         float* states, int B, int S, int Di, int Ds, void* stream) {
+  if (B <= 0 || Di <= 0 || Ds <= 0) return static_cast<int>(cudaSuccess);
+  if (S < 0 || Ds > 32 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(Ds, [&](auto v) {
+    using V = decltype(v);
+    return launch<V::NS, V::G, V::U>(u, delta, A, Bc, Cc, h0, y, hT, states,
+                                     B, S, Di, Ds, s);
+  });
 }
 
 }  // namespace
@@ -432,16 +473,25 @@ extern "C" int mamba_selective_scan(const float* u, const float* delta,
                                     const float* Cc, const float* h0,
                                     float* y, float* hT, int B, int S,
                                     int Di, int Ds, void* stream) {
-  if (B <= 0 || Di <= 0 || Ds <= 0) return static_cast<int>(cudaSuccess);
-  if (S < 0 || Ds > 32 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(Ds, [&](auto v) {
-    using V = decltype(v);
-    return launch<V::NS, V::G, V::U>(u, delta, A, Bc, Cc, h0, y, hT, B, S,
-                                     Di, Ds, s);
-  });
+  return scan(u, delta, A, Bc, Cc, h0, y, hT, nullptr, B, S, Di, Ds, stream);
 }
+
+// The same, also writing the state at the start of every chunk of
+// kStateChunk steps into states: (B, ceil(S / kStateChunk), Di, Ds)
+// float32, contiguous; chunk 0's is h0 (zeros without h0).  What the
+// backward starts from.
+extern "C" int mamba_selective_scan_states(const float* u,
+                                           const float* delta,
+                                           const float* A, const float* Bc,
+                                           const float* Cc, const float* h0,
+                                           float* y, float* hT,
+                                           float* states, int B, int S,
+                                           int Di, int Ds, void* stream) {
+  return scan(u, delta, A, Bc, Cc, h0, y, hT, states, B, S, Di, Ds, stream);
+}
+
+// Steps between the states mamba_selective_scan_states writes.
+extern "C" int mamba_scan_state_chunk() { return kStateChunk; }
 
 // The launch a scan of this shape gets: out[0] = G (threads a channel),
 // out[1] = NS (states a thread), out[2] = threads a block, out[3] = blocks,
@@ -457,6 +507,6 @@ extern "C" int mamba_scan_split(int B, int Di, int Ds, int* out) {
     out[2] = 32 * kWarps;
     out[3] = (Di + CH - 1) / CH * B;
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[4], scan_kernel<V::NS, V::G, V::U>, 32 * kWarps, 0));
+        &out[4], scan_kernel<V::NS, V::G, V::U, false>, 32 * kWarps, 0));
   });
 }

@@ -9,21 +9,36 @@ against.
     y_t = C_t . h_t
 
 Shapes: u/delta (B, S, Di); A (Di, Ds); Bc/Cc (B, S, Ds); h (B, Di, Ds).
+Training keeps the states at the start of every chunk of ``STATE_CHUNK``
+steps, (B, ceil(S / STATE_CHUNK), Di, Ds), from which the backward
+recomputes the others (the CUDA forward writes the same, the backward
+kernel starts from them).
 """
 
 from __future__ import annotations
 
 import torch
 
+STATE_CHUNK = 16
 
-def selective_scan_ref(u, delta, A, Bc, Cc, h0=None):
-    """Returns (y (B, S, Di) float32, h_T (B, Di, Ds) float32)."""
+
+def n_state_chunks(S: int) -> int:
+    return -(-S // STATE_CHUNK)
+
+
+def selective_scan_ref(u, delta, A, Bc, Cc, h0=None,
+                       return_states: bool = False):
+    """Returns (y (B, S, Di) float32, h_T (B, Di, Ds) float32), and with
+    ``return_states`` also the states at the start of every chunk of
+    ``STATE_CHUNK`` steps, (B, ceil(S / STATE_CHUNK), Di, Ds)."""
     B, S, Di = u.shape
     Ds = A.shape[1]
     h = (torch.zeros((B, Di, Ds), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float())
-    ys = []
+    ys, kept = [], []
     for t in range(S):
+        if t % STATE_CHUNK == 0:
+            kept.append(h)
         d_t = delta[:, t]
         dA = torch.exp(d_t[..., None] * A[None])              # (B, Di, Ds)
         dBu = (d_t * u[:, t])[..., None] * Bc[:, t, None, :]  # (B, Di, Ds)
@@ -31,15 +46,23 @@ def selective_scan_ref(u, delta, A, Bc, Cc, h0=None):
         ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
     y = (torch.stack(ys, dim=1) if ys
          else torch.zeros((B, 0, Di), dtype=torch.float32, device=u.device))
-    return y, h
+    if not return_states:
+        return y, h
+    states = (torch.stack(kept, dim=1) if kept
+              else torch.zeros((B, 0, Di, Ds), dtype=torch.float32,
+                               device=u.device))
+    return y, h, states
 
 
-def selective_scan_bwd_ref(u, delta, A, Bc, Cc, h0, dy, dhT=None):
+def selective_scan_bwd_ref(u, delta, A, Bc, Cc, h0, dy, dhT=None,
+                           states=None):
     """Gradients (du, ddelta, dA, dB, dC, dh0) of (y, h_T) =
     ``selective_scan_ref(u, delta, A, Bc, Cc, h0)`` for the gradients
     ``dy`` (B, S, Di) of y and ``dhT`` (B, Di, Ds) of h_T (None: zeros);
-    dh0 is None without h0.  With a_t = exp(delta_t A) and g_t the
-    gradient of h_t:
+    dh0 is None without h0.  With ``states`` (the forward's chunk states,
+    ``selective_scan_ref(..., return_states=True)``) each chunk's states
+    are recomputed from its start state, as the kernel does; without, from
+    h0.  With a_t = exp(delta_t A) and g_t the gradient of h_t:
 
         g_t = C_t dy_t + a_{t+1} g_{t+1}        (g_{S-1} adds dhT)
         du_t = delta_t sum_n g_t B_t,  ddelta_t = sum_n g_t (h_{t-1} a_t A
@@ -53,6 +76,8 @@ def selective_scan_bwd_ref(u, delta, A, Bc, Cc, h0, dy, dhT=None):
          if h0 is None else h0.float())
     hs = [h]                                   # h_{-1}, h_0, ..., h_{S-1}
     for t in range(S):
+        if states is not None and t % STATE_CHUNK == 0:
+            h = hs[-1] = states[:, t // STATE_CHUNK].float()
         d_t = delta[:, t]
         h = (torch.exp(d_t[..., None] * A[None]) * h
              + (d_t * u[:, t])[..., None] * Bc[:, t, None, :])

@@ -761,17 +761,47 @@ FA_BWD_SHAPES = [(4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None),
                  (2, 96, 160, 4, 1, 16, 64, "window", 48, 150)]
 
 
+def _sdpa_grads(q, k, v, dout, mask, w, kvl):
+    """(dq, dk, dv) of one ``scaled_dot_product_attention`` call (the
+    yardstick; the port never calls it) with the port's mask as a boolean
+    mask, in the port's (B, S, H, D) layout."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    valid = Sk if kvl is None else kvl
+    qp = torch.arange(Sq, device=q.device)[:, None] + (
+        valid - Sq if kvl is not None else 0)
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    allowed = kp < valid
+    if mask != "none":
+        allowed = allowed & (kp <= qp)
+    if mask == "window":
+        allowed = allowed & (qp - kp < w)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+    gs = torch.autograd.grad(o, (qt, kt, vt),
+                             dout.transpose(1, 2).contiguous())
+    return tuple(g.transpose(1, 2) for g in gs)
+
+
 @pytest.mark.parametrize("shape", FA_BWD_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, shape, dtype):
-    """The backward kernel against the plain backward on the same residuals:
-    float32 at the reference's 3e-5; bfloat16 (both in float32 from one set
-    of bf16 inputs, each rounded once to bf16) within two bf16 roundings
-    plus 1e-4 of the largest gradient.  Two calls bitwise equal, each
-    adding its three kernel launches to ``launches_bwd``."""
+    """The backward kernels against their plain versions on the same
+    residuals: float32 (the SIMT kernels) against the plain backward at the
+    reference's 3e-5; bfloat16 (the tensor-core kernels) against their
+    mirror ``flash_attention_bwd_tc_mirror`` within ``tc_bwd_agreement``'s
+    gate (two bf16 roundings plus 1e-4 of the largest gradient; at most 64
+    elements a tensor past that, each within 2^-7 of the tensor's largest
+    magnitude, where P or dS rounded to the neighbouring bf16 value), and
+    against the float32 plain backward within twice the error of
+    ``scaled_dot_product_attention``'s backward on the same inputs.  Two
+    calls bitwise equal, each adding its three kernel launches to
+    ``launches_bwd``."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import \
-        flash_attention_bwd_blocked
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_blocked, flash_attention_bwd_tc_mirror,
+        tc_bwd_agreement)
     B, Sq, Sk, H, KV, D, Dv, mask, w, kvl = shape
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(Sq + Sk)
@@ -784,13 +814,24 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, shape, dtype):
     again = ops.flash_attention_bwd(q, k, v, out, lse, do, mask, w, kvl)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches_bwd == before + 2 * ops.BWD_LAUNCHES
-    want = flash_attention_bwd_blocked(q, k, v, out, lse, do, mask, w, kvl)
-    for a, a2, b in zip(got, again, want):
-        assert torch.equal(a, a2)
-        a, b = a.float(), b.float()
-        atol, rtol = ((3e-5, 3e-5) if dt == torch.float32
-                      else (1e-4 * float(b.abs().max()), 2 ** -7))
-        assert bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    if dt == torch.float32:
+        want = flash_attention_bwd_blocked(q, k, v, out, lse, do, mask, w,
+                                           kvl)
+        for a, b in zip(got, want):
+            assert bool(((a - b).abs() <= 3e-5 + 3e-5 * b.abs()).all())
+        return
+    want = flash_attention_bwd_tc_mirror(q, k, v, out, lse, do, mask, w, kvl)
+    f32 = flash_attention_bwd_blocked(q.float(), k.float(), v.float(),
+                                      out.float(), lse, do.float(), mask, w,
+                                      kvl)
+    lib = _sdpa_grads(q, k, v, do, mask, w, kvl)
+    for name, a, b, f, s in zip(("dq", "dk", "dv"), got, want, f32, lib):
+        agreement = tc_bwd_agreement(a, b)
+        assert agreement["ok"], (name, agreement)
+        ours = float((a.float() - f).abs().max())
+        theirs = float((s.float() - f).abs().max())
+        assert ours <= 2.0 * theirs, (name, ours, theirs)
 
 
 @pytest.mark.parametrize("B,S,Di,Ds,with_h0", [
@@ -798,8 +839,8 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, shape, dtype):
     (2, 37, 70, 3, True), (3, 77, 130, 32, True), (1, 1, 64, 1, True)])
 def test_mamba_scan_bwd_kernel_matches_plain(cuda, B, S, Di, Ds, with_h0):
     """The scan backward against the plain reverse-time version within
-    1e-4, two calls bitwise equal, each adding its four kernel launches to
-    ``launches_bwd``."""
+    1e-4, two calls bitwise equal, each adding its kernel launches (the
+    reverse scan and the sums of its partials) to ``launches_bwd``."""
     from repro_torch.kernels.mamba_scan import ops
     from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
     gen = torch.Generator(device=cuda).manual_seed(S + Di)
@@ -819,6 +860,33 @@ def test_mamba_scan_bwd_kernel_matches_plain(cuda, B, S, Di, Ds, with_h0):
             continue
         assert torch.equal(a, a2)
         assert bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
+
+
+@pytest.mark.parametrize("B,S,Di,Ds,with_h0", [
+    (4, 1152, 3200, 16, False), (2, 37, 70, 3, True), (1, 5, 33, 16, True)])
+def test_mamba_scan_chunk_states_and_backward_from_them(cuda, B, S, Di, Ds,
+                                                         with_h0):
+    """The forward's chunk states (what ``SelectiveScanFn`` saves) against
+    the plain forward's within 1e-4, its y and h_T bit for bit those of the
+    forward without states (serving unchanged), and the backward from them
+    bit for bit the backward that runs the forward itself."""
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+    gen = torch.Generator(device=cuda).manual_seed(S + Ds)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    u, dl = r(B, S, Di), torch.nn.functional.softplus(r(B, S, Di))
+    A, Bc, Cc = -torch.exp(r(Di, Ds) * 0.3), r(B, S, Ds), r(B, S, Ds)
+    h0 = r(B, Di, Ds) if with_h0 else None
+    y, hT, states = ops.selective_scan_fwd_states(u, dl, A, Bc, Cc, h0)
+    y0, hT0 = ops.selective_scan(u, dl, A, Bc, Cc, h0)
+    assert torch.equal(y, y0) and torch.equal(hT, hT0)
+    want = selective_scan_ref(u, dl, A, Bc, Cc, h0, return_states=True)[2]
+    assert states.shape == (B, -(-S // ops.STATE_CHUNK), Di, Ds)
+    assert bool(((states - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    dy = r(B, S, Di)
+    a = ops.selective_scan_bwd(u, dl, A, Bc, Cc, h0, dy, None, states)
+    b = ops.selective_scan_bwd(u, dl, A, Bc, Cc, h0, dy)
+    assert all(x is None or torch.equal(x, z) for x, z in zip(a, b))
 
 
 def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -8,10 +8,16 @@ gradients of the reference:
   window, mask ``none``, GQA, D != Dv and a static ``kv_valid_len`` — at
   atol/rtol 3e-5, that test's tolerance; the forward's log-sum-exp against
   ``_fwd_with_lse``'s;
+* the bf16 tensor-core backward's mirror (``ref.flash_attention_bwd_tc_mirror``):
+  on float32 inputs equal to the plain backward within 3e-5, on bf16
+  inputs against ``jax.grad`` of ``_fa_diff`` within bounds stated from
+  bf16's unit roundoff (GQA, every mask, ``kv_valid_len``, head dims 16 to
+  192 with Dv != D);
 * the scan: ``ops.selective_scan`` under autograd (``SelectiveScanFn``,
-  whose CPU backward is ``ref.selective_scan_bwd_ref``) against
-  ``jax.grad`` of ``selective_scan_assoc``, with and without h0 and with a
-  gradient on h_T, at 1e-4, the reference scan tests' tolerance.
+  whose CPU backward is ``ref.selective_scan_bwd_ref`` from the forward's
+  chunk states) against ``jax.grad`` of ``selective_scan_assoc``, with and
+  without h0 and with a gradient on h_T, at 1e-4, the reference scan
+  tests' tolerance; the chunk states against the plain loop's states.
 
 Inputs are drawn with numpy and handed to both packages."""
 
@@ -138,6 +144,72 @@ def test_bwd_wrapper_checks_shapes():
         fa_ops.flash_attention_bwd(q, k, v, out, lse, out[:, :4])
 
 
+# the bf16 tensor-core backward's mirror: (B, Sq, Sk, H, KV, D, Dv, mask,
+# window, kv_valid_len) -- GQA, every mask, kv_valid_len, and the head-dim
+# classes 16 / 32 (zero-padded to 64), 64, 128 and MLA's 192 / 128, with
+# Dv != D
+TC_CASES = FA_CASES + [(1, 24, 24, 4, 2, 32, 32, "causal", 0, None),
+                       (1, 20, 36, 4, 4, 64, 64, "window", 12, 30),
+                       (1, 16, 16, 4, 2, 128, 128, "causal", 0, None),
+                       (1, 16, 24, 2, 2, 192, 128, "none", 0, 20),
+                       (1, 16, 16, 4, 1, 16, 64, "causal", 0, None)]
+
+
+def _bf16_values(*arrays):
+    """The arrays rounded to bfloat16 values, kept as float32."""
+    return [torch.tensor(a).to(torch.bfloat16).float().numpy()
+            for a in arrays]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,Dv,mask,window,kvl", TC_CASES)
+def test_bwd_tc_mirror_equals_the_plain_backward_in_float32(
+        B, Sq, Sk, H, KV, D, Dv, mask, window, kvl):
+    """On float32 inputs the mirror rounds nothing but float32 arithmetic,
+    so it equals the plain backward within the float32 tolerance."""
+    q, k, v, do = map(torch.tensor, _draw(B + Sq * 7 + D, (B, Sq, H, D),
+                                          (B, Sk, KV, D), (B, Sk, KV, Dv),
+                                          (B, Sq, H, Dv)))
+    out, lse = fa_ops.flash_attention_fwd_lse(q, k, v, mask, window, kvl)
+    want = fa_ref.flash_attention_bwd_blocked(q, k, v, out, lse, do, mask,
+                                              window, kvl)
+    got = fa_ref.flash_attention_bwd_tc_mirror(q, k, v, out, lse, do, mask,
+                                               window, kvl)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **FA_TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,Dv,mask,window,kvl", TC_CASES)
+def test_bwd_tc_mirror_matches_the_reference_vjp_in_bf16(
+        B, Sq, Sk, H, KV, D, Dv, mask, window, kvl):
+    """bf16 inputs: the mirror against ``jax.grad`` of ``_fa_diff`` on the
+    same (bf16-valued) numbers in float32.  The mirror rounds each P and dS
+    to bf16 before the product it feeds, an error of at most the unit
+    roundoff u = 2^-8 of each term, and each gradient once at the end, at
+    most u of it; so each gradient lies within u (terms + |gradient|) of
+    the float32 one, terms the sum of the magnitudes of its rounded terms
+    (the mirror's ``with_terms``), plus 1e-5 of the largest term sum for
+    the float32 arithmetic of both."""
+    q, k, v, w = _bf16_values(*_draw(B + Sq * 11 + D, (B, Sq, H, D),
+                                     (B, Sk, KV, D), (B, Sk, KV, Dv),
+                                     (B, Sq, H, Dv)))
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        _fa_diff(q, k, v, mask, window, kvl, 16) * w), argnums=(0, 1, 2))(
+        q, k, v)
+    out, lse = fa_ops.flash_attention_fwd_lse(*map(torch.tensor, (q, k, v)),
+                                              mask, window, kvl)
+    bf = lambda a: torch.tensor(a).to(torch.bfloat16)
+    got, terms = fa_ref.flash_attention_bwd_tc_mirror(
+        bf(q), bf(k), bf(v), out, lse, bf(w), mask, window, kvl,
+        with_terms=True)
+    u = 2.0 ** -8
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, want, terms):
+        b, t = np.asarray(b), t.numpy()
+        assert a.dtype == torch.bfloat16
+        err = np.abs(a.float().numpy() - b)
+        bound = u * (t + np.abs(b)) + 1e-5 * t.max()
+        assert (err <= bound).all(), (name, float(err.max()))
+
+
 # ---------------------------------------------------------------------------
 # the selective scan
 # ---------------------------------------------------------------------------
@@ -214,3 +286,54 @@ def test_scan_bwd_ref_matches_autograd_of_the_plain_loop():
     for a, t in zip(got, leaves):
         np.testing.assert_allclose(a.numpy(), t.grad.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,Di,Ds", [(2, 40, 6, 4), (1, 16, 5, 3),
+                                       (1, 33, 4, 16)])
+def test_scan_chunk_states_are_the_plain_loops_states(B, S, Di, Ds):
+    """The plain forward's chunk states: chunk c's is h after c * 16 steps
+    of the same loop, bit for bit (h0 for chunk 0)."""
+    u, dl, A, Bc, Cc, h0, _, _ = map(torch.tensor,
+                                     _scan_inputs(B, S, Di, Ds, S + Ds))
+    y, hT, states = ms_ref.selective_scan_ref(u, dl, A, Bc, Cc, h0,
+                                              return_states=True)
+    assert states.shape == (B, ms_ref.n_state_chunks(S), Di, Ds)
+    y0, hT0 = ms_ref.selective_scan_ref(u, dl, A, Bc, Cc, h0)
+    assert torch.equal(y, y0) and torch.equal(hT, hT0)
+    for c in range(states.shape[1]):
+        t = c * ms_ref.STATE_CHUNK
+        _, h = ms_ref.selective_scan_ref(u[:, :t], dl[:, :t], A, Bc[:, :t],
+                                         Cc[:, :t], h0)
+        assert torch.equal(states[:, c], h)
+    _, _, st = ms_ops.selective_scan_fwd_states(u, dl, A, Bc, Cc, h0)
+    assert torch.equal(st, states)
+
+
+@pytest.mark.parametrize("B,S,Di,Ds", [(2, 40, 6, 4), (1, 33, 8, 16),
+                                       (2, 17, 5, 3)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_scan_bwd_from_saved_states_matches_autodiff(B, S, Di, Ds, with_h0):
+    """The backward from the forward's chunk states (several chunks, the
+    last ragged) against ``jax.grad`` of ``selective_scan_assoc`` at 1e-4,
+    and equal to the backward that recomputes every state from h0."""
+    u, dl, A, Bc, Cc, h0, gy, gh = _scan_inputs(B, S, Di, Ds, 3 * S + Ds)
+    h0 = h0 if with_h0 else None
+
+    def jloss(u, dl, A, Bc, Cc, h0):
+        y, hT = selective_scan_assoc(u, dl, A, Bc, Cc, h0)
+        return jnp.sum(y * gy) + jnp.sum(hT * gh)
+
+    argnums = (0, 1, 2, 3, 4, 5) if with_h0 else (0, 1, 2, 3, 4)
+    want = jax.grad(jloss, argnums=argnums)(u, dl, A, Bc, Cc, h0)
+    ts = [None if a is None else torch.tensor(a)
+          for a in (u, dl, A, Bc, Cc, h0)]
+    _, _, states = ms_ref.selective_scan_ref(*ts, return_states=True)
+    got = ms_ops.selective_scan_bwd(*ts, torch.tensor(gy), torch.tensor(gh),
+                                    states)
+    plain = ms_ref.selective_scan_bwd_ref(*ts, torch.tensor(gy),
+                                          torch.tensor(gh))
+    for name, a, b, c in zip(("du", "ddelta", "dA", "dB", "dC", "dh0"), got,
+                             want, plain):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **MS_TOL)
+        assert torch.equal(a, c), name
