@@ -14,10 +14,12 @@ Each DIR holds another version's ``csrc`` files under the kernel's own file
 names (for example the parent commit's, unpacked with ``git archive``) and
 must export the same C entry with the same arguments: for
 ``flash_attention`` the forward, ``flash_attention_fwd``, built from
-``flash_attention.cu`` and ``flash_attention_wgmma.cu``; for
-``flash_attention_bwd`` the backward entry of the same name, built from
-those and ``flash_attention_bwd.cu`` (and ``flash_attention_bwd_wgmma.cu``
-where the DIR has it); for ``mamba_scan`` the forward
+``flash_attention.cu`` and ``flash_attention_wgmma.cu`` (and
+``flash_attention_tf32.cu``, the float32 tensor-core kernels, where the DIR
+has it); for ``flash_attention_bwd`` the backward entry of the same name,
+built from those and ``flash_attention_bwd.cu`` (and
+``flash_attention_bwd_wgmma.cu`` and ``flash_attention_bwd_tf32.cu`` where
+the DIR has them); for ``mamba_scan`` the forward
 ``mamba_selective_scan`` and for ``mamba_scan_bwd`` the backward
 ``mamba_selective_scan_bwd``, both built from ``mamba_scan.cu`` and
 ``mamba_scan_bwd.cu`` (a backward without ``mamba_scan_bwd_split`` takes h0
@@ -29,7 +31,8 @@ bfloat16 within the serving tolerance, atol 4e-3 and rtol 8e-3; the
 attention backward in float32 within 3e-5 of the plain backward and in
 bfloat16 within ``tc_bwd_agreement``'s gate of
 ``flash_attention_bwd_tc_mirror``; the scan forward and backward within
-1e-4) and against the first version's output bit for bit; a shape a library refuses (a nonzero return
+1e-4) and against the first version's output (bit for bit, and the largest
+elementwise difference); a shape a library refuses (a nonzero return
 code) is reported and not timed.  Then each round times every library
 once, in turns: ``REPS`` launches of the C entry captured in one CUDA
 graph, replayed between CUDA events, so the wrapper's Python is not in the
@@ -76,10 +79,13 @@ KERNELS = ("pareto_rank", "flash_attention", "flash_attention_bwd",
 # optional ones where the DIR has them)
 SOURCES = {"pareto_rank": ("pareto_rank", ("pareto_rank.cu",), ()),
            "flash_attention": ("flash_attention", (
-               "flash_attention.cu", "flash_attention_wgmma.cu"), ()),
+               "flash_attention.cu", "flash_attention_wgmma.cu"),
+               ("flash_attention_tf32.cu",)),
            "flash_attention_bwd": ("flash_attention", (
                "flash_attention.cu", "flash_attention_wgmma.cu",
-               "flash_attention_bwd.cu"), ("flash_attention_bwd_wgmma.cu",)),
+               "flash_attention_bwd.cu"), ("flash_attention_tf32.cu",
+                                           "flash_attention_bwd_wgmma.cu",
+                                           "flash_attention_bwd_tf32.cu")),
            "mamba_scan": ("mamba_scan", ("mamba_scan.cu",
                                          "mamba_scan_bwd.cu"), ()),
            "mamba_scan_bwd": ("mamba_scan", ("mamba_scan.cu",
@@ -88,8 +94,10 @@ REPS = 20
 # (n, k, valid fraction): the search path's largest pool and the 8192 pool
 PARETO_SHAPES = ((768, 4, 1.0), (8192, 4, 0.8))
 # (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid_len, dtype, tag): the
-# float32 shapes, then the bfloat16 serving shapes (Hymba's prefill,
-# internlm2's prefill into a longer cache and its decode step, MLA decode)
+# float32 shapes (the prefills, and the decode steps and cross-attention
+# that the key-split kernel serves), then the bfloat16 serving shapes
+# (Hymba's prefill, internlm2's prefill into a longer cache and its decode
+# step, MLA decode)
 FA_SHAPES = ((4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None, "float32",
               "hymba prefill"),
              (1, 1024, 1024, 32, 8, 128, 128, "causal", 0, None, "float32",
@@ -97,6 +105,26 @@ FA_SHAPES = ((4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None, "float32",
              (1, 64, 64, 4, 4, 192, 128, "causal", 0, None, "float32", "MLA"),
              (1, 512, 512, 128, 128, 192, 128, "causal", 0, None, "float32",
               "deepseek-v2 width"),
+             (4, 1024, 1057, 128, 128, 192, 128, "causal", 0, 1024,
+              "float32", "MLA prefill"),
+             (4, 1500, 1500, 6, 6, 64, 64, "none", 0, None, "float32",
+              "whisper encoder"),
+             (4, 1024, 1057, 6, 6, 64, 64, "causal", 0, 1024, "float32",
+              "whisper prefill"),
+             (4, 1024, 1500, 6, 6, 64, 64, "none", 0, None, "float32",
+              "whisper cross prefill"),
+             (4, 1, 1057, 16, 8, 128, 128, "causal", 0, 1025, "float32",
+              "internlm2 decode"),
+             (4, 1, 1057, 128, 128, 192, 128, "causal", 0, 1025, "float32",
+              "MLA decode"),
+             (4, 1, 1500, 6, 6, 64, 64, "none", 0, None, "float32",
+              "whisper cross"),
+             (4, 1, 1057, 6, 6, 64, 64, "causal", 0, 1025, "float32",
+              "whisper decode"),
+             (4, 1, 1057, 48, 8, 128, 128, "causal", 0, 1025, "float32",
+              "grok-1 decode"),
+             (4, 1, 1057, 64, 8, 128, 128, "causal", 0, 1025, "float32",
+              "qwen2-vl decode"),
              (4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None, "bfloat16",
               "hymba prefill"),
              (4, 1024, 1057, 16, 8, 128, 128, "causal", 0, 1024, "bfloat16",
@@ -117,7 +145,13 @@ FA_BWD_SHAPES = ((4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None,
                  (1, 1500, 1500, 6, 6, 64, 64, "none", 0, None, "bfloat16",
                   "whisper encoder train"),
                  (4, 1152, 1152, 25, 5, 64, 64, "window", 1024, None,
-                  "float32", "hymba train"))
+                  "float32", "hymba train"),
+                 (1, 1024, 1024, 16, 8, 128, 128, "causal", 0, None,
+                  "float32", "internlm2 train"),
+                 (1, 512, 512, 16, 16, 192, 128, "causal", 0, None,
+                  "float32", "MLA train"),
+                 (1, 1500, 1500, 6, 6, 64, 64, "none", 0, None, "float32",
+                  "whisper encoder train"))
 # the scan: (B, S, Di, Ds, h0, tag): serving (forward) and training
 # (backward) shapes of Hymba and Falcon-Mamba
 MS_SHAPES = ((4, 1152, 3200, 16, False, "hymba prefill"),
@@ -326,6 +360,14 @@ class _Joined:
         return all(torch.equal(a, b) for a, b in zip(self.parts,
                                                      other.parts))
 
+    def max_diff(self, other) -> float:
+        return max(_max_diff(a, b) for a, b in zip(self.parts, other.parts))
+
+
+def _max_diff(a, b) -> float:
+    """The largest elementwise |a - b| (0 for empty tensors)."""
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
 
 def _scan_inputs(gen, B, S, Di, Ds, h0: bool):
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -446,10 +488,12 @@ def compare(kernel: str, dirs, rounds: int):
                 continue
             verdict = check()
             ref = first.setdefault(shape, out.clone())
-            same = ref.equal(out) if isinstance(out, _Joined) else \
-                bool(torch.equal(out, ref))
+            joined = isinstance(out, _Joined)
+            same = ref.equal(out) if joined else bool(torch.equal(out, ref))
+            diff = ref.max_diff(out) if joined else _max_diff(out, ref)
             emit(kernel=kernel, version=label, shape=shape,
-                 bitwise_equal_to_first=same, **verdict)
+                 bitwise_equal_to_first=same, max_abs_diff_to_first=diff,
+                 **verdict)
             if all(v for key, v in verdict.items() if key != "max_abs_err"):
                 timed.setdefault(shape, []).append((label, launch))
     readings = {(s, lab): [] for s, ls in timed.items() for lab, _ in ls}

@@ -5,8 +5,9 @@
 // (_fa_diff_bwd), which recomputes the probabilities from the forward's
 // log-sum-exp.  flash_attention_bwd.cu's entry calls this file for
 // bfloat16 inputs after its delta kernel (delta_i = sum_d dout_i,d out_i,d);
-// float32 keeps that file's SIMT kernels, since on tensor cores float32
-// would run as TF32 and miss the 3e-5 float32 gradient tolerance.  For q
+// float32 runs the 3xTF32 tensor-core kernels of
+// flash_attention_bwd_tf32.cu (one TF32 product would miss the 3e-5
+// float32 gradient tolerance).  For q
 // (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv), dout (B, Sq, H, Dv),
 // all row-major bf16, and the forward's lse and delta (B, H, Sq, float32),
 // it writes dq, dk, dv in bf16:

@@ -1,9 +1,9 @@
 // Flash-attention forward for bfloat16 on Hopper tensor cores (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
-// (flash_attention_pallas / _attn_kernel) for bfloat16 inputs; float32 keeps
-// the SIMT kernel of flash_attention.cu, since on tensor cores float32 would
-// run as TF32 and miss the 2e-5 float32 tolerance.  For q (B, Sq, H, D) and
+// (flash_attention_pallas / _attn_kernel) for bfloat16 inputs; float32 runs
+// the 3xTF32 tensor-core kernels of flash_attention_tf32.cu (one TF32
+// product would miss the 2e-5 float32 tolerance).  For q (B, Sq, H, D) and
 // k/v (B, Sk, KV, D | Dv), row-major bf16, it writes out (B, Sq, H, Dv) in
 // bf16: online-softmax attention with float32 running max, sum and
 // accumulator; query head h reads KV head h / (H / KV) (GQA, K/V never

@@ -3,16 +3,20 @@
 A CPU tensor goes to the plain PyTorch version (``ref.flash_attention_blocked``).
 A CUDA tensor launches a kernel (``csrc/``, built at first use into one
 library and loaded with ``ctypes``) or raises: there is no fallback.
-bfloat16 runs the tensor-core kernel (``csrc/flash_attention_wgmma.cu``),
-float32 the SIMT kernel (``csrc/flash_attention.cu``).  The wrapper checks
-device, dtype, rank, shapes and contiguity and raises on anything the
-kernels do not take (float32 or bfloat16 only, one type for q, k and v,
-D up to 192 and Dv up to 128 — MLA's 128 + 64 query/key dims over 128
-value dims; for bfloat16 head dims that are multiples of 8 and 16-byte
-aligned pointers).  ``flash_attention.launches`` counts forward kernel
-launches (and nothing else) and ``flash_attention.launches_tc`` the
-bfloat16 tensor-core launches among them, so a run can show which kernel
-served it.
+Both dtypes run on tensor cores: bfloat16 the wgmma kernel of
+``csrc/flash_attention_wgmma.cu``, float32 the 3xTF32 wgmma kernels of
+``csrc/flash_attention_tf32.cu`` (each float32 product as three TF32
+products of the operands' high and low parts, within the 2e-5 float32
+tolerance; a key-split kernel, one launch, serves the calls whose KV head
+has at most 8 query rows, Sq * H / KV, such as every decode step).  The
+wrapper checks device, dtype, rank, shapes and contiguity and raises on
+anything the kernels do not take (float32 or bfloat16 only, one type for
+q, k and v, D up to 192 and Dv up to 128 — MLA's 128 + 64 query/key dims
+over 128 value dims; for bfloat16 head dims that are multiples of 8 and
+16-byte aligned pointers).  ``flash_attention.launches`` counts forward
+kernel launches (and nothing else) and ``flash_attention.launches_tc`` the
+tensor-core launches among them, of both dtypes (every forward launch),
+so a run can show which kernel served it.
 
 Gradients: when autograd records (grad enabled and q, k or v requiring
 grad), ``flash_attention`` runs as ``FlashAttentionFn``, the counterpart of
@@ -20,9 +24,9 @@ the reference's custom VJP ``_fa_diff``: the forward also writes each
 row's log-sum-exp and saves (q, k, v, out, lse); the backward is
 ``flash_attention_bwd`` — on the card three launches, or two when Sk is 0,
 each counted in ``flash_attention.launches_bwd``: the delta kernel of
-``csrc/flash_attention_bwd.cu``, then for bfloat16 the tensor-core dk / dv
-and dq kernels of ``csrc/flash_attention_bwd_wgmma.cu`` and for float32
-the SIMT ones of ``csrc/flash_attention_bwd.cu``; on the CPU
+``csrc/flash_attention_bwd.cu``, then the tensor-core dk / dv and dq
+kernels, for bfloat16 of ``csrc/flash_attention_bwd_wgmma.cu`` and for
+float32 (3xTF32) of ``csrc/flash_attention_bwd_tf32.cu``; on the CPU
 ``ref.flash_attention_bwd_blocked``.  Without autograd nothing is saved
 and the forward writes no log-sum-exp, so serving is unchanged.
 ``bwd_occupancy`` reports the bfloat16 backward kernels' launch shape.
@@ -43,8 +47,9 @@ from .ref import (MASK_KINDS, flash_attention_blocked,
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu",
-           CSRC / "flash_attention_bwd.cu",
-           CSRC / "flash_attention_bwd_wgmma.cu")
+           CSRC / "flash_attention_tf32.cu", CSRC / "flash_attention_bwd.cu",
+           CSRC / "flash_attention_bwd_wgmma.cu",
+           CSRC / "flash_attention_bwd_tf32.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 192       # q/k head dim
 MAX_DV = 128      # v/out head dim
@@ -70,7 +75,10 @@ def _lib():
                     + [ctypes.c_void_p])
     occ = lib.flash_attention_bwd_occupancy
     occ.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    for fn in (fwd, fwd_lse, bwd, occ):
+    probe = lib.flash_attention_tf32_probe
+    probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    for fn in (fwd, fwd_lse, bwd, occ, probe):
         fn.restype = ctypes.c_int
     return lib
 
@@ -87,6 +95,31 @@ def bwd_occupancy(D: int, Dv: int) -> dict:
                            f"error {rc}")
     keys = ("threads", "smem_bytes", "blocks_per_sm")
     return {"dkdv": dict(zip(keys, out[:3])), "dq": dict(zip(keys, out[3:]))}
+
+
+def tf32_probe(a: torch.Tensor, b: torch.Tensor,
+               products: int = 3) -> torch.Tensor:
+    """c = a b^T (64 x 64, float32) on the card from a and b (64, D)
+    float32, D 64, 128 or 192, computed as the float32 kernels compute S =
+    Q K^T (``products=3``: 3xTF32 on wgmma; 1: one TF32 product of the
+    high parts): a measurement of the tensor cores' arithmetic against a
+    float64 product, on no path of the port."""
+    if a.shape != b.shape or a.dim() != 2 or a.shape[0] != 64 or \
+            a.shape[1] not in (64, 128, 192):
+        raise ValueError(f"tf32_probe: a and b must be (64, 64 | 128 | "
+                         f"192), got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.device.type != "cuda" or b.device != a.device or \
+            a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError("tf32_probe: a and b must be float32 on one card")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    with on(a.device):
+        rc = _lib().flash_attention_tf32_probe(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), a.shape[1], products,
+            stream_of(a.device))
+    if rc != 0:
+        raise RuntimeError(f"tf32_probe launch failed: CUDA error {rc}")
+    return c
 
 
 def _check_shapes(q, k, v, mask_kind: str, kv_valid_len):
@@ -112,8 +145,7 @@ def _check_shapes(q, k, v, mask_kind: str, kv_valid_len):
 
 def _check_card(q, k, v, *more):
     """The checks of a CUDA call: one device, one supported dtype,
-    contiguous tensors, the kernels' head dims.  Returns whether the
-    bfloat16 tensor-core kernel serves the forward."""
+    contiguous tensors, the kernels' head dims."""
     devices = {x.device for x in (q, k, v, *more)}
     if len(devices) != 1:
         raise ValueError(f"flash_attention: q, k, v lie on different devices "
@@ -131,14 +163,13 @@ def _check_card(q, k, v, *more):
     if not (1 <= D <= MAX_D and 1 <= Dv <= MAX_DV):
         raise ValueError(f"flash_attention: head dims ({D}, {Dv}) outside "
                          f"D 1..{MAX_D}, Dv 1..{MAX_DV}")
-    tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores and (D % 8 or Dv % 8):
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (D % 8 or Dv % 8):
         raise ValueError(f"flash_attention: bfloat16 head dims ({D}, {Dv}) "
                          f"must be multiples of 8")
-    if tensor_cores and any(x.data_ptr() % 16 for x in (q, k, v)):
+    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k, v must start on "
                          "16-byte boundaries")
-    return tensor_cores
 
 
 def _mask_args(q, k, mask_kind: str, window: int, kv_valid_len):
@@ -156,7 +187,7 @@ def _forward(q, k, v, mask_kind: str, window: int, kv_valid_len,
     if {q.device, k.device, v.device} == {torch.device("cpu")}:
         return flash_attention_blocked(q, k, v, mask_kind, window,
                                        kv_valid_len, return_lse=with_lse)
-    tensor_cores = _check_card(q, k, v)
+    _check_card(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -179,8 +210,8 @@ def _forward(q, k, v, mask_kind: str, window: int, kv_valid_len,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    count(flash_attention, "launches",
-          *(("launches_tc",) if tensor_cores else ()))
+    # one launch, on tensor cores for both dtypes
+    count(flash_attention, "launches", "launches_tc")
     return (out, lse) if with_lse else out
 
 

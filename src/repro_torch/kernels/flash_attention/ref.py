@@ -15,6 +15,14 @@ held against, and the CPU path of ``ops.flash_attention``.
   heads folded back onto their KV head.  The CPU path of
   ``ops.flash_attention_bwd`` and the oracle its CUDA kernel is held
   against.
+* ``split_tf32``, ``einsum_tf32`` and ``matmul_tf32x3`` — the float32
+  kernels' arithmetic on the tensor cores (``csrc/tf32_common.cuh``): a
+  float32 value split into a TF32 high part and a TF32 low part, and a
+  product as three TF32 products of the parts (3xTF32) or, for
+  comparison, one.  ``flash_attention_blocked`` and
+  ``flash_attention_bwd_blocked`` take ``products=3`` (or 1) to run their
+  matrix products that way: the CPU's evidence of why the kernels take
+  three.  Never on the main path (``products=None`` there: plain float32).
 * ``flash_attention_tc_mirror`` — the bf16 tensor-core kernel's
   arithmetic (``csrc/flash_attention_wgmma.cu``) for tests: the scale
   applied after the product in the log2 domain, P rounded to bf16 before
@@ -45,6 +53,54 @@ BLOCK_K = 512
 TC_BLOCK_K = 64     # keys per tile of the tensor-core kernel
 NEG_INF = float(torch.finfo(torch.float32).min)
 MASK_KINDS = ("causal", "window", "none")
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to the nearest TF32 (10 mantissa bits, ties
+    away from zero) by integer operations on its bits, as the kernels do:
+    add half a TF32 unit to the magnitude, clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) of float32 ``x``: hi = x rounded to the nearest TF32, lo =
+    x - hi (exact in float32) rounded likewise, so |x - hi - lo| <= 2^-22
+    |x| (finite x of at least 2^-114, where lo is a normal float; below
+    that lo loses bits as a subnormal)."""
+    x = x.float()
+    hi = _rna_tf32(x)
+    return hi, _rna_tf32(x - hi)
+
+
+def einsum_tf32(eq: str, a: torch.Tensor, b: torch.Tensor,
+                products: int = 3) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` in float32 with TF32 operands: with
+    ``products=3`` a_lo b_hi + a_hi b_lo + a_hi b_hi (3xTF32, small terms
+    first, as the kernels sum them), with ``products=1`` a_hi b_hi."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    if products == 1:
+        return torch.einsum(eq, ah, bh)
+    if products != 3:
+        raise ValueError(f"products must be 1 or 3, got {products}")
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
+        + torch.einsum(eq, ah, bh)
+
+
+def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor,
+                  products: int = 3) -> torch.Tensor:
+    """``a @ b`` (matrices or batches of them) as ``einsum_tf32``:
+    hi hi + hi lo + lo hi, or hi hi alone with ``products=1``."""
+    return einsum_tf32("...ik,...kj->...ij", a, b, products)
+
+
+def _einsum(eq: str, a, b, products: Optional[int]):
+    """Plain float32 ``torch.einsum`` (``products=None``) or the kernels'
+    TF32 products (``einsum_tf32``)."""
+    if products is None:
+        return torch.einsum(eq, a, b)
+    return einsum_tf32(eq, a, b, products)
 
 
 def _positions(Sq: int, Sk: int, kv_valid_len: Optional[int], device):
@@ -88,11 +144,13 @@ def attention_ref(q, k, v, mask_kind: str = "causal", window: int = 0,
 def flash_attention_blocked(q, k, v, mask_kind: str = "causal",
                             window: int = 0,
                             kv_valid_len: Optional[int] = None,
-                            block_k: int = BLOCK_K, return_lse: bool = False):
+                            block_k: int = BLOCK_K, return_lse: bool = False,
+                            products: Optional[int] = None):
     """Online-softmax attention over KV blocks of ``block_k`` keys; O(Sq *
     block_k) scores live at a time.  A fully masked row gives 0.  With
     ``return_lse`` also each row's log-sum-exp of its scaled scores, (B,
-    H, Sq) float32 (the reference's ``_fwd_with_lse``)."""
+    H, Sq) float32 (the reference's ``_fwd_with_lse``).  ``products`` (3
+    or 1) runs the two matrix products as ``einsum_tf32`` does."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -106,7 +164,7 @@ def flash_attention_blocked(q, k, v, mask_kind: str = "causal",
     for k0 in range(0, Sk, bk):
         kf = k[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
         vf = v[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
-        s = torch.einsum("bhqd,bkhd->bhqk", qf, kf)
+        s = _einsum("bhqd,bkhd->bhqk", qf, kf, products)
         mask = _mask(q_pos, torch.arange(k0, k0 + kf.shape[1],
                                          device=q.device),
                      valid_len, mask_kind, window)[None, None]
@@ -117,7 +175,7 @@ def flash_attention_blocked(q, k, v, mask_kind: str = "causal",
         p = torch.where(mask, torch.exp(s - safe), 0.0)
         alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - safe))
         l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p, vf)
+        acc = acc * alpha + _einsum("bhqk,bkhd->bhqd", p, vf, products)
         m = m_new
     out = (acc / torch.clamp(l, min=1e-20)).transpose(1, 2).to(q.dtype)
     if return_lse:
@@ -128,11 +186,13 @@ def flash_attention_blocked(q, k, v, mask_kind: str = "causal",
 def flash_attention_bwd_blocked(q, k, v, out, lse, dout,
                                 mask_kind: str = "causal", window: int = 0,
                                 kv_valid_len: Optional[int] = None,
-                                block_k: int = BLOCK_K):
+                                block_k: int = BLOCK_K,
+                                products: Optional[int] = None):
     """Gradients (dq, dk, dv) of attention, in q's, k's and v's dtypes, from
     the forward's ``out`` and ``lse`` (B, H, Sq) and the gradient ``dout``
     of ``out``: the reference's ``_fa_diff_bwd`` in float32, block by KV
-    block of ``block_k`` keys."""
+    block of ``block_k`` keys.  ``products`` (3 or 1) runs the five matrix
+    products as ``einsum_tf32`` does."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -150,15 +210,15 @@ def flash_attention_bwd_blocked(q, k, v, out, lse, dout,
         kf = k[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
         vf = v[:, k0:k0 + bk].repeat_interleave(rep, dim=2).float()
         n = kf.shape[1]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf)
+        s = _einsum("bqhd,bkhd->bhqk", qf * scale, kf, products)
         mask = _mask(q_pos, torch.arange(k0, k0 + n, device=q.device),
                      valid_len, mask_kind, window)[None, None]
         p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-        dv_b = torch.einsum("bhqk,bhqd->bkhd", p, dof)      # (B, n, H, Dv)
-        dp = torch.einsum("bhqd,bkhd->bhqk", dof, vf)
+        dv_b = _einsum("bhqk,bhqd->bkhd", p, dof, products)  # (B, n, H, Dv)
+        dp = _einsum("bhqd,bkhd->bhqk", dof, vf, products)
         ds = p * (dp - delta[..., None])
-        dq += scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-        dk_b = scale * torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+        dq += scale * _einsum("bhqk,bkhd->bqhd", ds, kf, products)
+        dk_b = scale * _einsum("bhqk,bqhd->bkhd", ds, qf, products)
         # GQA: fold query-head groups back onto their kv head
         dv[:, k0:k0 + n] = dv_b.reshape(B, n, KV, rep, Dv).sum(3)
         dk[:, k0:k0 + n] = dk_b.reshape(B, n, KV, rep, D).sum(3)

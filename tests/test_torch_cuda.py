@@ -431,7 +431,11 @@ def test_sa_step_makes_no_host_sync(cuda):
 # a kv_valid_len that is not a multiple of the kernel's tiles, two shapes
 # with Dv != D, head dims of 128 (the tensor-core kernel's second class),
 # and MLA's head dims, D 192 over Dv 128 (causal, with a kv_valid_len, and
-# at DeepSeek-V2's width: 128 heads)
+# at DeepSeek-V2's width: 128 heads); then decode steps that split the keys
+# over blocks (float32: one query over GQA 16 / 8 and 1057 keys with a
+# kv_valid_len, MLA's head dims at 4 heads, a key count that leaves a
+# ragged last split, 3 queries of 2 heads) and head dims that are not
+# multiples of 8 (float32 only: bfloat16 takes multiples of 8)
 FA_SHAPES = [
     # (B, Sq, Sk, H, KV, D, Dv, mask, window, kv_valid)
     (1, 32, 32, 4, 4, 16, 16, "causal", 0, None),
@@ -450,6 +454,12 @@ FA_SHAPES = [
     (1, 64, 64, 4, 4, 192, 128, "causal", 0, None),
     (1, 64, 128, 4, 4, 192, 128, "causal", 0, 100),
     (1, 512, 512, 128, 128, 192, 128, "causal", 0, None),
+    (4, 1, 1057, 16, 8, 128, 128, "causal", 0, 1025),
+    (4, 1, 1057, 4, 4, 192, 128, "causal", 0, 1025),
+    (2, 1, 700, 16, 8, 128, 128, "causal", 0, 650),
+    (1, 3, 300, 4, 2, 64, 64, "causal", 0, 290),
+    (2, 77, 90, 4, 2, 36, 20, "causal", 0, None),
+    (2, 1, 333, 8, 1, 37, 53, "window", 100, 300),
 ]
 
 
@@ -464,18 +474,40 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     q = torch.randn(B, Sq, H, D, generator=gen, device=cuda).to(dt)
     k = torch.randn(B, Sk, KV, D, generator=gen, device=cuda).to(dt)
     v = torch.randn(B, Sk, KV, Dv, generator=gen, device=cuda).to(dt)
+    if dt == torch.bfloat16 and (D % 8 or Dv % 8):
+        # the bf16 kernel takes head dims that are multiples of 8 only
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ops.flash_attention(q, k, v, mk, w, kvl)
+        return
     before = ops.flash_attention.launches
     before_tc = ops.flash_attention.launches_tc
     got = ops.flash_attention(q, k, v, mk, w, kvl)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
-    # bf16 runs on the tensor-core kernel, float32 on the SIMT kernel
-    assert ops.flash_attention.launches_tc == before_tc + (
-        dt == torch.bfloat16)
+    # both dtypes run on tensor cores (float32 as 3xTF32)
+    assert ops.flash_attention.launches_tc == before_tc + 1
     assert got.dtype == dt and got.shape == (B, Sq, H, Dv)
     want = attention_ref(q, k, v, mk, w, kvl)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("D", [64, 128, 192])
+def test_tf32_probe_holds_float32_accuracy_where_one_tf32_product_does_not(
+        cuda, D):
+    """The float32 kernels' products on wgmma (3xTF32) against float64: a
+    64 x 64 x D product within 2^-19 of its terms' magnitudes, where one
+    TF32 product of the high parts is off by far more."""
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    a = torch.randn(64, D, generator=gen, device=cuda)
+    b = torch.randn(64, D, generator=gen, device=cuda)
+    want = a.double() @ b.double().T
+    mag = a.double().abs() @ b.double().abs().T
+    err = {n: float(((ops.tf32_probe(a, b, n).double() - want).abs()
+                     / mag).max()) for n in (3, 1)}
+    assert err[3] <= 2.0 ** -19
+    assert err[1] > 64 * err[3]
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -640,7 +672,8 @@ def test_reduced_hymba_generate_goes_through_the_kernels(cuda):
     fa.flash_attention.launches_tc = 0
     r = generate(on_card, params, prompt, n_new)
     assert fa.flash_attention.launches == cfg.n_layers
-    assert fa.flash_attention.launches_tc == 0        # float32: SIMT kernel
+    # float32 runs on tensor cores too (3xTF32)
+    assert fa.flash_attention.launches_tc == cfg.n_layers
     assert ms.selective_scan.launches == cfg.n_layers * n_new
     on_cpu = build_model(cfg, device="cpu")
     r_cpu = generate(on_cpu, params.to("cpu"), prompt, n_new)
@@ -711,7 +744,7 @@ def test_reduced_family_generate_goes_through_the_kernels(cuda, arch):
                                   "qwen2-vl-72b", "deepseek-v2-236b",
                                   "grok-1-314b", "whisper-tiny"])
 def test_reduced_family_float32_generate_equals_the_cpus(cuda, arch):
-    """Float32 on the card (the SIMT attention kernel, the scan) and on the
+    """Float32 on the card (the 3xTF32 attention kernels, the scan) and on the
     CPU (plain versions), one weight set: the same greedy tokens, logits
     within 1e-3."""
     from repro_torch.kernels.flash_attention import ops as fa
@@ -725,7 +758,7 @@ def test_reduced_family_float32_generate_equals_the_cpus(cuda, arch):
         assert fa.flash_attention.launches == 0
     else:
         assert fa.flash_attention.launches > 0
-        assert fa.flash_attention.launches_tc == 0
+        assert fa.flash_attention.launches_tc == fa.flash_attention.launches
     _, run_cpu, _ = _family_run(arch, "cpu", dtype="float32")
     r_cpu = run_cpu(p=params.to("cpu"))
     assert torch.equal(r.tokens.cpu(), r_cpu.tokens)
@@ -788,8 +821,9 @@ def _sdpa_grads(q, k, v, dout, mask, w, kvl):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, shape, dtype):
     """The backward kernels against their plain versions on the same
-    residuals: float32 (the SIMT kernels) against the plain backward at the
-    reference's 3e-5; bfloat16 (the tensor-core kernels) against their
+    residuals: float32 (the 3xTF32 tensor-core kernels) against the plain
+    backward at the reference's 3e-5; bfloat16 (the tensor-core kernels)
+    against their
     mirror ``flash_attention_bwd_tc_mirror`` within ``tc_bwd_agreement``'s
     gate (two bf16 roundings plus 1e-4 of the largest gradient; at most 64
     elements a tensor past that, each within 2^-7 of the tensor's largest
