@@ -285,6 +285,27 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     steps) and a ``TransientError`` injected once at step 3: one restart,
     6 steps; a second trainer on the directory resumes at step 6, its first
     loss bit for bit the loss of the first trainer's state continued.
+18. the front door's tail and the planning layer on the card: (a) the
+    deprecated ``optimize``, ``two_stage_optimize`` and module-level
+    ``explore`` on the reference shim test's small problem (SA 4 steps, 2
+    chains, 2 + 2 restarts; NSGA pop 8, 2 generations): each warns once
+    and equals, bit for bit, the ``Session.submit`` it routes through with
+    the same key;
+    ``monolithic_cost`` on the card against the CPU (rtol 1e-6); (b) phase
+    11's first generation (tokens and logits) against the digest recorded
+    from the tree before the kernels became custom operators, bit for bit;
+    (c) ``launch.graph_analysis.analyze`` of phase 17 (c)'s train step on
+    fake CUDA tensors from ``train_state_specs`` (no kernel launched:
+    every counter unchanged): each kernel operator's calls times its
+    launches a call against phase 17 (c)'s launches a step
+    (its counters and its profiled step), the traced peak of live bytes
+    against ``max_memory_allocated``, the model FLOPs (6 N D) over the
+    profiled step's device time and over the step wall at the bf16 peak;
+    one decode step of phase 11 traced the same way, its compulsory bytes
+    at the HBM rate against the decode step's device time; (d) the
+    advisor's ``bo_search`` for qwen2-72b ``train_4k`` at 256 cards,
+    budget 32, with the GP on the card (``gp_cov`` launches counted) beside
+    ``exhaustive_best``.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -308,6 +329,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import os
 import re
@@ -318,6 +340,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -360,7 +383,9 @@ from repro_torch.explore.nsga import (NSGAConfig, make_nsga,  # noqa: E402
                                       make_nsga_fused)
 from repro_torch.explore import quantize  # noqa: E402
 from repro_torch.explore.service import BudgetPolicy  # noqa: E402
+from repro_torch.kernels.gp_cov import cost as gp_cost  # noqa: E402
 from repro_torch.kernels.gp_cov import ops as gp_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import cost as fa_cost  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     NEG_INF, attention_ref, flash_attention_blocked,
@@ -368,15 +393,33 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     tc_bwd_agreement, TC_BWD_ATOL_OF_MAX, TC_BWD_MAX_PAST,
     TC_BWD_PAST_OF_MAX, TC_BWD_RTOL)
 from repro_torch.kernels.gp_cov.ref import matern52_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import cost as ms_cost  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     selective_scan_bwd_ref, selective_scan_ref)
+from repro_torch.autosharding.advisor import (bo_search,  # noqa: E402
+                                              exhaustive_best)
+from repro_torch.core.constants import DEFAULT_H100  # noqa: E402
+from repro_torch.core.cost import monolithic_cost  # noqa: E402
+from repro_torch.core.optimizer import optimize as legacy_optimize  # noqa: E402
+from repro_torch.core.optimizer import (  # noqa: E402
+    two_stage_optimize as legacy_two_stage)
+from repro_torch.explore.service import ExplorationService  # noqa: E402
+from repro_torch.explore.service import explore as legacy_explore  # noqa: E402
+from repro_torch.launch.dryrun import (model_flops_for,  # noqa: E402
+                                       model_min_bytes_for)
+from repro_torch.launch.graph_analysis import analyze, roofline  # noqa: E402
 from repro_torch.launch.serve import generate, stub_inputs  # noqa: E402
+from repro_torch.launch.specs import (batch_specs, cache_specs,  # noqa: E402
+                                      params_specs, sds)
 from repro_torch.launch.train import (make_train_state,  # noqa: E402
-                                      make_train_step, train_loop)
+                                      make_train_step, train_loop,
+                                      train_state_specs)
 from repro_torch.models import layers as Ly  # noqa: E402
 from repro_torch.models import transformer as Tr  # noqa: E402
+from repro_torch.models.config import SHAPES, ShapeConfig  # noqa: E402
 from repro_torch.models.model import build_model, lm_module  # noqa: E402
+from repro_torch.kernels.pareto_rank import cost as pareto_cost  # noqa: E402
 from repro_torch.kernels.pareto_rank import ops as pareto_ops  # noqa: E402
 from repro_torch.kernels.pareto_rank.ref import dominance_counts_ref  # noqa: E402
 from repro_torch.obs.report import render  # noqa: E402
@@ -598,13 +641,20 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound_of(t_ops_ms: float, nbytes) -> tuple:
+    """(ms, "operations" | "bytes"): the larger of the operations' time and
+    the time of ``nbytes`` at the memory rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops_ms, "operations") if t_ops_ms >= t_bytes \
+        else (t_bytes, "bytes")
+
+
 def pareto_bound_ms(n: int, k: int) -> tuple:
-    """Least time for one dominance count: n*(4k+1) bytes read and 4n
-    written at the memory rate, or n^2 pairs x 2k FP32 compares at the
-    FP32 rate, whichever is larger."""
-    t_bytes = (n * (4 * k + 1) + 4 * n) / PEAK_BYTES_PER_S * 1e3
-    t_ops = n * n * 2 * k / PEAK_FP32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time for one dominance count (``pareto_rank/cost.py``: n*(4k+1)
+    bytes read and 4n written, n^2 pairs x 2k FP32 compares) at the memory
+    rate and the FP32 rate, whichever is larger."""
+    ops, nbytes = pareto_cost.dominance_work(n, k)
+    return bound_of(ops / PEAK_FP32_OPS_PER_S * 1e3, nbytes)
 
 
 def issue_floor_ms(pairs: int, instructions_per_pair: int,
@@ -690,12 +740,11 @@ def check_pareto_rank(sm_clock_hz: float) -> list:
 
 
 def gp_bound_ms(n: int, m: int, d: int) -> tuple:
-    """Least time for one covariance: 4 (n + m) d bytes read and 4 n m
-    written at the memory rate, or n m (3 d + 15) FP32 operations at the
-    FP32 rate, whichever is larger."""
-    t_bytes = (4 * (n + m) * d + 4 * n * m) / PEAK_BYTES_PER_S * 1e3
-    t_ops = n * m * (3 * d + 15) / PEAK_FP32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time for one covariance (``gp_cov/cost.py``: 4 (n + m) d bytes
+    read and 4 n m written, n m (3 d + 15) FP32 operations) at the memory
+    rate and the FP32 rate, whichever is larger."""
+    ops, nbytes = gp_cost.matern_work(n, m, d)
+    return bound_of(ops / PEAK_FP32_OPS_PER_S * 1e3, nbytes)
 
 
 def check_gp_cov(sm_clock_hz: float) -> list:
@@ -738,34 +787,28 @@ def check_gp_cov(sm_clock_hz: float) -> list:
     return rows
 
 
-def visible_pairs(Sq: int, Sk: int, mask: str, window: int, kvl) -> int:
-    """(q, k) pairs the mask lets through, for one (b, h)."""
-    valid = Sk if kvl is None else kvl
-    p = torch.arange(Sq, dtype=torch.long) + (0 if kvl is None else kvl - Sq)
-    hi = torch.clamp(torch.minimum(p + 1, torch.tensor(valid)), min=0) \
-        if mask != "none" else torch.full_like(p, valid)
-    lo = torch.clamp(p - window + 1, min=0) if mask == "window" \
-        else torch.zeros_like(p)
-    return int(torch.clamp(hi - lo, min=0).sum())
+visible_pairs = fa_cost.visible_pairs
+
+
+def tensor_core_op_s(dtype) -> float:
+    """Seconds an attention operation takes at the tensor cores' rate for
+    the input type: bf16, or for float32 three TF32 operations (3xTF32,
+    the least a float32-accurate product takes there)."""
+    return 1 / PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 \
+        else 3 / PEAK_TF32_OPS_PER_S
 
 
 def fa_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask, window, kvl,
                 dtype) -> tuple:
-    """Least time for one attention: q, the first ``kv_valid_len`` rows
-    of k and v (all Sk without it) read once and out written once at the
-    memory rate, or 2 (D + Dv) operations (the two products)
-    per visible (q, k) pair and head at the tensor cores' rate for the
-    input type: bf16, or for float32 three TF32 operations each (3xTF32,
-    the least a float32-accurate product takes there)."""
+    """Least time for one attention (``flash_attention/cost.py``: q, the
+    first ``kv_valid_len`` rows of k and v read once and out written once;
+    2 (D + Dv) operations a visible (q, k) pair and head) at the memory
+    rate and the tensor cores' rate for the input type, whichever is
+    larger."""
     size = torch.tensor([], dtype=dtype).element_size()
-    valid = Sk if kvl is None else kvl          # the key rows it must read
-    t_bytes = size * (B * Sq * H * (D + Dv) + B * valid * KV * (D + Dv)) \
-        / PEAK_BYTES_PER_S * 1e3
-    per_op = 1 / PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 \
-        else 3 / PEAK_TF32_OPS_PER_S
-    ops = 2 * B * H * (D + Dv) * visible_pairs(Sq, Sk, mask, window, kvl)
-    t_ops = ops * per_op * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    ops, nbytes = fa_cost.forward_work(B, Sq, Sk, H, KV, D, Dv, mask, window,
+                                       kvl, size)
+    return bound_of(ops * tensor_core_op_s(dtype) * 1e3, nbytes)
 
 
 # the float32 kernels' products (3xTF32 on wgmma) against float64, as
@@ -897,15 +940,11 @@ def time_attention(q, k, v, mask, w, kvl) -> dict:
 
 
 def ms_bound_ms(B, S, Di, Ds, with_h0: bool) -> tuple:
-    """Least time for one scan: u, delta, A, Bc, Cc (and h0) read once and
-    y, h_T written once at the memory rate, or 6 FP32 operations per
-    (b, t, di, n) (delta A, its exponential, the update FMA, the output
-    FMA) at the FP32 rate."""
-    elems = (3 * B * S * Di + Di * Ds + 2 * B * S * Ds
-             + B * Di * Ds * (2 if with_h0 else 1))
-    t_bytes = 4 * elems / PEAK_BYTES_PER_S * 1e3
-    t_ops = 6 * B * S * Di * Ds / PEAK_FP32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time for one scan (``mamba_scan/cost.py``: u, delta, A, Bc, Cc
+    (and h0) read once and y, h_T written once; 6 FP32 operations a (b, t,
+    di, n)) at the memory rate and the FP32 rate, whichever is larger."""
+    ops, nbytes = ms_cost.forward_work(B, S, Di, Ds, with_h0)
+    return bound_of(ops / PEAK_FP32_OPS_PER_S * 1e3, nbytes)
 
 
 def ms_sfu_floor_ms(B, S, Di, Ds, split: dict, sm_clock_hz: float) -> dict:
@@ -1110,6 +1149,7 @@ def hymba_serve() -> dict:
     steps = SERVE_TOKENS - 1
     out = dict(params=sum(p.numel() for p in params.parameters()),
                init_s=init_s, launches=launches, peak_bytes=peak,
+               digest=generation_digest(first),
                runs=[dict(prefill_s=g.prefill_s, decode_s=g.decode_s,
                           decode_ms_per_token=g.decode_s / steps * 1e3,
                           tokens_per_s=SERVE_BATCH * SERVE_TOKENS
@@ -1181,6 +1221,16 @@ def hymba_serve() -> dict:
           f"{attn['s'] * 1e3:.3f} ms = {attn['share']:.1%} of prefill device "
           f"time")
     return out
+
+
+def generation_digest(gen) -> str:
+    """sha256 of a generation's tokens and last logits, their bytes as they
+    lie on the card (phase 18 (b) holds phase 11's to a recorded one)."""
+    h = hashlib.sha256()
+    for t in (gen.tokens, gen.logits):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
 
 
 def ptxas_report(lib: Path, kernel_re: str) -> dict:
@@ -4166,25 +4216,15 @@ FT_STEPS, FT_CKPT_EVERY, FT_FAULT_AT = 6, 2, 3
 
 def fa_bwd_bound_ms(B, Sq, Sk, H, KV, D, Dv, mask, window, kvl,
                     dtype) -> tuple:
-    """Least time for one attention backward: 2 (3 D + 2 Dv) operations per
-    visible (q, k) pair and head (S = q k, dP = dout v, dv += P dout,
-    dq += dS k, dk += dS q: 5 products where the forward has 2) at the
-    tensor cores' rate for the input type (bf16, or for float32 three TF32
-    operations each: 3xTF32), or q, k, v, out, dout and lse read once and
-    dq, dk, dv written once at the memory rate, whichever is larger.  Per
-    query row and head: q and dq (D each), out and dout (Dv each); per
-    visible key row and kv head: k and dk (D each), v and dv (Dv each)."""
+    """Least time for one attention backward (``flash_attention/cost.py``:
+    2 (3 D + 2 Dv) operations a visible (q, k) pair and head; q, k, v, out,
+    dout and lse read once and dq, dk, dv written once) at the tensor
+    cores' rate for the input type and the memory rate, whichever is
+    larger."""
     size = torch.tensor([], dtype=dtype).element_size()
-    valid = Sk if kvl is None else kvl
-    t_bytes = (size * (B * Sq * H * (D + Dv) * 2
-                       + B * valid * KV * (D + Dv) * 2)
-               + 4 * B * H * Sq) / PEAK_BYTES_PER_S * 1e3
-    per_op = 1 / PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 \
-        else 3 / PEAK_TF32_OPS_PER_S
-    ops = 2 * B * H * (3 * D + 2 * Dv) * visible_pairs(Sq, Sk, mask, window,
-                                                       kvl)
-    t_ops = ops * per_op * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    ops, nbytes = fa_cost.backward_work(B, Sq, Sk, H, KV, D, Dv, mask,
+                                        window, kvl, size)
+    return bound_of(ops * tensor_core_op_s(dtype) * 1e3, nbytes)
 
 
 def ms_bwd_bound_ms(B, S, Di, Ds, with_h0: bool,
@@ -4197,12 +4237,12 @@ def ms_bwd_bound_ms(B, S, Di, Ds, with_h0: bool,
     needs, one per (b, t, di, n), at SFU_PER_SM per SM per clock at the
     max SM clock).  Returns (ms, "bytes" | "operations", byte bound ms,
     SFU floor ms)."""
-    elems = (5 * B * S * Di + 2 * Di * Ds + 4 * B * S * Ds
-             + (3 * B * Di * Ds if with_h0 else 0))
-    t_bytes = 4 * elems / PEAK_BYTES_PER_S * 1e3
-    t_ops = 10 * B * S * Di * Ds / PEAK_FP32_OPS_PER_S * 1e3
+    ops, nbytes = ms_cost.backward_work(B, S, Di, Ds, with_h0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    t_sfu = B * S * Di * Ds / (SFU_PER_SM * n_sm * sm_clock_hz) * 1e3
+    t_sfu = ms_cost.exponentials(B, S, Di, Ds) / (
+        SFU_PER_SM * n_sm * sm_clock_hz) * 1e3
     t_bytes = max(t_bytes, t_ops)
     if t_sfu > t_bytes:
         return t_sfu, "operations", t_bytes, t_sfu
@@ -4748,6 +4788,289 @@ def train_phase(sm_clock_hz: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the front door's tail and the planning layer on the card
+# ---------------------------------------------------------------------------
+# the reference shim test's small problem (tests/test_api_shims.py)
+SHIM_SPACE_KW = dict(max_shape=(16, 16, 4, 4, 1, 2))
+SHIM_OBJ = ("latency_ns", "cost_usd")
+SHIM_KEY = 3
+SHIM_SA = SAConfig(steps=4, chains=2)
+SHIM_ITERS = dict(n_init=2, n_iter=2)
+SHIM_NSGA = NSGAConfig(pop=8, generations=2)
+MONO_RTOL = 1e-6
+# phase 11's first generation (tokens, last logits) on the tree before the
+# kernels became custom operators (``generation_digest``; H100 80GB HBM3)
+HYMBA_SERVE_DIGEST = ("eaf7cb7fba82053a878b9e1ffa63fbb9"
+                      "02ff76ec68202884fb91ddb764b917a2")
+# (d) the advisor's cell
+PLAN_ARCH, PLAN_SHAPE, PLAN_CHIPS, PLAN_BUDGET = "qwen2-72b", "train_4k", \
+    256, 32
+
+
+def legacy_warnings(rec) -> int:
+    return sum(1 for w in rec if issubclass(w.category, DeprecationWarning)
+               and str(w.message).startswith("legacy entry point"))
+
+
+def warned_once(fn):
+    """(``fn()``, the legacy deprecation warnings it raised)."""
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, legacy_warnings(rec)
+
+
+def same_search_result(a, b) -> bool:
+    return (a.objective == b.objective and a.history == b.history
+            and all(torch.equal(a.design[k], b.design[k]) for k in a.design)
+            and all(np.array_equal(np.asarray(a.metrics[k]),
+                                   np.asarray(b.metrics[k]))
+                    for k in a.metrics))
+
+
+def same_explore_result(a, b) -> bool:
+    return (np.array_equal(a.front_objs, b.front_objs)
+            and np.array_equal(a.front_metrics, b.front_metrics)
+            and a.n_evals_run == b.n_evals_run and a.cache_key == b.cache_key
+            and all(np.array_equal(x[k], y[k]) for x, y in
+                    zip(a.front_designs, b.front_designs) for k in x))
+
+
+def shims_on_card(device: str = "cuda") -> dict:
+    """(a): each deprecated entry point warns once and equals the
+    ``Session.submit`` it routes through, bit for bit; ``monolithic_cost``
+    on the card against the CPU."""
+    graph = WorkloadGraph([matmul("mm", 512, 512, 64)], [])
+    spec = SystemSpec.build(graph, ch_max=2)
+    space = DesignSpace(spec, **SHIM_SPACE_KW)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(weights=(1.0, 1.0, 0.0, 0.0), bo_fields=(), sa=SHIM_SA,
+                  **SHIM_ITERS)
+        legacy, n = warned_once(lambda: legacy_optimize(
+            spec, space, SHIM_KEY, device=device, **kw))
+        new = Session(cache_dir=Path(tmp) / "b", device=device).submit(
+            Query(Problem.from_spec(spec, space), engine="bo_sa",
+                  weights=kw["weights"], engine_opts=dict(
+                      bo_fields=(), sa=SHIM_SA, **SHIM_ITERS)),
+            key=SHIM_KEY)
+        out["optimize"] = dict(warnings=n, identical=same_search_result(
+            legacy, new.raw), objective=legacy.objective)
+        legacy, n = warned_once(lambda: legacy_two_stage(
+            spec, space, SHIM_KEY, n_candidates=2, sa=SHIM_SA,
+            device=device))
+        new = Session(cache_dir=Path(tmp) / "c", device=device).submit(
+            Query(Problem.from_spec(spec, space), engine="two_stage",
+                  engine_opts=dict(n_candidates=2, sa=SHIM_SA)),
+            key=SHIM_KEY)
+        out["two_stage_optimize"] = dict(
+            warnings=n, identical=same_search_result(legacy, new.raw),
+            objective=legacy.objective)
+
+        def svc(sub):
+            return ExplorationService(
+                cache_dir=Path(tmp) / sub, nsga=SHIM_NSGA,
+                policy=BudgetPolicy(adaptive=False), device=device)
+        legacy, n = warned_once(lambda: legacy_explore(
+            graph, SHIM_OBJ, budget=16, ch_max=2,
+            space_kwargs=SHIM_SPACE_KW, service=svc("d"), key=SHIM_KEY))
+        new = Session(service=svc("e")).submit(
+            Query(Problem(graph, SHIM_OBJ, 2, SHIM_SPACE_KW), budget=16,
+                  engine="nsga"), key=SHIM_KEY)
+        out["explore"] = dict(warnings=n, identical=same_explore_result(
+            legacy, new.raw), evals=legacy.n_evals_run)
+    for name, r in out.items():
+        if r["warnings"] != 1 or not r["identical"]:
+            fail(f"phase 18 (a) {name}: {r}")
+    areas = torch.linspace(1.0, 1200.0, 4096, dtype=torch.float32)
+    for tag, tech in (("default", DEFAULT_TECH),
+                      ("dear wafers", dataclasses.replace(
+                          DEFAULT_TECH, wafer_cost=2 * DEFAULT_TECH.wafer_cost,
+                          defect_density_mm2=3e-3))):
+        card = monolithic_cost(areas.to(device), tech).cpu()
+        cpu = monolithic_cost(areas, tech)
+        rel = float(((card - cpu).abs() / cpu.abs()).max())
+        out[f"monolithic_cost {tag}"] = dict(
+            max_rel=rel, bitwise=bool(torch.equal(card, cpu)))
+        if not rel <= MONO_RTOL:
+            fail(f"phase 18 (a) monolithic_cost {tag}: card against CPU "
+                 f"{rel:.3e} past {MONO_RTOL}")
+    print(f"phase 18 (a) shims: {json.dumps(out)}")
+    return out
+
+
+def analysis_against_training(trained: dict, device: str = "cuda") -> dict:
+    """(c), training: phase 17 (c)'s step traced on fake CUDA tensors,
+    against what the card measured."""
+    cfg = get_config(HYMBA)
+    model = build_model(cfg, device)
+    before = train_counts()
+    batch = batch_specs(cfg, TRAIN_BATCH, TRAIN_SEQ, with_labels=True)
+    batch["loss_mask"] = sds((TRAIN_BATCH, TRAIN_SEQ), torch.float32)
+    t0 = time.perf_counter()
+    an = analyze(make_train_step(model, TRAIN_OPT),
+                 train_state_specs(model, TRAIN_OPT), batch, device=device)
+    trace_s = time.perf_counter() - t0
+    if train_counts() != before:
+        fail(f"phase 18 (c): the trace launched kernels: {before} -> "
+             f"{train_counts()}")
+    k = an.kernels
+
+    def launches(*ops):
+        return sum(k.get(f"repro_torch::{o}", {}).get("launches", 0)
+                   for o in ops)
+    traced = dict(flash_attention=launches("flash_attention",
+                                           "flash_attention_fwd_lse"),
+                  mamba_scan=launches("selective_scan",
+                                      "selective_scan_fwd_states"),
+                  flash_attention_bwd=launches("flash_attention_bwd"),
+                  mamba_scan_bwd=launches("selective_scan_bwd"))
+    per_step = trained["launches_per_step"]
+    counted = {n: per_step[n] for n in traced}
+    if traced != counted:
+        fail(f"phase 18 (c): traced launches {traced}, phase 17 (c) "
+             f"counted {counted} a step")
+    prof = trained["profiled_step"]
+    profiled = None
+    if prof.get("split"):
+        sp = prof["split"]
+        profiled = dict(flash_attention=sp["flash_attention_tc"]["count"],
+                        mamba_scan=sp["mamba_scan"]["count"],
+                        flash_attention_bwd=sp["flash_attention_bwd"]["count"],
+                        mamba_scan_bwd=sp["mamba_scan_bwd"]["count"])
+        if traced != profiled:
+            fail(f"phase 18 (c): traced launches {traced}, the profiled "
+                 f"step {profiled}")
+    sc = ShapeConfig("hymba train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mflops = model_flops_for(cfg, sc)
+    peak = DEFAULT_H100.peak_bf16_tflops * 1e12
+    out = dict(trace_s=trace_s, traced_launches=traced,
+               profiled_launches=profiled, counted_flops=an.flops,
+               kernel_flops=an.flops_kernels, bytes_all=an.bytes_all,
+               bytes_heavy=an.bytes_heavy, peak_bytes=an.peak_bytes,
+               input_bytes=an.input_bytes, ops=an.ops,
+               measured_peak_bytes=trained["peak_bytes"],
+               peak_gap_bytes=trained["peak_bytes"] - an.peak_bytes,
+               model_flops=mflops, step_wall_s=trained["step_s"],
+               model_share_of_wall=mflops / (trained["step_s"] * peak))
+    if prof.get("device_s"):
+        out.update(device_s=prof["device_s"],
+                   model_share_of_device=mflops / (prof["device_s"] * peak),
+                   counted_share_of_device=an.flops / (prof["device_s"]
+                                                       * peak))
+    rl = roofline(an.flops, an.bytes_all, an.total_wire_bytes, 1, mflops)
+    out["roofline"] = rl.to_dict()
+    print(f"phase 18 (c) train step traced in {trace_s:.2f} s on fake CUDA "
+          f"tensors ({an.ops} operators, no kernel launched): kernel launches "
+          f"{traced} = phase 17 (c)'s {counted} a step (profiled step "
+          f"{profiled}); traced peak {an.peak_bytes / 2**30:.3f} GiB "
+          f"(inputs {an.input_bytes / 2**30:.3f}) against "
+          f"max_memory_allocated {trained['peak_bytes'] / 2**30:.3f} GiB, "
+          f"gap {out['peak_gap_bytes'] / 2**30:+.3f} GiB; model FLOPs "
+          f"{mflops:.4e} (6 N D), counted {an.flops:.4e} (kernels "
+          f"{an.flops_kernels:.4e}); share of the bf16 peak "
+          f"{DEFAULT_H100.peak_bf16_tflops} TFLOP/s: "
+          + (f"{out['model_share_of_device']:.2%} of the profiled step's "
+             f"{prof['device_s'] * 1e3:.2f} ms of device time, "
+             if prof.get("device_s") else "device time not measured, ")
+          + f"{out['model_share_of_wall']:.2%} of the "
+          f"{trained['step_s'] * 1e3:.1f} ms step wall; bytes all "
+          f"{an.bytes_all:.4e}, heavy {an.bytes_heavy:.4e}; roofline "
+          f"{rl.bottleneck} {rl.step_time_s * 1e3:.2f} ms", flush=True)
+    return out
+
+
+def analysis_against_decode(served: dict, device: str = "cuda") -> dict:
+    """(c), decode: one decode step of phase 11 traced on fake CUDA
+    tensors; its compulsory bytes at the HBM rate against the decode
+    step's device time."""
+    cfg = get_config(HYMBA)
+    model = build_model(cfg, device)
+    base = SERVE_PROMPT + cfg.meta_tokens
+    cache = cache_specs(cfg, SERVE_BATCH, base + SERVE_TOKENS + 1)
+    before = lm_counts()
+    t0 = time.perf_counter()
+    an = analyze(lambda p, tok, c: model.decode_step(p, tok, c, base),
+                 params_specs(cfg), sds((SERVE_BATCH, 1), torch.int64),
+                 cache, device=device)
+    trace_s = time.perf_counter() - t0
+    if lm_counts() != before:
+        fail(f"phase 18 (c) decode: the trace launched kernels")
+    scans = an.kernels.get("repro_torch::selective_scan", {}).get(
+        "launches", 0)
+    if scans != cfg.n_layers:
+        fail(f"phase 18 (c) decode: traced {scans} scan launches, expected "
+             f"{cfg.n_layers}")
+    sc = ShapeConfig("hymba decode", base, SERVE_BATCH, "decode")
+    min_bytes = model_min_bytes_for(cfg, sc, {"cache": cache})
+    floor_s = min_bytes / (DEFAULT_H100.hbm_gbps * 1e9)
+    out = dict(trace_s=trace_s, ops=an.ops, scan_launches=scans,
+               counted_flops=an.flops, bytes_all=an.bytes_all,
+               min_bytes=min_bytes, min_bytes_s=floor_s,
+               step_wall_s=served["decode_step_s"])
+    dev_s = served.get("decode_step_device_s")
+    if dev_s:
+        out.update(device_s=dev_s, floor_share_of_device=floor_s / dev_s)
+    print(f"phase 18 (c) decode step traced in {trace_s:.2f} s ({an.ops} "
+          f"operators, {scans} scan launches, bytes all {an.bytes_all:.4e}):"
+          f" compulsory bytes {min_bytes:.4e} at "
+          f"{DEFAULT_H100.hbm_gbps} GB/s = {floor_s * 1e3:.3f} ms against "
+          + (f"{dev_s * 1e3:.3f} ms of device time ("
+             f"{out['floor_share_of_device']:.2%})" if dev_s
+             else "device time not measured")
+          + f" and {served['decode_step_s'] * 1e3:.3f} ms of wall",
+          flush=True)
+    return out
+
+
+def advisor_on_card(device: str = "cuda") -> dict:
+    """(d): ``bo_search`` with the GP on the card beside
+    ``exhaustive_best``."""
+    cfg, sc = get_config(PLAN_ARCH), SHAPES[PLAN_SHAPE]
+    before = gp_ops.matern52.launches
+    t0 = time.perf_counter()
+    plan, score, n_evals, _ = bo_search(cfg, sc, chips=PLAN_CHIPS,
+                                        budget=PLAN_BUDGET, device=device)
+    sync_of(device)()
+    bo_s = time.perf_counter() - t0
+    launches = gp_ops.matern52.launches - before
+    # two covariances a BO iteration on the card (none on the CPU)
+    want = 2 * (PLAN_BUDGET - 8) if device == "cuda" else 0
+    if launches != want:
+        fail(f"phase 18 (d): bo_search launched gp_cov {launches} times, "
+             f"expected {want}")
+    best, best_score, scored = exhaustive_best(cfg, sc, chips=PLAN_CHIPS)
+    out = dict(bo_plan=dataclasses.asdict(plan), bo_step_s=score.step_s,
+               bo_feasible=score.feasible, evaluations=n_evals,
+               gp_cov_launches=launches, bo_wall_s=bo_s,
+               exhaustive_plan=dataclasses.asdict(best),
+               exhaustive_step_s=best_score.step_s, plans=len(scored))
+    print(f"phase 18 (d) advisor {PLAN_ARCH} {PLAN_SHAPE} on {PLAN_CHIPS} "
+          f"cards: bo_search {n_evals} evaluations in {bo_s:.2f} s, "
+          f"{launches} gp_cov launches, best step {score.step_s:.6f} s "
+          f"({plan}); exhaustive_best over {len(scored)} plans "
+          f"{best_score.step_s:.6f} s ({best})", flush=True)
+    return out
+
+
+def planning_phase(served: dict, trained: dict) -> dict:
+    t0 = time.perf_counter()
+    out = dict(shims=shims_on_card())
+    digest = served["digest"]
+    if digest != HYMBA_SERVE_DIGEST:
+        fail(f"phase 18 (b): phase 11's generation digest {digest}, "
+             f"recorded {HYMBA_SERVE_DIGEST}")
+    print(f"phase 18 (b) phase 11's first generation bit for bit the "
+          f"recorded one: {digest}")
+    out["train_analysis"] = analysis_against_training(trained)
+    out["decode_analysis"] = analysis_against_decode(served)
+    out["advisor"] = advisor_on_card()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 18: {out['wall_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4881,6 +5204,10 @@ def main():
     # ---- 17. training on the card -------------------------------------------
     trained = train_phase(sm_clock_hz)
     stamp("17")
+
+    # ---- 18. the front door's tail and the planning layer --------------------
+    planned = planning_phase(served, trained["train"])
+    stamp("18")
 
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(

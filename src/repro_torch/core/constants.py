@@ -211,3 +211,29 @@ METRIC_FIELDS = {
     "cost_usd": ("wafer_cost", "defect_density_mm2", "c_substrate_mm2",
                  "c_process", "corr_cost"),
 }
+
+
+# ---------------------------------------------------------------------------
+# the card the planning layer prices (autosharding advisor, step roofline)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class H100Target:
+    """One NVIDIA H100 SXM5 80GB HBM3 at 700 W, from NVIDIA's H100 data
+    sheet: dense bf16 tensor-core peak, HBM3 bandwidth, NVLink 4 (18 links
+    of 25 GB/s a direction), device memory, and shared memory an SM.  The
+    counterpart of the reference's ``TPUTarget``; a field takes any value,
+    so a test can hand it the reference target's numbers.
+
+    Collectives are priced on one fabric, ``links_per_chip * link_gbps``,
+    as the reference prices its torus: that holds only inside one 8-GPU
+    NVLink node.  A larger mesh crosses the network between nodes, at a
+    fraction of that rate, which this record does not model."""
+    peak_bf16_tflops: float = 989.4       # dense, per card
+    hbm_gbps: float = 3350.0              # per card
+    link_gbps: float = 25.0               # per NVLink link per direction
+    links_per_chip: int = 18
+    hbm_bytes: float = 80e9               # capacity per card
+    smem_bytes: float = 228 * 2**10       # shared memory per SM
+
+
+DEFAULT_H100 = H100Target()

@@ -62,3 +62,12 @@ def package_cost(die_areas_mm2, packaging, tech: TechConstants = DEFAULT_TECH):
     c_int = has_int * c_int_raw / y_int.clamp_min(1e-3)
 
     return c_dies + c_sub + c_int + tech.c_process
+
+
+def monolithic_cost(total_area_mm2, tech: TechConstants = DEFAULT_TECH):
+    """Baseline: one big die of the same total area + cheap substrate, in
+    float32 on the device of ``total_area_mm2`` (a tensor; a number or an
+    array goes to the CPU)."""
+    a = torch.as_tensor(total_area_mm2).to(F)
+    return (die_cost(a, tech) + a * tech.interposer_margin
+            * tech.c_substrate_mm2 + tech.c_process)

@@ -112,6 +112,12 @@ def next_hop_tables() -> np.ndarray:
     return out
 
 
+def topo_code(family: int, n_nodes: int) -> int:
+    """The row of ``next_hop_tables()`` of topology ``family`` over
+    ``n_nodes`` nodes."""
+    return family * (MAX_NODES + 1) + n_nodes
+
+
 def next_hop_tensor(device) -> torch.Tensor:
     """``next_hop_tables()`` as an int64 tensor on ``device`` (converted
     once per device: torch indexes with long)."""

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -280,6 +281,36 @@ class SearchResult:
     #                               archive), comparable with NSGA traces
 
 
+def optimize(spec: SystemSpec, space: DesignSpace, key: int,
+             weights=OBJ_EDP,
+             bo_fields: Tuple[str, ...] = BO_FIELDS,
+             sa_fields: Tuple[str, ...] = SA_FIELDS,
+             n_init: int = 8, n_iter: int = 24,
+             sa: SAConfig = SAConfig(), tech=None,
+             init_design: Optional[Dict] = None,
+             seed_designs: Optional[Sequence[Dict]] = None,
+             archive=None, device="cuda") -> SearchResult:
+    """DEPRECATED shim over the ``bo_sa`` engine backend — routes through
+    ``repro_torch.api.Session.submit`` (``Query(Problem.from_spec(spec,
+    space), engine="bo_sa", ...)``) on ``device`` and returns the
+    backend's ``SearchResult`` unchanged.  See ``_optimize_impl`` for the
+    engine itself."""
+    warnings.warn(
+        "legacy entry point repro_torch.core.optimizer.optimize() is "
+        "deprecated; use repro_torch.api: Session(tech=...).submit(Query("
+        "Problem.from_spec(spec, space), engine=\"bo_sa\", weights=..., "
+        "engine_opts=dict(n_init=..., n_iter=..., sa=...)))",
+        DeprecationWarning, stacklevel=2)
+    from ..explore.api import Problem, Query, Session
+    q = Query(Problem.from_spec(spec, space), engine="bo_sa",
+              weights=tuple(float(w) for w in weights),
+              seed_designs=seed_designs, archive=archive,
+              engine_opts=dict(bo_fields=bo_fields, sa_fields=sa_fields,
+                               n_init=n_init, n_iter=n_iter, sa=sa,
+                               init_design=init_design))
+    return Session(tech=tech, device=device).submit(q, key=key).raw
+
+
 def _optimize_impl(spec: SystemSpec, space: DesignSpace, key: int,
                    weights=OBJ_EDP,
                    bo_fields: Tuple[str, ...] = BO_FIELDS,
@@ -375,6 +406,31 @@ def _optimize_impl(spec: SystemSpec, space: DesignSpace, key: int,
 # the paper's two-stage flow (Sec. IV-A): the architecture stage keeps a
 # Pareto set; the integration stage's design-selector picks from it
 # ---------------------------------------------------------------------------
+def two_stage_optimize(spec: SystemSpec, space: DesignSpace, key: int,
+                       n_candidates: int = 3,
+                       sa: SAConfig = SAConfig(steps=250, chains=4),
+                       tech=None, archive=None,
+                       seed_designs: Optional[Sequence[Dict]] = None,
+                       device="cuda") -> SearchResult:
+    """DEPRECATED shim over the ``two_stage`` engine backend — routes
+    through ``repro_torch.api.Session.submit`` (``Query(..., engine=
+    "two_stage")``) on ``device`` and returns the backend's
+    ``SearchResult`` unchanged.  See ``_two_stage_impl`` for the engine
+    itself (whose nested searches call ``_optimize_impl``, which warns
+    nothing)."""
+    warnings.warn(
+        "legacy entry point repro_torch.core.optimizer.two_stage_optimize() "
+        "is deprecated; use repro_torch.api: Session(tech=...).submit(Query("
+        "Problem.from_spec(spec, space), engine=\"two_stage\", "
+        "engine_opts=dict(n_candidates=..., sa=...)))",
+        DeprecationWarning, stacklevel=2)
+    from ..explore.api import Problem, Query, Session
+    q = Query(Problem.from_spec(spec, space), engine="two_stage",
+              seed_designs=seed_designs, archive=archive,
+              engine_opts=dict(n_candidates=n_candidates, sa=sa))
+    return Session(tech=tech, device=device).submit(q, key=key).raw
+
+
 def _two_stage_impl(spec: SystemSpec, space: DesignSpace, key: int,
                     n_candidates: int = 3,
                     sa: SAConfig = SAConfig(steps=250, chains=4),

@@ -70,6 +70,12 @@ def pareto_front(points) -> List[int]:
     return [int(i) for i in np.flatnonzero(~dominated)]
 
 
+def dominates(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """True iff point ``a`` dominates ``b`` (all minimized): a 0-dim bool
+    tensor on their device."""
+    return torch.all(a <= b) & torch.any(a < b)
+
+
 def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(n,) int32 number of *valid* points dominating each row of ``objs``
     (n, k).  Zero => nondominated.  Routed to the ``pareto_rank`` kernel;

@@ -1438,6 +1438,47 @@ class ExplorationService:
         return n_run, trace, plateaued, banked, interrupted, sur_stats
 
 
+# ---------------------------------------------------------------------------
+# module-level convenience: a default singleton service
+# ---------------------------------------------------------------------------
+_DEFAULT: Optional[ExplorationService] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_service(**kwargs) -> ExplorationService:
+    """The process-wide service, built from ``kwargs`` (``device=`` among
+    them: the card unless ``device="cpu"``) at the first call; a later
+    call with kwargs raises."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = ExplorationService(**kwargs)
+        elif kwargs:
+            raise RuntimeError(
+                "the default exploration service is already initialized; "
+                "construct ExplorationService(...) directly for a custom "
+                "configuration")
+        return _DEFAULT
+
+
+def explore(graph: WorkloadGraph,
+            objectives: Sequence[str] = DEFAULT_OBJECTIVES,
+            budget: int = 2048, ch_max: int = 4,
+            space_kwargs: Optional[Dict] = None,
+            transfer: bool = False,
+            service: Optional[ExplorationService] = None,
+            key=None, device="cuda") -> ExploreResult:
+    """One-call front query against ``service``, else the process-wide
+    default service (built on ``device`` at the first call).
+
+    DEPRECATED — delegates to the ``ExplorationService.explore`` shim
+    (one ``DeprecationWarning``); use ``repro_torch.api.submit``
+    instead."""
+    svc = service or _DEFAULT or default_service(device=device)
+    return svc.explore(graph, objectives, budget, ch_max, space_kwargs,
+                       transfer=transfer, key=key)
+
+
 def _seed_population(arc: ParetoArchive, pop: int, filler: Dict,
                      extra: Optional[Dict] = None) -> Dict:
     """Population for the next segment: the archive front head (the

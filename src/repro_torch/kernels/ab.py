@@ -8,6 +8,7 @@ kernel wrapper's launch.
     python -m repro_torch.kernels.ab mamba_scan DIR [DIR ...]
     python -m repro_torch.kernels.ab mamba_scan_bwd DIR [DIR ...]
     python -m repro_torch.kernels.ab wrapper
+    python -m repro_torch.kernels.ab wrappers ROOT [ROOT ...]
     python -m repro_torch.kernels.ab evaluate ROOT [ROOT ...]
 
 Each DIR holds another version's ``csrc`` files under the kernel's own file
@@ -44,6 +45,17 @@ launch its stream and device differ (``torch.cuda.current_stream(dev)
 .cuda_stream`` or ``torch._C._cuda_getCurrentRawStream``; entering
 ``torch.cuda.device`` on every call or only off the current device), and
 whole ``pareto_rank`` wrapper calls at the search path's pools.
+
+``wrappers`` times every kernel wrapper's call on the host (the public
+``ops`` functions: ``dominance_counts``, ``matern52``, ``flash_attention``,
+``flash_attention_fwd_lse``, ``flash_attention_bwd``, ``selective_scan``,
+``selective_scan_fwd_states``, ``selective_scan_bwd``) at shapes whose
+kernels take a few microseconds, so that the reading is the wrapper's
+own cost: microseconds a call over ``WRAPPER_CALLS`` calls, the card
+synchronized at each end, the least of ``WRAPPER_REPEATS`` such runs.
+Each tree (this checkout's ``src/``, then each ROOT's) runs in its own
+process, in turns: this checkout, the ROOTs, then the same in reverse
+order, a round.
 
 ``evaluate`` times one evaluation of the NSGA main path's population (64
 random designs of the Fig. 4a transformer block, ``ch_max=4``) with this
@@ -585,6 +597,83 @@ print(json.dumps(dict(ms=a.elapsed_time(b) / 20, differing_of_20=differ)))
 """
 
 
+# run in a fresh process against one source tree's ``repro_torch``: uses
+# only the wrappers' public signatures, which every version since the
+# training kernels has
+WRAPPERS_SNIPPET = r"""
+import json, sys, time, torch
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.gp_cov import ops as gp
+from repro_torch.kernels.mamba_scan import ops as ms
+from repro_torch.kernels.pareto_rank import ops as pr
+calls, repeats = int(sys.argv[1]), int(sys.argv[2])
+g = torch.Generator(device="cuda").manual_seed(0)
+r = lambda *s, dt=torch.float32: torch.randn(*s, generator=g, device="cuda",
+                                             dtype=dt)
+objs, valid = r(128, 2), torch.ones(128, dtype=torch.bool, device="cuda")
+X1, X2 = r(512, 62), r(11, 62)
+q, k, v = (r(1, 16, 2, 64, dt=torch.bfloat16) for _ in range(3))
+out, lse = fa.flash_attention_fwd_lse(q, k, v)
+u, dl = r(1, 16, 64), r(1, 16, 64).abs() * 0.1
+A, Bc, Cc, h0 = -r(64, 16).abs(), r(1, 16, 16), r(1, 16, 16), r(1, 64, 16)
+states = ms.selective_scan_fwd_states(u, dl, A, Bc, Cc, h0)[2]
+u1, d1, B1, C1 = u[:, :1].contiguous(), dl[:, :1].contiguous(), \
+    Bc[:, :1].contiguous(), Cc[:, :1].contiguous()
+cases = {
+    "dominance_counts (128, 2)": lambda: pr.dominance_counts(objs, valid),
+    "matern52 (512, 11, 62)": lambda: gp.matern52(X1, X2, 0.3),
+    "flash_attention bf16 (1, 16, 16, 2, 64)":
+        lambda: fa.flash_attention(q, k, v),
+    "flash_attention_fwd_lse": lambda: fa.flash_attention_fwd_lse(q, k, v),
+    "flash_attention_bwd": lambda: fa.flash_attention_bwd(q, k, v, out,
+                                                          lse, out),
+    "selective_scan (1, 1, 64, 16) h0":
+        lambda: ms.selective_scan(u1, d1, A, B1, C1, h0),
+    "selective_scan_fwd_states (1, 16, 64, 16)":
+        lambda: ms.selective_scan_fwd_states(u, dl, A, Bc, Cc, h0),
+    "selective_scan_bwd (1, 16, 64, 16)":
+        lambda: ms.selective_scan_bwd(u, dl, A, Bc, Cc, h0, u, h0, states),
+}
+res = {}
+for name, fn in cases.items():
+    for _ in range(50):
+        fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    res[name] = best
+print(json.dumps(res))
+"""
+WRAPPER_CALLS, WRAPPER_REPEATS = 1000, 7
+
+
+def wrappers(roots, rounds: int):
+    here = Path(__file__).resolve().parents[3]
+    trees = [here] + [Path(r).resolve() for r in roots]
+    readings = {str(t): [] for t in trees}
+    for r in range(rounds):
+        for tree in (trees if r % 2 == 0 else trees[::-1]):
+            env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+            out = subprocess.run(
+                [sys.executable, "-c", WRAPPERS_SNIPPET, str(WRAPPER_CALLS),
+                 str(WRAPPER_REPEATS)],
+                env=env, capture_output=True, text=True, check=True,
+                cwd=tree)
+            row = json.loads(out.stdout.strip().splitlines()[-1])
+            readings[str(tree)].append(row)
+            emit(wrappers=str(tree), round=r, us_per_call=row)
+    for tree, rows in readings.items():
+        for name in rows[0]:
+            us = [x[name] for x in rows]
+            emit(wrappers=tree, wrapper=name, us_per_call=us,
+                 min_us=min(us), max_us=max(us))
+
+
 def evaluate(roots, rounds: int):
     here = Path(__file__).resolve().parents[3]
     trees = [here] + [Path(r).resolve() for r in roots]
@@ -607,7 +696,8 @@ def evaluate(roots, rounds: int):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=KERNELS + ("wrapper", "evaluate"))
+    ap.add_argument("what",
+                    choices=KERNELS + ("wrapper", "wrappers", "evaluate"))
     ap.add_argument("dirs", nargs="*", type=Path)
     ap.add_argument("--rounds", type=int, default=4)
     args = ap.parse_args()
@@ -616,6 +706,8 @@ def main():
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
     if args.what == "wrapper":
         wrapper(args.rounds)
+    elif args.what == "wrappers":
+        wrappers(args.dirs, args.rounds)
     elif args.what == "evaluate":
         evaluate(args.dirs, args.rounds)
     else:

@@ -1,8 +1,12 @@
 """``flash_attention``: the wrapper of the Hopper flash-attention kernels.
 
-A CPU tensor goes to the plain PyTorch version (``ref.flash_attention_blocked``).
-A CUDA tensor launches a kernel (``csrc/``, built at first use into one
-library and loaded with ``ctypes``) or raises: there is no fallback.
+Each call is an operator of ``kernels.define`` (``FWD``, ``FWD_LSE``,
+``BWD``: ``repro_torch::flash_attention``, ``flash_attention_fwd_lse`` and
+``flash_attention_bwd``): a CPU tensor goes to the plain PyTorch version
+(``ref.flash_attention_blocked``), a CUDA tensor launches a kernel
+(``csrc/``, built at first use into one library and loaded with
+``ctypes``) or raises: there is no fallback; a fake tensor gets the
+outputs' shapes.
 Both dtypes run on tensor cores: bfloat16 the wgmma kernel of
 ``csrc/flash_attention_wgmma.cu``, float32 the 3xTF32 wgmma kernels of
 ``csrc/flash_attention_tf32.cu`` (each float32 product as three TF32
@@ -40,8 +44,10 @@ from typing import Optional
 
 import torch
 
+from .. import define
 from ..build import build_library, library_loader
 from ..launch import count, on, stream_of
+from .cost import BWD_LAUNCHES
 from .ref import (MASK_KINDS, flash_attention_blocked,
                   flash_attention_bwd_blocked)
 
@@ -53,7 +59,6 @@ SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu",
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 192       # q/k head dim
 MAX_DV = 128      # v/out head dim
-BWD_LAUNCHES = 3  # kernels a flash_attention_bwd call launches
 
 
 def build() -> Path:
@@ -180,13 +185,11 @@ def _mask_args(q, k, mask_kind: str, window: int, kv_valid_len):
     return MASK_KINDS.index(mask_kind), int(window), valid_len, q_offset
 
 
-def _forward(q, k, v, mask_kind: str, window: int, kv_valid_len,
-             with_lse: bool):
+def _launch_fwd(q, k, v, mask_kind: str, window: int, kv_valid_len,
+                with_lse: bool):
     """Out (B, Sq, H, Dv), and with ``with_lse`` the rows' log-sum-exp (B,
-    H, Sq) float32: the plain version on the CPU, a kernel on the card."""
-    if {q.device, k.device, v.device} == {torch.device("cpu")}:
-        return flash_attention_blocked(q, k, v, mask_kind, window,
-                                       kv_valid_len, return_lse=with_lse)
+    H, Sq) float32, from the forward kernel: the CUDA implementation of
+    ``repro_torch::flash_attention`` and ``flash_attention_fwd_lse``."""
     _check_card(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -215,35 +218,55 @@ def _forward(q, k, v, mask_kind: str, window: int, kv_valid_len,
     return (out, lse) if with_lse else out
 
 
+def _fake_out(q, v):
+    """The forward's output as each implementation lays it out: the
+    kernel's (B, Sq, H, Dv) contiguous, the plain version's a (B, H, Sq,
+    Dv) tensor transposed."""
+    B, Sq, H, _ = q.shape
+    if q.device.type == "cpu":
+        return q.new_empty((B, H, Sq, v.shape[3])).transpose(1, 2)
+    return q.new_empty((B, Sq, H, v.shape[3]))
+
+
+def _fake_lse(q):
+    B, Sq, H, _ = q.shape
+    return q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+MASK_ARGS = "str mask_kind, int window, int? kv_valid_len"
+FWD = define(
+    f"flash_attention(Tensor q, Tensor k, Tensor v, {MASK_ARGS}) -> Tensor",
+    lambda q, k, v, m, w, kvl: flash_attention_blocked(q, k, v, m, w, kvl),
+    lambda q, k, v, m, w, kvl: _launch_fwd(q, k, v, m, w, kvl, False),
+    lambda q, k, v, m, w, kvl: _fake_out(q, v))
+FWD_LSE = define(
+    f"flash_attention_fwd_lse(Tensor q, Tensor k, Tensor v, {MASK_ARGS}) "
+    f"-> (Tensor, Tensor)",
+    lambda q, k, v, m, w, kvl: flash_attention_blocked(
+        q, k, v, m, w, kvl, return_lse=True),
+    lambda q, k, v, m, w, kvl: _launch_fwd(q, k, v, m, w, kvl, True),
+    lambda q, k, v, m, w, kvl: (_fake_out(q, v), _fake_lse(q)))
+
+
+def _mask(mask_kind: str, window, kv_valid_len) -> tuple:
+    """The mask arguments as the operators' schemas take them."""
+    return (mask_kind, int(window),
+            None if kv_valid_len is None else int(kv_valid_len))
+
+
 def flash_attention_fwd_lse(q, k, v, mask_kind: str = "causal",
                             window: int = 0,
                             kv_valid_len: Optional[int] = None):
     """(out, lse): the forward and its rows' log-sum-exp (B, H, Sq) float32,
     the residuals the backward reads (what ``FlashAttentionFn`` saves)."""
     _check_shapes(q, k, v, mask_kind, kv_valid_len)
-    return _forward(q, k, v, mask_kind, window, kv_valid_len, with_lse=True)
+    return FWD_LSE(q, k, v, *_mask(mask_kind, window, kv_valid_len))
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, mask_kind: str = "causal",
-                        window: int = 0, kv_valid_len: Optional[int] = None):
-    """(dq, dk, dv) in q's, k's and v's dtype from the forward's ``out`` and
-    ``lse`` (B, H, Sq) float32 and the gradient ``dout`` of ``out``: the
-    plain version on the CPU, the backward kernels on the card (counted in
-    ``flash_attention.launches_bwd``)."""
-    _check_shapes(q, k, v, mask_kind, kv_valid_len)
-    if tuple(out.shape) != tuple(dout.shape) or out.shape[:3] != q.shape[:3] \
-            or out.shape[3] != v.shape[3]:
-        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
-                         f"dout {tuple(dout.shape)} must both be (B, Sq, H, "
-                         f"Dv) of q {tuple(q.shape)}, v {tuple(v.shape)}")
-    B, Sq, H, D = q.shape
-    if tuple(lse.shape) != (B, H, Sq):
-        raise ValueError(f"flash_attention_bwd: lse has shape "
-                         f"{tuple(lse.shape)}, expected {(B, H, Sq)}")
-    tensors = (q, k, v, out, lse, dout)
-    if {x.device for x in tensors} == {torch.device("cpu")}:
-        return flash_attention_bwd_blocked(q, k, v, out, lse, dout, mask_kind,
-                                           window, kv_valid_len)
+def _launch_bwd(q, k, v, out, lse, dout, mask_kind: str, window: int,
+                kv_valid_len):
+    """(dq, dk, dv) from the backward kernels: the CUDA implementation of
+    ``repro_torch::flash_attention_bwd``."""
     _check_card(q, k, v, out, lse, dout)
     for name, x in (("out", out), ("dout", dout)):
         if x.dtype != q.dtype or not x.is_contiguous():
@@ -252,6 +275,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, mask_kind: str = "causal",
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous "
                          "float32")
+    B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if out.numel() == 0:
@@ -273,6 +297,35 @@ def flash_attention_bwd(q, k, v, out, lse, dout, mask_kind: str = "causal",
     return dq, dk, dv
 
 
+BWD = define(
+    f"flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+    f"Tensor lse, Tensor dout, {MASK_ARGS}) -> (Tensor, Tensor, Tensor)",
+    lambda q, k, v, out, lse, dout, m, w, kvl: flash_attention_bwd_blocked(
+        q, k, v, out, lse, dout, m, w, kvl), _launch_bwd,
+    lambda q, k, v, out, lse, dout, m, w, kvl: tuple(
+        x.new_empty(x.shape) for x in (q, k, v)))
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, mask_kind: str = "causal",
+                        window: int = 0, kv_valid_len: Optional[int] = None):
+    """(dq, dk, dv) in q's, k's and v's dtype from the forward's ``out`` and
+    ``lse`` (B, H, Sq) float32 and the gradient ``dout`` of ``out``: the
+    plain version on the CPU, the backward kernels on the card (counted in
+    ``flash_attention.launches_bwd``)."""
+    _check_shapes(q, k, v, mask_kind, kv_valid_len)
+    if tuple(out.shape) != tuple(dout.shape) or out.shape[:3] != q.shape[:3] \
+            or out.shape[3] != v.shape[3]:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must both be (B, Sq, H, "
+                         f"Dv) of q {tuple(q.shape)}, v {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"flash_attention_bwd: lse has shape "
+                         f"{tuple(lse.shape)}, expected {(B, H, Sq)}")
+    return BWD(q, k, v, out, lse, dout,
+               *_mask(mask_kind, window, kv_valid_len))
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Attention that autograd differentiates with ``flash_attention_bwd``:
     the forward saves (q, k, v, out, lse), the backward recomputes P from
@@ -280,17 +333,16 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask_kind, window, kv_valid_len):
-        out, lse = _forward(q, k, v, mask_kind, window, kv_valid_len,
-                            with_lse=True)
+        mask = _mask(mask_kind, window, kv_valid_len)
+        out, lse = FWD_LSE(q, k, v, *mask)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (mask_kind, window, kv_valid_len)
+        ctx.mask = mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), *ctx.mask)
+        dq, dk, dv = BWD(q, k, v, out, lse, dout.contiguous(), *ctx.mask)
         return dq, dk, dv, None, None, None
 
 
@@ -304,7 +356,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, mask_kind, window,
                                       kv_valid_len)
-    return _forward(q, k, v, mask_kind, window, kv_valid_len, with_lse=False)
+    return FWD(q, k, v, *_mask(mask_kind, window, kv_valid_len))
 
 
 flash_attention.launches = 0

@@ -1,8 +1,10 @@
 """``matern52``: the wrapper of the Hopper Matérn-5/2 covariance kernel.
 
-A CPU tensor goes to the plain PyTorch version (``ref.py``).  A CUDA tensor
-launches the kernel (``csrc/gp_cov.cu``, built at first use and loaded with
-``ctypes``) or raises: there is no fallback.  The wrapper checks device,
+The call is the operator ``repro_torch::matern52`` (``OP``; see
+``kernels.define``): a CPU tensor goes to the plain PyTorch version
+(``ref.py``), a CUDA tensor launches the kernel (``csrc/gp_cov.cu``, built
+at first use and loaded with ``ctypes``) or raises: there is no fallback;
+a fake tensor gets the output's shape.  The wrapper checks device,
 dtype, shape and contiguity and raises on anything the kernel does not
 take.  The lengthscale is a launch argument, so one library serves every
 value.  ``matern52.launches`` counts kernel launches (and nothing else), so
@@ -16,6 +18,7 @@ from pathlib import Path
 
 import torch
 
+from .. import define
 from ..build import build_library, library_loader
 from ..launch import count, on, stream_of
 from .ref import matern52_ref
@@ -39,17 +42,13 @@ def _lib():
     return fn
 
 
-def matern52(X1: torch.Tensor, X2: torch.Tensor,
-             lengthscale: float = 0.3) -> torch.Tensor:
-    """K (n, m) float32: the Matérn-5/2 covariance of the rows of ``X1``
-    (n, d) against the rows of ``X2`` (m, d), from direct differences."""
-    if X1.device.type == "cpu" and X2.device.type == "cpu":
-        return matern52_ref(X1, X2, lengthscale)
+def _launch(X1: torch.Tensor, X2: torch.Tensor,
+            lengthscale: float) -> torch.Tensor:
+    """The CUDA implementation of ``repro_torch::matern52``: the checks of
+    the kernel, then its launch."""
     if X1.device != X2.device:
         raise ValueError(f"matern52: X1 and X2 lie on different devices "
                          f"({X1.device}, {X2.device})")
-    if X1.device.type != "cuda":
-        raise ValueError(f"matern52: unsupported device {X1.device}")
     for name, x in (("X1", X1), ("X2", X2)):
         if x.dim() != 2 or x.dtype != torch.float32:
             raise ValueError(f"matern52: {name} must be 2-D float32, got "
@@ -70,6 +69,25 @@ def matern52(X1: torch.Tensor, X2: torch.Tensor,
         raise RuntimeError(f"gp_cov kernel launch failed: CUDA error {rc}")
     count(matern52, "launches")
     return out
+
+
+def _fake(X1, X2, lengthscale):
+    return X1.new_empty((X1.shape[0], X2.shape[0]), dtype=torch.float32)
+
+
+def _plain(X1, X2, lengthscale):
+    return matern52_ref(X1, X2, lengthscale)
+
+
+OP = define("matern52(Tensor X1, Tensor X2, float lengthscale) -> Tensor",
+            _plain, _launch, _fake)
+
+
+def matern52(X1: torch.Tensor, X2: torch.Tensor,
+             lengthscale: float = 0.3) -> torch.Tensor:
+    """K (n, m) float32: the Matérn-5/2 covariance of the rows of ``X1``
+    (n, d) against the rows of ``X2`` (m, d), from direct differences."""
+    return OP(X1, X2, float(lengthscale))
 
 
 matern52.launches = 0

@@ -1,11 +1,14 @@
 """``selective_scan``: the wrapper of the Hopper Mamba-1 scan kernel.
 
-A CPU tensor goes to the plain PyTorch version (``ref.py``).  A CUDA tensor
-launches the kernel (``csrc/mamba_scan.cu``, built at first use and loaded
-with ``ctypes``) or raises: there is no fallback.  The wrapper checks
-device, dtype (float32 only, as the reference scan runs), shapes and
-contiguity and raises on anything the kernel does not take (state size up
-to 32).  ``selective_scan.launches`` counts kernel launches (and nothing
+Each call is an operator of ``kernels.define`` (``FWD``, ``FWD_STATES``,
+``BWD``: ``repro_torch::selective_scan``, ``selective_scan_fwd_states``
+and ``selective_scan_bwd``): a CPU tensor goes to the plain PyTorch
+version (``ref.py``), a CUDA tensor launches the kernel
+(``csrc/mamba_scan.cu``, built at first use and loaded with ``ctypes``) or
+raises: there is no fallback; a fake tensor gets the outputs' shapes.
+The wrapper checks device, dtype (float32 only, as the reference scan
+runs), shapes and contiguity and raises on anything the kernel does not
+take (state size up to 32).  ``selective_scan.launches`` counts kernel launches (and nothing
 else), so a run can show that it went through the kernel.  ``split``
 reports how the kernel divides a shape over the card.
 
@@ -30,15 +33,16 @@ from pathlib import Path
 
 import torch
 
+from .. import define
 from ..build import build_library, library_loader
 from ..launch import count, on, stream_of
+from .cost import BWD_LAUNCHES
 from .ref import (STATE_CHUNK, n_state_chunks, selective_scan_bwd_ref,
                   selective_scan_ref)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "mamba_scan.cu", CSRC / "mamba_scan_bwd.cu")
 MAX_STATE = 32
-BWD_LAUNCHES = 2  # kernels a selective_scan_bwd call launches
 
 
 def build() -> Path:
@@ -150,14 +154,12 @@ def _check_card(names, args):
     return dev
 
 
-def _forward(u, delta, A, Bc, Cc, h0, with_states: bool = False):
+def _launch_fwd(u, delta, A, Bc, Cc, h0, with_states: bool):
     """(y, h_T), and with ``with_states`` the states at the start of every
-    chunk of ``STATE_CHUNK`` steps (B, ceil(S / STATE_CHUNK), Di, Ds): the
-    plain version on the CPU, the kernel on the card."""
+    chunk of ``STATE_CHUNK`` steps (B, ceil(S / STATE_CHUNK), Di, Ds), from
+    the forward kernel: the CUDA implementation of
+    ``repro_torch::selective_scan`` and ``selective_scan_fwd_states``."""
     args = [u, delta, A, Bc, Cc] + ([] if h0 is None else [h0])
-    if {x.device for x in args} == {torch.device("cpu")}:
-        return selective_scan_ref(u, delta, A, Bc, Cc, h0,
-                                  return_states=with_states)
     dev = _check_card(("u", "delta", "A", "Bc", "Cc", "h0"), args)
     B, S, Di = u.shape
     Ds = A.shape[1]
@@ -186,12 +188,115 @@ def _forward(u, delta, A, Bc, Cc, h0, with_states: bool = False):
     return (y, hT, states) if with_states else (y, hT)
 
 
+def _fresh(outs, inputs) -> tuple:
+    """``outs`` with any tensor that is one of ``inputs`` copied (the plain
+    versions hand back h0 or dhT itself for an empty sequence; an
+    operator's outputs must not alias its inputs)."""
+    return tuple(o.clone() if any(o is x for x in inputs) else o
+                 for o in outs)
+
+
+def _fake_fwd(u, delta, A, Bc, Cc, h0, with_states: bool):
+    B, S, Di = u.shape
+    Ds = A.shape[1]
+    outs = (u.new_empty((B, S, Di), dtype=torch.float32),
+            u.new_empty((B, Di, Ds), dtype=torch.float32))
+    if with_states:
+        outs += (u.new_empty((B, n_state_chunks(S), Di, Ds),
+                             dtype=torch.float32),)
+    return outs
+
+
+SCAN_ARGS = ("Tensor u, Tensor delta, Tensor A, Tensor Bc, Tensor Cc, "
+             "Tensor? h0")
+FWD = define(
+    f"selective_scan({SCAN_ARGS}) -> (Tensor, Tensor)",
+    lambda u, d, A, Bc, Cc, h0: _fresh(
+        selective_scan_ref(u, d, A, Bc, Cc, h0), (h0,)),
+    lambda u, d, A, Bc, Cc, h0: _launch_fwd(u, d, A, Bc, Cc, h0, False),
+    lambda u, d, A, Bc, Cc, h0: _fake_fwd(u, d, A, Bc, Cc, h0, False))
+FWD_STATES = define(
+    f"selective_scan_fwd_states({SCAN_ARGS}) -> (Tensor, Tensor, Tensor)",
+    lambda u, d, A, Bc, Cc, h0: _fresh(selective_scan_ref(
+        u, d, A, Bc, Cc, h0, return_states=True), (h0,)),
+    lambda u, d, A, Bc, Cc, h0: _launch_fwd(u, d, A, Bc, Cc, h0, True),
+    lambda u, d, A, Bc, Cc, h0: _fake_fwd(u, d, A, Bc, Cc, h0, True))
+
+
 def selective_scan_fwd_states(u, delta, A, Bc, Cc, h0=None):
     """(y, h_T, states): the forward and its states at the start of every
     chunk of ``STATE_CHUNK`` steps (B, ceil(S / STATE_CHUNK), Di, Ds), the
     residuals the backward reads (what ``SelectiveScanFn`` saves)."""
     _check_shapes(u, delta, A, Bc, Cc, h0)
-    return _forward(u, delta, A, Bc, Cc, h0, with_states=True)
+    return FWD_STATES(u, delta, A, Bc, Cc, h0)
+
+
+def _launch_bwd(u, delta, A, Bc, Cc, h0, dy, dhT, states):
+    """(du, ddelta, dA, dB, dC, dh0) from the backward kernels (dh0 empty
+    without h0): the CUDA implementation of
+    ``repro_torch::selective_scan_bwd``."""
+    given = [(n, x) for n, x in (("u", u), ("delta", delta), ("A", A),
+                                 ("Bc", Bc), ("Cc", Cc), ("dy", dy),
+                                 ("h0", h0), ("dhT", dhT),
+                                 ("states", states)) if x is not None]
+    dev = _check_card(*zip(*given))
+    B, S, Di = u.shape
+    Ds = A.shape[1]
+    du, ddelta = (torch.empty((B, S, Di), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    dB, dC = (torch.empty((B, S, Ds), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    dA = torch.zeros((Di, Ds), dtype=torch.float32, device=dev)
+    dh0 = (torch.empty((0,), dtype=torch.float32, device=dev) if h0 is None
+           else torch.empty_like(h0))
+    if S == 0 or B == 0 or Di == 0:
+        if h0 is not None:       # with S = 0, h_T is h0
+            dh0.copy_(dhT) if dhT is not None else dh0.zero_()
+        return du, ddelta, dA, dB, dC, dh0
+    if states is None:
+        states = FWD_STATES(u, delta, A, Bc, Cc, h0)[2]
+    plan = _bwd_plan(dev.index, B, Di, Ds)
+    # dA's partials a batch row, dB's and dC's a block of channels
+    scratch = torch.empty(B * Di * Ds + B * S * plan[1] * 2 * Ds,
+                          dtype=torch.float32, device=dev)
+    with on(dev):
+        ptr = lambda x: None if x is None else x.data_ptr()
+        rc = _lib().mamba_selective_scan_bwd(
+            *(ptr(x) for x in (u, delta, A, Bc, Cc, states, dy, dhT, du,
+                               ddelta, dA, dB, dC,
+                               None if h0 is None else dh0)),
+            ctypes.addressof(plan), scratch.data_ptr(), B, S, Di, Ds,
+            stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    # the reverse-time scan, then the sums of its partials
+    count(selective_scan, "launches_bwd", launches=BWD_LAUNCHES)
+    return du, ddelta, dA, dB, dC, dh0
+
+
+def _plain_bwd(u, delta, A, Bc, Cc, h0, dy, dhT, states):
+    *grads, dh0 = selective_scan_bwd_ref(u, delta, A, Bc, Cc, h0, dy, dhT,
+                                         states)
+    if dh0 is None:
+        dh0 = u.new_empty((0,), dtype=torch.float32)
+    return _fresh((*grads, dh0), (dhT,))
+
+
+def _fake_bwd(u, delta, A, Bc, Cc, h0, dy, dhT, states):
+    B, S, Di = u.shape
+    Ds = A.shape[1]
+    f32 = dict(dtype=torch.float32)
+    return (u.new_empty((B, S, Di), **f32), u.new_empty((B, S, Di), **f32),
+            u.new_empty((Di, Ds), **f32), u.new_empty((B, S, Ds), **f32),
+            u.new_empty((B, S, Ds), **f32),
+            u.new_empty((0,) if h0 is None else (B, Di, Ds), **f32))
+
+
+BWD = define(
+    f"selective_scan_bwd({SCAN_ARGS}, Tensor dy, Tensor? dhT, "
+    f"Tensor? states) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _plain_bwd, _launch_bwd, _fake_bwd)
 
 
 def selective_scan_bwd(u, delta, A, Bc, Cc, h0, dy, dhT=None, states=None):
@@ -216,43 +321,8 @@ def selective_scan_bwd(u, delta, A, Bc, Cc, h0, dy, dhT=None, states=None):
         raise ValueError(f"selective_scan_bwd: states have shape "
                          f"{tuple(states.shape)}, expected "
                          f"{(B, n_state_chunks(S), Di, Ds)}")
-    given = [(n, x) for n, x in (("u", u), ("delta", delta), ("A", A),
-                                 ("Bc", Bc), ("Cc", Cc), ("dy", dy),
-                                 ("h0", h0), ("dhT", dhT),
-                                 ("states", states)) if x is not None]
-    if {x.device for _, x in given} == {torch.device("cpu")}:
-        return selective_scan_bwd_ref(u, delta, A, Bc, Cc, h0, dy, dhT,
-                                      states)
-    dev = _check_card(*zip(*given))
-    du, ddelta = (torch.empty((B, S, Di), dtype=torch.float32, device=dev)
-                  for _ in range(2))
-    dB, dC = (torch.empty((B, S, Ds), dtype=torch.float32, device=dev)
-              for _ in range(2))
-    dA = torch.zeros((Di, Ds), dtype=torch.float32, device=dev)
-    dh0 = None if h0 is None else torch.empty_like(h0)
-    if S == 0 or B == 0 or Di == 0:
-        if dh0 is not None:      # with S = 0, h_T is h0
-            dh0.copy_(dhT) if dhT is not None else dh0.zero_()
-        return du, ddelta, dA, dB, dC, dh0
-    if states is None:
-        states = _forward(u, delta, A, Bc, Cc, h0, with_states=True)[2]
-    plan = _bwd_plan(dev.index, B, Di, Ds)
-    # dA's partials a batch row, dB's and dC's a block of channels
-    scratch = torch.empty(B * Di * Ds + B * S * plan[1] * 2 * Ds,
-                          dtype=torch.float32, device=dev)
-    with on(dev):
-        ptr = lambda x: None if x is None else x.data_ptr()
-        rc = _lib().mamba_selective_scan_bwd(
-            *(ptr(x) for x in (u, delta, A, Bc, Cc, states, dy, dhT, du,
-                               ddelta, dA, dB, dC, dh0)),
-            ctypes.addressof(plan), scratch.data_ptr(), B, S, Di, Ds,
-            stream_of(dev))
-    if rc != 0:
-        raise RuntimeError(f"mamba_scan backward kernel launch failed: CUDA "
-                           f"error {rc}")
-    # the reverse-time scan, then the sums of its partials
-    count(selective_scan, "launches_bwd", launches=BWD_LAUNCHES)
-    return du, ddelta, dA, dB, dC, dh0
+    *grads, dh0 = BWD(u, delta, A, Bc, Cc, h0, dy, dhT, states)
+    return (*grads, None if h0 is None else dh0)
 
 
 class SelectiveScanFn(torch.autograd.Function):
@@ -262,15 +332,16 @@ class SelectiveScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u, delta, A, Bc, Cc, h0):
-        y, hT, states = _forward(u, delta, A, Bc, Cc, h0, with_states=True)
+        y, hT, states = FWD_STATES(u, delta, A, Bc, Cc, h0)
         ctx.save_for_backward(u, delta, A, Bc, Cc, h0, states)
         return y, hT
 
     @staticmethod
     def backward(ctx, dy, dhT):
         u, delta, A, Bc, Cc, h0, states = ctx.saved_tensors
-        return selective_scan_bwd(u, delta, A, Bc, Cc, h0, dy.contiguous(),
-                                  dhT.contiguous(), states)
+        *grads, dh0 = BWD(u, delta, A, Bc, Cc, h0, dy.contiguous(),
+                          dhT.contiguous(), states)
+        return (*grads, None if h0 is None else dh0)
 
 
 def selective_scan(u, delta, A, Bc, Cc, h0=None):
@@ -281,7 +352,7 @@ def selective_scan(u, delta, A, Bc, Cc, h0=None):
     args = [u, delta, A, Bc, Cc] + ([] if h0 is None else [h0])
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         return SelectiveScanFn.apply(u, delta, A, Bc, Cc, h0)
-    return _forward(u, delta, A, Bc, Cc, h0)
+    return FWD(u, delta, A, Bc, Cc, h0)
 
 
 selective_scan.launches = 0

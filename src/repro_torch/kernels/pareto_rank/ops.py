@@ -1,8 +1,10 @@
 """``dominance_counts``: the wrapper of the Hopper dominance-count kernel.
 
-A CPU tensor goes to the plain PyTorch version (``ref.py``).  A CUDA tensor
-launches the kernel (``csrc/pareto_rank.cu``, built at first use and loaded
-with ``ctypes``) for every pool size, or raises: there is no fallback.
+The call is the operator ``repro_torch::dominance_counts`` (``OP``; see
+``kernels.define``): a CPU tensor goes to the plain PyTorch version
+(``ref.py``), a CUDA tensor launches the kernel (``csrc/pareto_rank.cu``,
+built at first use and loaded with ``ctypes``) for every pool size, or
+raises: there is no fallback; a fake tensor gets the output's shape.
 A pool is (n, k), or (L, n, k) for L lanes of one shape (a fused NSGA
 run's problems): every lane goes in the same one launch.  The wrapper
 checks device, dtype, shape and contiguity and raises on anything
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from .. import define
 from ..build import build_library, library_loader
 from ..launch import count, on, stream_of
 from .ref import dominance_counts_ref
@@ -43,16 +46,9 @@ def _lib():
     return fn
 
 
-def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(n,) int32 number of *valid* rows dominating each row of ``objs``
-    (n, k), all objectives minimized.  Zero => nondominated.  With a
-    leading lane axis, ``objs`` (L, n, k) and ``valid`` (L, n) give (L, n)
-    counts, each lane ranked on its own, in one launch."""
-    if objs.device.type == "cpu":
-        return dominance_counts_ref(objs, valid)
-    if objs.device.type != "cuda":
-        raise ValueError(f"dominance_counts: unsupported device "
-                         f"{objs.device}")
+def _launch(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation of ``repro_torch::dominance_counts``: the
+    checks of the kernel, then its launch."""
     if objs.dim() not in (2, 3) or objs.dtype != torch.float32:
         raise ValueError(f"dominance_counts: objs must be (n, k) or "
                          f"(L, n, k) float32, got {tuple(objs.shape)} "
@@ -89,6 +85,26 @@ def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     count(dominance_counts, "launches",
           *(("launches_lanes",) if lanes > 1 else ()))
     return out
+
+
+def _plain(objs, valid):
+    return dominance_counts_ref(objs, valid)
+
+
+def _fake(objs, valid):
+    return objs.new_empty(objs.shape[:-1], dtype=torch.int32)
+
+
+OP = define("dominance_counts(Tensor objs, Tensor valid) -> Tensor",
+            _plain, _launch, _fake)
+
+
+def dominance_counts(objs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 number of *valid* rows dominating each row of ``objs``
+    (n, k), all objectives minimized.  Zero => nondominated.  With a
+    leading lane axis, ``objs`` (L, n, k) and ``valid`` (L, n) give (L, n)
+    counts, each lane ranked on its own, in one launch."""
+    return OP(objs, valid)
 
 
 dominance_counts.launches = 0

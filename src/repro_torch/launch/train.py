@@ -19,8 +19,8 @@
 Without ``--arch`` the CLI trains the example's ~100M-parameter dense
 model; with it, a registry config (``--reduced`` for its reduced form),
 under the fault-tolerant driver with checkpoints in ``--ckpt-dir``, and
-checks that the loss fell.  ``train_state_specs`` (shapes for the dry-run)
-is not ported.
+checks that the loss fell.  ``train_state_specs`` gives the state's shapes
+and dtypes on meta, for the step analysis (``launch.graph_analysis``).
 """
 
 from __future__ import annotations
@@ -39,10 +39,20 @@ from ..models.config import ModelConfig
 from ..models.model import Model, build_model
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..runtime.driver import FaultTolerantTrainer
+from .specs import params_specs
 
 
 def make_train_state(model: Model, seed: int, opt_cfg: AdamWConfig) -> Dict:
     params = model.init(seed)
+    params.requires_grad_(True)
+    return {"params": params, "opt": adamw_init(opt_cfg, params)}
+
+
+def train_state_specs(model: Model, opt_cfg: AdamWConfig) -> Dict:
+    """The train state of ``make_train_state`` as specs on meta (shapes and
+    dtypes, no storage, no init draws): the parameter module taking
+    gradients and ``adamw_init``'s moments and step count."""
+    params = params_specs(model.cfg)
     params.requires_grad_(True)
     return {"params": params, "opt": adamw_init(opt_cfg, params)}
 

@@ -1,7 +1,6 @@
 """Model configuration of the port's LM substrate: the reference's
 ``repro/models/config.py`` records (``ModelConfig``, ``ShapeConfig``,
-``SHAPES``), kept as the port's own copy.  ``ParallelConfig`` is not
-ported yet (it waits for the parallel layer)."""
+``SHAPES``, ``ParallelConfig``), kept as the port's own copy."""
 
 from __future__ import annotations
 
@@ -146,3 +145,24 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Distribution layout for a (config, shape, mesh) cell.  The defaults
+    are what the Monad-based autosharding advisor picks (see
+    ``repro_torch.autosharding``); every knob here is a searchable field
+    there."""
+    fsdp_axes: Tuple[str, ...] = ("pod", "data")   # weight/optimizer sharding
+    tensor_axis: str = "model"
+    expert_sharding: str = "auto"   # auto | expert | tensor (grok: tensor)
+    decode_kv: str = "auto"         # auto | heads | sequence
+    seq_shard: bool = False         # SP: shard activations along seq (long ctx)
+    seq_tp: bool = False            # Megatron-style sequence parallelism:
+    #                                 residual stream seq-sharded over the
+    #                                 MODEL axis (TP all-reduces become
+    #                                 reduce-scatter/all-gather pairs and
+    #                                 layer boundaries shrink by TP)
+    pipeline_stages: int = 1        # PP (>1 uses parallel.pipeline)
+    microbatch: int = 1
+    remat: str = "dots"

@@ -373,11 +373,14 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> Model:
 
 def build_model(cfg: ModelConfig, device=runtime.DEFAULT_DEVICE) -> Model:
     """The serving functions of ``cfg`` on ``device`` (default: the card;
-    raises without one unless ``device="cpu"``)."""
+    raises without one unless ``device="cpu"``).  ``device="meta"`` gives
+    shapes only (``launch.specs``): its ``init_cache`` allocates nothing,
+    and nothing of it runs a computation."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); "
                          f"known: {PORTED_FAMILIES}")
-    dev = runtime.resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else runtime.resolve_device(device))
     if cfg.family == "encdec":
         return _build_encdec(cfg, dev)
     return _build_decoder(cfg, dev)

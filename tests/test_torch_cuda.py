@@ -980,3 +980,139 @@ def test_reduced_hymba_train_step_runs_every_kernel(cuda):
     assert np.isfinite(float(m["loss"]))
     assert any(not torch.equal(a, b) for a, b in
                zip(before, st["params"].parameters()))
+
+
+# ---------------------------------------------------------------------------
+# the kernels as operators (kernels.define)
+# ---------------------------------------------------------------------------
+def _operator_cases(dev):
+    """(name, wrapper module, plain names in it, call, counter, launches)
+    of every kernel operator, on small CUDA inputs."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.gp_cov import ops as gp
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.pareto_rank import ops as pr
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s, dt=torch.float32: torch.randn(*s, generator=g, device=dev,
+                                                 dtype=dt)
+    objs, valid = r(300, 3), torch.ones(300, dtype=torch.bool, device=dev)
+    q, k, v = (r(2, 40, 4, 64, dt=torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    u, dl = r(2, 40, 64), r(2, 40, 64).abs() * 0.1
+    A, Bc, Cc, h0 = -r(64, 16).abs(), r(2, 40, 16), r(2, 40, 16), \
+        r(2, 64, 16)
+    states = ms.selective_scan_fwd_states(u, dl, A, Bc, Cc, h0)[2]
+    fa_plain = ("flash_attention_blocked", "flash_attention_bwd_blocked")
+    ms_plain = ("selective_scan_ref", "selective_scan_bwd_ref")
+    return [
+        ("dominance_counts", pr, ("dominance_counts_ref",),
+         lambda: pr.dominance_counts(objs, valid),
+         (pr.dominance_counts, "launches"), 1),
+        ("matern52", gp, ("matern52_ref",),
+         lambda: gp.matern52(r(50, 8), r(30, 8), 0.3),
+         (gp.matern52, "launches"), 1),
+        ("flash_attention", fa, fa_plain,
+         lambda: fa.flash_attention(q, k, v, "window", 16, None),
+         (fa.flash_attention, "launches"), 1),
+        ("flash_attention_fwd_lse", fa, fa_plain,
+         lambda: fa.flash_attention_fwd_lse(q, k, v),
+         (fa.flash_attention, "launches"), 1),
+        ("flash_attention_bwd", fa, fa_plain,
+         lambda: fa.flash_attention_bwd(q, k, v, out, lse, out),
+         (fa.flash_attention, "launches_bwd"), fa.BWD_LAUNCHES),
+        ("selective_scan", ms, ms_plain,
+         lambda: ms.selective_scan(u, dl, A, Bc, Cc, h0),
+         (ms.selective_scan, "launches"), 1),
+        ("selective_scan_fwd_states", ms, ms_plain,
+         lambda: ms.selective_scan_fwd_states(u, dl, A, Bc, Cc),
+         (ms.selective_scan, "launches"), 1),
+        ("selective_scan_bwd", ms, ms_plain,
+         lambda: ms.selective_scan_bwd(u, dl, A, Bc, Cc, h0, u, h0, states),
+         (ms.selective_scan, "launches_bwd"), ms.BWD_LAUNCHES),
+    ]
+
+
+# what a trace may hold on the card: a few 0-dim tensors, 512 bytes each
+# in the caching allocator
+SCALAR_BYTES = 8 * 512
+OPERATORS = ("dominance_counts", "matern52", "flash_attention",
+             "flash_attention_fwd_lse", "flash_attention_bwd",
+             "selective_scan", "selective_scan_fwd_states",
+             "selective_scan_bwd")
+
+
+@pytest.mark.parametrize("name", OPERATORS)
+def test_kernel_operator_on_cuda_launches_never_the_plain_version(
+        cuda, name, monkeypatch):
+    """Each kernel operator on CUDA tensors goes to its CUDA implementation:
+    its launch counter moves by its launches, and its plain version, which
+    the CPU implementation calls, is never reached."""
+    case = next(c for c in _operator_cases(cuda) if c[0] == name)
+    _, mod, plains, call, (fn, counter), launches = case
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{name}: the plain version ran on the card")
+    for p in plains:
+        monkeypatch.setattr(mod, p, refuse)
+    before = getattr(fn, counter)
+    outs = call()
+    torch.cuda.synchronize()
+    assert getattr(fn, counter) == before + launches
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o is None or o.device.type == "cuda" for o in outs)
+
+
+@pytest.mark.parametrize("name", ("dominance_counts", "flash_attention",
+                                  "selective_scan"))
+def test_kernel_operator_is_captured_by_a_cuda_graph(cuda, name):
+    case = next(c for c in _operator_cases(cuda) if c[0] == name)
+    call = case[3]
+    want = call()                            # builds and loads the library
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+def test_a_trace_on_fake_cuda_tensors_launches_nothing(cuda):
+    """The reduced Hymba's train step traced on fake CUDA tensors: every
+    kernel operator counted as the card runs it, no launch counter moves,
+    and no device memory is taken but the few scalars that fake tensor
+    mode keeps real for their values (a step built from Python numbers:
+    the optimizer's step count, the loss's aux term)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.launch.graph_analysis import analyze
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.launch.train import make_train_step, train_state_specs
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_reduced("hymba_1_5b")
+    model = build_model(cfg, cuda)
+    opt = AdamWConfig()
+    counters = lambda: (fa.flash_attention.launches,
+                        fa.flash_attention.launches_bwd,
+                        ms.selective_scan.launches,
+                        ms.selective_scan.launches_bwd)
+    before = counters()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    an = analyze(make_train_step(model, opt), train_state_specs(model, opt),
+                 batch_specs(cfg, 2, 32, with_labels=True), device="cuda")
+    assert counters() == before
+    assert torch.cuda.memory_allocated() - mem <= SCALAR_BYTES
+    L = cfg.n_layers
+    assert {n.split("::")[1]: v["launches"] for n, v in an.kernels.items()} \
+        == {"flash_attention_fwd_lse": 2 * L,
+            "selective_scan_fwd_states": 2 * L,
+            "flash_attention_bwd": 3 * L, "selective_scan_bwd": 2 * L}

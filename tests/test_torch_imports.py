@@ -76,6 +76,50 @@ def test_training_modules_exist(module):
     assert module in _modules()
 
 
+# the fifteenth slice: the front door's tail and the single-card planning
+# layer (the kernels' work formulas beside them)
+SLICE_15 = ("repro_torch.autosharding", "repro_torch.autosharding.advisor",
+            "repro_torch.launch.specs", "repro_torch.launch.graph_analysis",
+            "repro_torch.launch.dryrun",
+            "repro_torch.kernels.pareto_rank.cost",
+            "repro_torch.kernels.gp_cov.cost",
+            "repro_torch.kernels.flash_attention.cost",
+            "repro_torch.kernels.mamba_scan.cost")
+
+
+@pytest.mark.parametrize("module", SLICE_15)
+def test_planning_modules_exist(module):
+    assert module in _modules()
+
+
+# every kernel launch is an operator of the repro_torch namespace
+OPERATORS = ("dominance_counts", "matern52", "flash_attention",
+             "flash_attention_fwd_lse", "flash_attention_bwd",
+             "selective_scan", "selective_scan_fwd_states",
+             "selective_scan_bwd")
+
+
+@pytest.mark.parametrize("name", OPERATORS)
+def test_kernel_operators_are_registered_at_import(name):
+    import torch
+    from repro_torch.launch import graph_analysis
+    op = getattr(torch.ops.repro_torch, name).default
+    assert op in graph_analysis.KERNEL_COSTS
+
+
+def test_front_door_tail_names_exist():
+    from repro_torch.core import constants, cost, network, optimizer
+    from repro_torch.explore import archive, service
+    from repro_torch.models import config
+    for mod, name in ((network, "topo_code"), (cost, "monolithic_cost"),
+                      (archive, "dominates"), (optimizer, "optimize"),
+                      (optimizer, "two_stage_optimize"),
+                      (service, "default_service"), (service, "explore"),
+                      (constants, "H100Target"), (constants, "DEFAULT_H100"),
+                      (config, "ParallelConfig")):
+        assert callable(getattr(mod, name)) or name == "DEFAULT_H100", name
+
+
 def test_runtime_package_keeps_its_names():
     """``runtime.py`` became the package ``runtime/``: every name it
     exported still imports from ``repro_torch.runtime``."""

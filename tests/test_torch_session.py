@@ -13,9 +13,9 @@
   same ``submit``: ``best_*``, provenance, one completion event, the
   ``Query.archive`` front, mixed batches with ``nsga``, and the reference's
   ``ValueError`` for nsga-only options;
-* a statistical gate against the JAX reference: over 3 fixed seeds at
-  pop 16 and budget 256, the port's mean front hypervolume is at least
-  0.95x the reference's on the same problem.  The two packages draw from
+* the contract's statistical gate against the JAX reference: over 6
+  fixed seeds at pop 16 and budget 256, the port's mean front hypervolume
+  is at least 0.99x the reference's on the same problem.  The two packages draw from
   different random streams, so the gate is statistical, not bitwise.
 """
 
@@ -356,20 +356,35 @@ def test_entry_points_default_to_the_card(what, call):
         call(_scalar_problem())
 
 
+# the contract's NSGA gate: the port's front hypervolume, pooled over the
+# seeds, at least HV_GATE x the reference's on the same problem and budget
+# (fixed before the gate's first reading).  Budgets run on a power-of-two
+# lattice of generations (``quantize.schedule``): 256 is the largest that
+# keeps the test under 45 s on one worker (512 does not), most of it the
+# reference's first compilation
+HV_GATE = 0.99
+HV_SEEDS = (0, 1, 2, 3, 4, 5)
+HV_BUDGET = 256
+HV_POP = 16
+
+
 def test_front_hypervolume_gate_against_reference(tmp_path):
-    seeds = (0, 1, 2)
     graph = C.presets.bert_mms()["att2"]
     ref_hv, port_hv = [], []
-    for s in seeds:
+    for s in HV_SEEDS:
         ref = ref_api.Session(cache_dir=tmp_path / f"ref{s}",
-                              nsga=RefNSGAConfig(pop=16))
+                              nsga=RefNSGAConfig(pop=HV_POP))
         r = ref.submit(ref_api.Query(ref_api.Problem(graph, OBJ, ch_max=4),
-                                     budget=256, engine="nsga"),
+                                     budget=HV_BUDGET, engine="nsga"),
                        key=jax.random.PRNGKey(s))
         ref_hv.append(_hv(r.front_objs))
         port = Session(cache_dir=tmp_path / f"port{s}", device="cpu",
-                       nsga=NSGAConfig(pop=16))
-        pr = port.submit(Query(_problem(), budget=256), key=s)
-        assert pr.provenance.n_evals_run == r.provenance.n_evals_run == 256
+                       nsga=NSGAConfig(pop=HV_POP))
+        pr = port.submit(Query(_problem(), budget=HV_BUDGET), key=s)
+        assert pr.provenance.n_evals_run == r.provenance.n_evals_run \
+            == HV_BUDGET
         port_hv.append(_hv(pr.front_objs))
-    assert np.mean(port_hv) >= 0.95 * np.mean(ref_hv), (port_hv, ref_hv)
+    ratio = np.mean(port_hv) / np.mean(ref_hv)
+    print(f"NSGA gate: port {port_hv}, reference {ref_hv}, pooled ratio "
+          f"{ratio:.6f} (gate {HV_GATE})")
+    assert ratio >= HV_GATE, (port_hv, ref_hv)
