@@ -51,8 +51,8 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
 8. the README's quickstart query, the paper's own engine:
    ``Query(engine="bo_sa", weights=OBJ_EDP)`` on the Fig. 4a transformer
    block with ``ch_max=6``, a 4096-PE budget, ``n_init=4``, ``n_iter=8``
-   and ``SAConfig(steps=100, chains=4)`` (the README's 250 SA steps cut to
-   100, a cut of depth only) — 12 SA runs, 2 ``gp_cov``
+   and ``SAConfig(steps=50, chains=4)`` (the README's 250 SA steps cut to
+   50, a cut of depth only) — 12 SA runs, 2 ``gp_cov``
    launches per BO iteration — with the kernels' counts set to 0 just
    before and read just after; the best design re-evaluates to its
    metrics and objective and its feasibility penalty is printed (see
@@ -306,6 +306,22 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     advisor's ``bo_search`` for qwen2-72b ``train_4k`` at 256 cards,
     budget 32, with the GP on the card (``gp_cov`` launches counted) beside
     ``exhaustive_best``.
+19. the multi-rank half on the one card: (a) phase 5's query with
+    ``Session(mesh=make_island_mesh(4))``, 4 islands of 16 on cuda:0: its
+    wall, evaluations/s and ``pareto_rank`` launches beside phase 5's, its
+    front hypervolume beside phase 5's; a 1-island mesh equal to phase 5's
+    run bit for bit; the island count changing the checkpoint signature;
+    (b) phase 11's generation with the parameters as DTensors on a
+    one-rank NCCL world's (1, 1) ("data", "model") mesh, through the
+    kernels' sharding rules and the activation-sharding context: tokens
+    and logits bit for bit phase 11's, the same launches; (c) the reduced
+    Hymba's DTensor train state after a step on that mesh, saved, restored
+    into plain tensors and into DTensors, bit for bit; (d) the dry run's
+    qwen2-72b ``decode_32k`` cell on the single (16, 16) mesh of a
+    256-rank fake world, on fake CUDA tensors (no launch): per-device
+    FLOPs, bytes, wire bytes by kind, the traced peak and the roofline
+    beside the advisor's ``predict`` of the same layout (``train_4k``
+    unrolls ~1k operators a layer a microbatch, past the phase's minute).
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -343,6 +359,7 @@ import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -397,8 +414,9 @@ from repro_torch.kernels.mamba_scan import cost as ms_cost  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     selective_scan_bwd_ref, selective_scan_ref)
-from repro_torch.autosharding.advisor import (bo_search,  # noqa: E402
-                                              exhaustive_best)
+from repro_torch.autosharding.advisor import (ShardPlan,  # noqa: E402
+                                              bo_search, exhaustive_best,
+                                              predict)
 from repro_torch.core.constants import DEFAULT_H100  # noqa: E402
 from repro_torch.core.cost import monolithic_cost  # noqa: E402
 from repro_torch.core.optimizer import optimize as legacy_optimize  # noqa: E402
@@ -406,8 +424,10 @@ from repro_torch.core.optimizer import (  # noqa: E402
     two_stage_optimize as legacy_two_stage)
 from repro_torch.explore.service import ExplorationService  # noqa: E402
 from repro_torch.explore.service import explore as legacy_explore  # noqa: E402
-from repro_torch.launch.dryrun import (model_flops_for,  # noqa: E402
+from repro_torch.launch.dryrun import (default_parallel,  # noqa: E402
+                                       lower_cell, model_flops_for,
                                        model_min_bytes_for)
+from repro_torch.launch.mesh import make_island_mesh  # noqa: E402
 from repro_torch.launch.graph_analysis import analyze, roofline  # noqa: E402
 from repro_torch.launch.serve import generate, stub_inputs  # noqa: E402
 from repro_torch.launch.specs import (batch_specs, cache_specs,  # noqa: E402
@@ -417,7 +437,10 @@ from repro_torch.launch.train import (make_train_state,  # noqa: E402
                                       train_state_specs)
 from repro_torch.models import layers as Ly  # noqa: E402
 from repro_torch.models import transformer as Tr  # noqa: E402
-from repro_torch.models.config import SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.models.config import (SHAPES, ParallelConfig,  # noqa: E402
+                                       ShapeConfig)
+from repro_torch.parallel import sharding as Sh  # noqa: E402
+from repro_torch.parallel.ctx import activation_sharding  # noqa: E402
 from repro_torch.models.model import build_model, lm_module  # noqa: E402
 from repro_torch.kernels.pareto_rank import cost as pareto_cost  # noqa: E402
 from repro_torch.kernels.pareto_rank import ops as pareto_ops  # noqa: E402
@@ -499,10 +522,10 @@ GP_EPILOGUE_INSTRUCTIONS = 25
 LANES_PER_SM = 128
 
 # the README's quickstart query (examples/quickstart.py), its SA steps cut
-# 250 -> 100 to keep the whole run well inside its time limit: the BO
+# 250 -> 50 to keep the whole run well inside its time limit: the BO
 # rounds, chains and gp_cov launches are the README's
 QUICK_OPTS = dict(n_init=4, n_iter=8)
-QUICK_SA = SAConfig(steps=100, chains=4)
+QUICK_SA = SAConfig(steps=50, chains=4)
 TWO_STAGE_SA = SAConfig(steps=10, chains=4)
 
 # flash_attention checks: (B, Sq, Sk, H, KV, D, Dv, mask, window,
@@ -1428,22 +1451,32 @@ def check_front(problem, result, tech=DEFAULT_TECH):
                                err_msg="front metrics do not re-evaluate")
 
 
+# spin kernels that open every profiled call (``device_by_kernel``)
+PROFILE_LEAD_IN = 256
+
+
 def device_by_kernel(fn, host: bool = True) -> tuple:
     """(device seconds, kernel count, {kernel name: (device seconds,
     count)}) of one synchronized call of ``fn`` under ``torch.profiler``;
     (0, 0, {}) when it sees no device events.  ``host=False`` traces the
     device alone (far lighter on a call of tens of thousands of
-    launches)."""
+    launches).  The trace opens with ``PROFILE_LEAD_IN`` spin kernels,
+    left out of what it returns: a record the profiler loses as it starts
+    is then one of theirs, not one of ``fn``'s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA]
     if host:
         acts.insert(0, ProfilerActivity.CPU)
     with profile(activities=acts) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+           if e.device_type == DeviceType.CUDA
+           and "spin_kernel" not in e.key]
     return (sum(e.self_device_time_total for e in dev) * 1e-6,
             sum(e.count for e in dev),
             {e.key: (e.self_device_time_total * 1e-6, e.count) for e in dev})
@@ -5070,6 +5103,252 @@ def planning_phase(served: dict, trained: dict) -> dict:
     print(f"phase 18: {out['wall_s']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 19: the multi-rank half on one card
+# ---------------------------------------------------------------------------
+ISLANDS = 4
+# the dry-run cell: qwen2-72b train_4k unrolls ~1k operators a layer a
+# microbatch (80 layers x 8 microbatches), far past the phase's minute;
+# its decode cell traces every layer once
+DRY_ARCH, DRY_SHAPE = "qwen2_72b", "decode_32k"
+
+
+def same_front_bits(a, b) -> bool:
+    """Two results' fronts (objectives and designs) bit for bit."""
+    return (np.array_equal(a.front_objs, b.front_objs)
+            and len(a.front_designs) == len(b.front_designs)
+            and all(np.array_equal(x[k], y[k]) for x, y in
+                    zip(a.front_designs, b.front_designs) for k in x))
+
+
+def islands_on_card(problem, cold, cold_s: float, cold_launches: int,
+                    device: str = "cuda", budget: int = 2048) -> dict:
+    """(a): phase 5's query as 4 islands of 16 on the card, beside phase
+    5's plain run; a 1-island mesh equals the plain run bit for bit; the
+    island count changes the checkpoint signature."""
+    query = Query(problem, budget=budget)
+    sync = sync_of(device)
+    with tempfile.TemporaryDirectory() as cache:
+        pareto_ops.dominance_counts.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        r = Session(cache_dir=cache, device=device,
+                    mesh=make_island_mesh(ISLANDS, (device,))).submit(query)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = pareto_ops.dominance_counts.launches
+    pv = r.provenance
+    if pv.n_evals_run != cold.provenance.n_evals_run:
+        fail(f"phase 19 (a): the island run spent {pv.n_evals_run} "
+             f"evaluations, phase 5's {cold.provenance.n_evals_run}")
+    if device == "cuda":
+        check_front(problem, r)
+    hv, hv_plain = front_hv(r.front_objs), front_hv(cold.front_objs)
+    with tempfile.TemporaryDirectory() as cache:
+        one = Session(cache_dir=cache, device=device,
+                      mesh=make_island_mesh(1, (device,))).submit(query)
+    if not same_front_bits(one, cold):
+        fail("phase 19 (a): a 1-island mesh differs from phase 5's plain "
+             "run")
+    with tempfile.TemporaryDirectory() as cache:
+        svc = ExplorationService(cache_dir=cache, device=device)
+        args = (problem.objectives, budget, 64, 32, 8, 0, None)
+        plain = svc._ckpt_signature(*args)
+        svc.mesh = make_island_mesh(ISLANDS, (device,))
+        four = svc._ckpt_signature(*args)
+    if four == plain:
+        fail("phase 19 (a): the island count left the checkpoint "
+             "signature unchanged")
+    out = dict(wall_s=wall, evals=pv.n_evals_run, evals_per_s=pv.n_evals_run
+               / wall, plain_evals_per_s=cold.provenance.n_evals_run / cold_s,
+               launches=launches, plain_launches=cold_launches, hv=hv,
+               hv_plain=hv_plain, front=int(len(r.front_objs)),
+               one_island_bitwise=True, signature_changes=True)
+    print(f"phase 19 (a) {ISLANDS} islands of 16 on {device}: "
+          f"{pv.n_evals_run} evaluations in {wall:.3f} s "
+          f"({out['evals_per_s']:.1f} evaluations/s against phase 5's "
+          f"{out['plain_evals_per_s']:.1f}), pareto_rank launches "
+          f"{launches} (phase 5: {cold_launches}), front {out['front']} "
+          f"points, hypervolume {hv:.6f} (phase 5: {hv_plain:.6f}); a "
+          f"1-island mesh equals phase 5 bit for bit; the signature "
+          f"{plain} becomes {four}", flush=True)
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_serve_and_restore(served: dict, device: str = "cuda",
+                              cfg=None, prompt_len: int = SERVE_PROMPT,
+                              n_new: int = SERVE_TOKENS) -> dict:
+    """(b) phase 11's Hymba generation with DTensor parameters on a
+    one-rank (1, 1) ("data", "model") mesh, through the kernels' sharding
+    rules: the same tokens and logits, bit for bit, and the same launches;
+    (c) a DTensor train state saved from that mesh, restored into plain
+    tensors and into DTensors again, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = torch.device(device)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh(dev.type, torch.zeros(1, 1, dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        pc = ParallelConfig()
+        rules = Sh.make_rules(pc)
+        cfg = cfg or get_config(HYMBA)
+        model = build_model(cfg, device)
+        params = Sh.distribute_module(model.init(0), cfg, mesh, rules)
+        prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, prompt_len),
+                               generator=torch.Generator().manual_seed(11))
+        fa_ops.flash_attention.launches = 0
+        fa_ops.flash_attention.launches_tc = 0
+        ms_ops.selective_scan.launches = 0
+        sync_of(device)()
+        t0 = time.perf_counter()
+        with activation_sharding(mesh, pc):
+            gen = generate(model, params, prompt, n_new)
+        sync_of(device)()
+        wall = time.perf_counter() - t0
+        launches = dict(flash_attention=fa_ops.flash_attention.launches,
+                        flash_attention_tc=fa_ops.flash_attention.launches_tc,
+                        mamba_scan=ms_ops.selective_scan.launches)
+        whole = SimpleNamespace(tokens=gen.tokens.full_tensor(),
+                                logits=gen.logits.full_tensor())
+        digest = generation_digest(whole)
+        if digest != served["digest"]:
+            fail(f"phase 19 (b): the sharded generation's digest {digest}, "
+                 f"phase 11's {served['digest']}")
+        if launches != served["launches"]:
+            fail(f"phase 19 (b): the sharded generation launched "
+                 f"{launches}, phase 11 {served['launches']}")
+        print(f"phase 19 (b) {cfg.name} on a one-rank (1, 1) mesh, DTensor "
+              f"parameters ({sum(type(p.data).__name__ == 'DTensor' for p in params.parameters())} "
+              f"of {len(list(params.parameters()))}): {n_new} tokens in "
+              f"{wall:.2f} s (phase 11's run 1: "
+              f"{served['runs'][0]['prefill_s'] + served['runs'][0]['decode_s']:.2f} s),"
+              f" launches {launches}, tokens and logits bit for bit phase "
+              f"11's ({digest})", flush=True)
+        out = dict(wall_s=wall, launches=launches, digest=digest)
+        del params, gen, whole
+        if dev.type == "cuda":
+            free_card()
+        out["restore"] = elastic_on_card(mesh, rules, device)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def elastic_on_card(mesh, rules, device: str) -> dict:
+    """(c): reduced Hymba's DTensor train state, one train step in."""
+    cfg = get_reduced(HYMBA)
+    model = build_model(cfg, device)
+    params = model.init(5)
+    params.requires_grad_(True)
+    opt_cfg = AdamWConfig()
+    state = {"params": Sh.distribute_module(params, cfg, mesh, rules),
+             "opt": None}
+    state["opt"] = adamw_init(opt_cfg, state["params"])
+    tokens = torch.randint(0, cfg.vocab, (2, 16), device=device,
+                           generator=torch.Generator(device).manual_seed(5))
+    pc = ParallelConfig()
+    with activation_sharding(mesh, pc):
+        make_train_step(model, opt_cfg)(state, {"tokens": tokens})
+    want = {n: p.detach().full_tensor().clone()
+            for n, p in state["params"].named_parameters()}
+    mu = {n: m.full_tensor().clone() for n, m in state["opt"]["mu"].items()}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        CheckpointManager(d).save(1, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        plain_p = lm_module(cfg, device)
+        plain = {"params": plain_p, "opt": adamw_init(opt_cfg, plain_p)}
+        CheckpointManager(d).restore(1, plain)
+        back_p = Sh.distribute_module(lm_module(cfg, device), cfg, mesh,
+                                      rules)
+        back = {"params": back_p, "opt": adamw_init(opt_cfg, back_p)}
+        CheckpointManager(d).restore(1, back)
+    for n, p in plain["params"].named_parameters():
+        if not torch.equal(p, want[n]):
+            fail(f"phase 19 (c): {n} restored into a plain tensor differs")
+    for n, p in back["params"].named_parameters():
+        if not torch.equal(p.to_local(), want[n]):
+            fail(f"phase 19 (c): {n} restored into a DTensor differs")
+    for n, m in plain["opt"]["mu"].items():
+        if not torch.equal(m, mu[n]) or not torch.equal(
+                back["opt"]["mu"][n].to_local(), mu[n]):
+            fail(f"phase 19 (c): the moment of {n} differs after restore")
+    if int(plain["opt"]["step"]) != int(state["opt"]["step"]) != 0:
+        fail("phase 19 (c): the step count differs after restore")
+    print(f"phase 19 (c) {cfg.name}'s DTensor train state after a "
+          f"step ({len(want)} parameters, 2 moments, step "
+          f"{int(state['opt']['step'])}) saved in {save_s:.2f} s, restored "
+          f"into plain tensors and into DTensors bit for bit", flush=True)
+    return dict(save_s=save_s, leaves=len(want))
+
+
+def dryrun_cell_on_card(device: str = "cuda", arch: str = DRY_ARCH,
+                        shape: str = DRY_SHAPE, config=None) -> dict:
+    """(d): one full-width cell at 256 fake ranks on fake tensors of the
+    card's type, beside the advisor's estimate of the same layout.  Nothing
+    is launched."""
+    def counts():
+        return (launch_counts(), lm_counts(), train_counts())
+    before = counts()
+    t0 = time.perf_counter()
+    art = lower_cell(arch, shape, False, device=device, config=config)
+    wall = time.perf_counter() - t0
+    if counts() != before:
+        fail("phase 19 (d): the dry run launched a kernel")
+    pc, cfg_over = default_parallel(arch, shape)
+    cfg = dataclasses.replace(config or get_config(arch), **cfg_over)
+    sc = SHAPES[shape]
+    kv = pc.decode_kv
+    if kv == "auto":
+        kv = "heads" if cfg.n_kv_heads and cfg.n_kv_heads % 16 == 0 \
+            else "sequence"
+    plan = ShardPlan(data=16, model=16, microbatch=pc.microbatch,
+                     remat=pc.remat, fsdp=True, decode_kv=kv,
+                     seq_shard=pc.seq_shard)
+    est = predict(cfg, sc, plan).to_dict()
+    rl = art["roofline"]
+    print(f"phase 19 (d) dry run {arch} {shape} on 256 fake ranks ({device}"
+          f" fake tensors): traced in {art['lower_s']} s ({wall:.1f} s with "
+          f"the layout), {art['operators']} operators; per device "
+          f"{art['flops_per_device']:.6e} FLOPs, {art['bytes_per_device']:.6e}"
+          f" bytes (every operator's: {art['bytes_all_per_device']:.6e}), "
+          f"wire {json.dumps(art['collectives']['wire_bytes'])} "
+          f"({art['collectives']['inter_node_wire_bytes']:.6e} of it across "
+          f"nodes), collectives {json.dumps(art['collectives']['counts'])}, "
+          f"traced peak {art['memory']['peak_bytes'] / 2**30:.3f} GiB; "
+          f"roofline compute {rl['compute_s']:.6e} s, memory "
+          f"{rl['memory_s']:.6e} s, collective {rl['collective_s']:.6e} s, "
+          f"{rl['bottleneck']}-bound, fraction {rl['roofline_frac']:.4f}; "
+          f"the advisor's predict ({plan}): compute {est['compute_s']:.6e}"
+          f" s, memory {est['memory_s']:.6e} s, collective "
+          f"{est['collective_s']:.6e} s, step {est['step_s']:.6e} s",
+          flush=True)
+    return dict(artifact=art, wall_s=wall, advisor=est,
+                plan=dataclasses.asdict(plan))
+
+
+def multirank_phase(problem, cold, cold_s: float, cold_launches: int,
+                    served: dict) -> dict:
+    t0 = time.perf_counter()
+    out = dict(islands=islands_on_card(problem, cold, cold_s,
+                                       cold_launches))
+    out["sharded"] = sharded_serve_and_restore(served)
+    free_card()
+    out["dryrun"] = dryrun_cell_on_card()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 19: {out['wall_s']:.1f} s")
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5209,6 +5488,10 @@ def main():
     planned = planning_phase(served, trained["train"])
     stamp("18")
 
+    # ---- 19. the multi-rank half on one card -------------------------------
+    multi = multirank_phase(problem, cold, cold_s, launches, served)
+    stamp("19")
+
     main_row = next(r for r in pareto_rows if r["tag"] == "archive insert")
     record = dict(
         name="pareto_rank", route="cuda",
@@ -5229,7 +5512,8 @@ def main():
                        generations=gens, segments=segs,
                        front_size=int(len(cold.front_objs)), hv=hv,
                        breakdown=split, transfer=transfer,
-                       calib_obs=calib_obs, serve=serving))
+                       calib_obs=calib_obs, serve=serving,
+                       islands=multi["islands"]))
     gp_main = next(r for r in gp_rows if r["tag"] == "quickstart K(Z, X)")
     gp_record = dict(
         name="gp_cov", route="cuda",
@@ -5260,7 +5544,8 @@ def main():
         library_ms=fa_main["library_ms"],
         tolerance=FA_TOL[torch.bfloat16], serve_tolerance=FA_BF16_SERVE_TOL,
         build=fa_build, shapes=bf16_rows,
-        main_path=dict(serve=served, families=families["serve"]),
+        main_path=dict(serve=served, families=families["serve"],
+                       sharded=multi["sharded"]),
         launches_families={r["arch"]: r["launches"]["flash_attention_tc"]
                            for r in families["serve"]})
     f32_main = next(r for r in f32_rows if r["tag"] == "hymba prefill")

@@ -19,8 +19,11 @@ decode-cache layout) co-designed against the interconnect.  This module:
 
 Every function takes ``target=`` (an ``H100Target``; the reference's
 ``tpu=``): one card's peak, HBM rate and capacity, and its links.  The
-collective term prices one fabric of ``links_per_chip`` links, which
-holds inside one 8-GPU NVLink node only (see ``H100Target``).
+collective term prices each group on its tier (``H100Target``):
+the mesh is laid out model-innermost, then data, then stage, so a TP
+group spans ``tp`` consecutive ranks, an FSDP / data group ``tp * dp`` and
+a pipeline hop ``tp * dp * pp``; a group within one node of
+``node_gpus`` cards moves on NVLink, a larger one on the network.
 """
 
 from __future__ import annotations
@@ -89,6 +92,19 @@ def predict(cfg: ModelConfig, sc: ShapeConfig, plan: ShardPlan,
     peak = target.peak_bf16_tflops * 1e12
     hbm = target.hbm_gbps * 1e9
     ici = target.links_per_chip * target.link_gbps * 1e9
+    # wire bytes a card sends inside one node (``wire``) and across nodes
+    # (``wire_net``), each added in the reference's order; a group spans
+    # more than one node when its ranks spread over more than node_gpus
+    wire = wire_net = 0.0
+    net_tp, net_dp, net_pp = (n > target.node_gpus
+                              for n in (tp, tp * dp, tp * dp * pp))
+
+    def add(w, net):
+        nonlocal wire, wire_net
+        if net:
+            wire_net += w
+        else:
+            wire += w
 
     if sc.kind == "train":
         tokens = B * S
@@ -106,19 +122,20 @@ def predict(cfg: ModelConfig, sc: ShapeConfig, plan: ShardPlan,
         act_traffic = act * L / pp * 14.0 * passes * m
         mem_bytes = w_traffic + act_traffic + 3 * P_all * 4.0 / chips
         # ICI: FSDP gathers + grad reduce-scatter + TP all-reduces (+EP a2a)
-        wire = 0.0
         if plan.fsdp and dp > 1:
-            wire += (P_all * bpe / (tp * pp)) * (dp - 1) / dp * m * passes
-            wire += 2.0 * (P_all * 4.0 / (tp * pp)) * (dp - 1) / dp
+            add((P_all * bpe / (tp * pp)) * (dp - 1) / dp * m * passes,
+                net_dp)
+            add(2.0 * (P_all * 4.0 / (tp * pp)) * (dp - 1) / dp, net_dp)
         elif dp > 1:
-            wire += 2.0 * (P_all * 4.0 / (tp * pp)) * (dp - 1) / dp
+            add(2.0 * (P_all * 4.0 / (tp * pp)) * (dp - 1) / dp, net_dp)
         if tp > 1:
-            wire += 2.0 * 2.0 * act * m * L / pp * (tp - 1) / tp * passes
+            add(2.0 * 2.0 * act * m * L / pp * (tp - 1) / tp * passes,
+                net_tp)
         if cfg.n_experts:
             a2a = tokens / dp * cfg.top_k * d * bpe
-            wire += 2.0 * a2a * L / pp * (tp - 1) / tp * passes / tp
+            add(2.0 * a2a * L / pp * (tp - 1) / tp * passes / tp, net_tp)
         if pp > 1:
-            wire += act * m * (pp - 1) / pp * passes
+            add(act * m * (pp - 1) / pp * passes, net_pp)
         bubble = (pp - 1) / (m + pp - 1) if pp > 1 else 0.0
         # params f32 + bf16 moments + f32 grads = 12 B/param, ZeRO-sharded;
         # + sqrt(L) saved layer boundaries (grouped remat) per microbatch
@@ -133,14 +150,13 @@ def predict(cfg: ModelConfig, sc: ShapeConfig, plan: ShardPlan,
         cache = _cache_bytes(cfg, sc)
         # weights + cache stream once per step, sharded across all chips
         mem_bytes = (2.0 * N + cache) / chips
-        wire = 0.0
         act = tokens / max(dp, 1) * d * bpe
         if tp > 1:
-            wire += 2.0 * 2.0 * act * L * (tp - 1) / tp
+            add(2.0 * 2.0 * act * L * (tp - 1) / tp, net_tp)
         if sc.kind == "decode" and plan.decode_kv == "sequence" and tp > 1:
             # flash-decoding partial-softmax combine per layer
-            wire += 2.0 * B / max(dp, 1) * cfg.n_heads * (cfg.head_dim + 2) \
-                * 4.0 * L * (tp - 1) / tp
+            add(2.0 * B / max(dp, 1) * cfg.n_heads * (cfg.head_dim + 2)
+                * 4.0 * L * (tp - 1) / tp, net_tp)
         bubble = 0.0
         m = 1
         hbm_need = 2.0 * P_all / chips + cache / chips
@@ -149,6 +165,8 @@ def predict(cfg: ModelConfig, sc: ShapeConfig, plan: ShardPlan,
     compute_s = flops / chips / peak / max(1.0 - bubble, 1e-3)
     memory_s = mem_bytes / hbm if sc.kind == "train" else mem_bytes / hbm
     collective_s = wire / ici
+    if wire_net:
+        collective_s += wire_net / (target.net_gbps * 1e9)
     feas_kv = not (plan.decode_kv == "heads" and cfg.n_kv_heads
                    and tp > 1 and cfg.n_kv_heads % tp != 0)
     if sc.kind == "train":

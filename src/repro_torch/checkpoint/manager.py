@@ -20,6 +20,14 @@
 * ``keep`` bounds the committed checkpoints kept (oldest removed first);
 * ``restore(step, target)`` writes the saved values into ``target``'s
   tensors in place, on their devices and in their dtypes, and returns it.
+
+Elastic restore (the reference's): a DTensor leaf is saved whole
+(``full_tensor()``, a collective every rank of its mesh joins), and in a
+process group only rank 0 writes the one ``shard_00000.npz``, as the
+reference's single host does.  ``restore`` fills a DTensor target's local
+shard from the full array on the target's own mesh and placements, and
+``shardings`` ({leaf path: (mesh, placements)}) lays plain targets out as
+DTensors: a checkpoint from N ranks loads on M, or on one process.
 """
 
 from __future__ import annotations
@@ -53,6 +61,8 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     leaf's dtype name."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         name = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -60,6 +70,30 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
         return (arr.view(np.uint16) if name == "bfloat16" else arr), name
     arr = np.array(leaf)
     return arr, str(arr.dtype)
+
+
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a
+    process with none."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
+def _local(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``full`` laid out by ``placements``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, mesh, placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
 
 
 def _sha(arr: np.ndarray) -> str:
@@ -101,6 +135,8 @@ class CheckpointManager:
             tmp.rename(final)
             self._gc()
 
+        if not _writes():
+            return
         if blocking:
             write()
         else:
@@ -129,11 +165,13 @@ class CheckpointManager:
         steps = self._committed()
         return max(steps) if steps else None
 
-    def restore(self, step: int, target):
+    def restore(self, step: int, target, shardings=None):
         """Write checkpoint ``step`` into ``target`` (a state of the saved
-        structure) in place and return it.  Raises ``IOError`` on a
-        corrupt leaf, ``KeyError`` on a missing one, ``ValueError`` on a
-        shape that differs."""
+        structure) in place and return it: a DTensor leaf gets its local
+        shard.  ``shardings`` maps leaf paths to (mesh, placements): those
+        leaves (plain tensors of the full shape) are replaced by DTensors
+        laid out so.  Raises ``IOError`` on a corrupt leaf, ``KeyError`` on
+        a missing one, ``ValueError`` on a shape that differs."""
         d = self.dir / f"step_{step:09d}"
         meta = json.loads((d / "meta.json").read_text())
         with np.load(d / "shard_00000.npz") as z:
@@ -141,7 +179,8 @@ class CheckpointManager:
         for k, v in flat.items():
             if _sha(v) != meta["checksums"][k]:
                 raise IOError(f"checkpoint shard corrupt at leaf {k}")
-        return _fill(target, flat, meta.get("dtypes", {}), "")
+        return _fill(target, flat, meta.get("dtypes", {}), "",
+                     shardings or {})
 
 
 def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
@@ -151,14 +190,21 @@ def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _fill(tree, flat, dtypes, prefix: str):
+def _fill(tree, flat, dtypes, prefix: str, shardings):
     if isinstance(tree, nn.Module):
         for k, t in tree.state_dict(keep_vars=True).items():
-            _fill(t, flat, dtypes, f"{prefix}{k}/")
+            new = _fill(t, flat, dtypes, f"{prefix}{k}/", shardings)
+            if new is not t:                  # laid out as a DTensor
+                owner, _, attr = k.rpartition(".")
+                m = tree.get_submodule(owner) if owner else tree
+                setattr(m, attr, nn.Parameter(
+                    new, requires_grad=t.requires_grad)
+                    if isinstance(t, nn.Parameter) else new)
         return tree
     if isinstance(tree, dict):
         for k in list(tree):
-            tree[k] = _fill(tree[k], flat, dtypes, f"{prefix}{k}/")
+            tree[k] = _fill(tree[k], flat, dtypes, f"{prefix}{k}/",
+                            shardings)
         return tree
     key = prefix[:-1]
     if key not in flat:
@@ -168,6 +214,17 @@ def _fill(tree, flat, dtypes, prefix: str):
     if tuple(arr.shape) != shape:
         raise ValueError(f"{key}: checkpoint shape {arr.shape} != {shape}")
     if isinstance(tree, torch.Tensor):
-        tree.copy_(_from_host(arr, dtypes.get(key, str(arr.dtype))))
+        full = _from_host(arr, dtypes.get(key, str(arr.dtype)))
+        if _is_dtensor(tree):
+            tree.to_local().copy_(_local(full, tree.device_mesh,
+                                         tree.placements))
+            return tree
+        tree.copy_(full)
+        if key in shardings:
+            from torch.distributed.tensor import DTensor
+            mesh, pl = shardings[key]
+            return DTensor.from_local(_local(tree.detach(), mesh, pl), mesh,
+                                      pl, run_check=False, shape=tree.shape,
+                                      stride=tree.stride())
         return tree
     return arr.astype(np.asarray(tree).dtype)

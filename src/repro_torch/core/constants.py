@@ -224,16 +224,20 @@ class H100Target:
     counterpart of the reference's ``TPUTarget``; a field takes any value,
     so a test can hand it the reference target's numbers.
 
-    Collectives are priced on one fabric, ``links_per_chip * link_gbps``,
-    as the reference prices its torus: that holds only inside one 8-GPU
-    NVLink node.  A larger mesh crosses the network between nodes, at a
-    fraction of that rate, which this record does not model."""
+    Collectives are priced on two tiers: a group inside one node of
+    ``node_gpus`` cards on NVLink, ``links_per_chip * link_gbps``; a group
+    that spans nodes on the network between them, ``net_gbps`` a card a
+    direction (NVIDIA's DGX H100 data sheet: eight 400 Gb/s ConnectX-7
+    ports a node of 8 GPUs, 50 GB/s a GPU).  ``node_gpus`` at least the
+    mesh size prices one fabric, as the reference prices its torus."""
     peak_bf16_tflops: float = 989.4       # dense, per card
     hbm_gbps: float = 3350.0              # per card
     link_gbps: float = 25.0               # per NVLink link per direction
     links_per_chip: int = 18
     hbm_bytes: float = 80e9               # capacity per card
     smem_bytes: float = 228 * 2**10       # shared memory per SM
+    node_gpus: int = 8                    # cards on one NVLink fabric
+    net_gbps: float = 50.0                # between nodes, a card a direction
 
 
 DEFAULT_H100 = H100Target()

@@ -65,7 +65,7 @@ from ..core.workload import WorkloadGraph, workload_features
 from ..runtime import fold_in
 from . import quantize
 from .archive import ConvergenceTrace, pareto_front, spec_space_key
-from .nsga import has_run
+from .nsga import has_run, island_count
 from .service import (DEFAULT_OBJECTIVES, BudgetPolicy, ExplorationService,
                       ExploreQuery, ExploreResult, SegmentEvent)
 from .surrogate import SurrogateConfig
@@ -216,7 +216,8 @@ class Plan:
     segment).  ``neighbors`` are the predicted transfer sources with their
     seed quotas (``seed_cap`` bounds the total).  Advisory on a shared
     cache: a peer may warm the archive between ``plan`` and ``submit``.
-    ``islands`` is always 1 (the port runs one device).  ``predicted_s`` is
+    ``islands`` is how many islands the NSGA loop will split the
+    population into (the service mesh's, or 1).  ``predicted_s`` is
     the wall-clock estimate from this process's segment-time histograms
     (``None`` before any segment has run here; 0.0 on a cache hit).
     ``surrogate`` says the query asked for gating, and
@@ -329,10 +330,12 @@ class Session:
 
     Wraps an ``ExplorationService`` (constructed from the given kwargs —
     ``cache_dir``, ``capacity``, ``nsga``, ``tech``, ``policy``,
-    ``transfer_k``, ``manifest_policy`` — when not supplied) that runs on
-    ``device`` (default ``"cuda"``; without a card it raises unless
-    ``device="cpu"`` is passed).  ``tech`` may be a preset name, an
-    artifact path, a ``TechConstants`` or a calibrated tech.
+    ``transfer_k``, ``manifest_policy``, ``mesh`` — when not supplied)
+    that runs on ``device`` (default ``"cuda"``; without a card it raises
+    unless ``device="cpu"`` is passed).  ``mesh=make_island_mesh(n)``
+    (``launch.mesh``) runs every NSGA refinement as n islands.  ``tech``
+    may be a preset name, an artifact path, a ``TechConstants`` or a
+    calibrated tech.
 
     ``journal`` attaches a ``repro_torch.obs`` run journal to every
     ``plan`` / ``submit`` of this session: a ``Journal``, a path (opened
@@ -371,7 +374,8 @@ class Session:
         s = self.service
         return dict(cache_dir=s.cache_dir, capacity=s.capacity, nsga=s.nsga,
                     tech=s.tech, policy=s.policy, transfer_k=s.transfer_k,
-                    manifest_policy=s.manifest_policy, device=s.device)
+                    manifest_policy=s.manifest_policy, device=s.device,
+                    mesh=s.mesh)
 
     def clone(self) -> "Session":
         """A sibling session: the same configuration, cache directory,
@@ -456,7 +460,8 @@ class Session:
         pop, chunk = sched.pop, sched.chunk
         segments = tuple(SegmentPlan(i, pop, chunk, pop * chunk)
                          for i in range(sched.n_seg))
-        predicted = self._predict_s(p, sched)
+        mesh = svc._mesh_for(pop)
+        predicted = self._predict_s(p, sched, mesh)
         neighbors, cap = (), 0
         if query.transfer:
             cap = pop if len(arc) == 0 else max(pop // 2, 1)
@@ -476,11 +481,12 @@ class Session:
         return Plan(engine=engine, cache_key=ck, cache_hit=False,
                     budget=budget, objectives=p.objectives,
                     segments=segments, neighbors=neighbors, seed_cap=cap,
-                    predicted_s=predicted, surrogate=sur_req is not None,
+                    islands=island_count(mesh), predicted_s=predicted,
+                    surrogate=sur_req is not None,
                     predicted_eval_savings=savings)
 
-    def _predict_s(self, p: Problem, sched: "quantize.Schedule"
-                   ) -> Optional[float]:
+    def _predict_s(self, p: Problem, sched: "quantize.Schedule",
+                   mesh=None) -> Optional[float]:
         """Wall-clock estimate for one NSGA submission from this process's
         segment-time histograms, as the reference's: the first segment is
         costed at the first-run median when no runner of this variant has
@@ -500,7 +506,8 @@ class Session:
                                   generations=sched.chunk)
         first = seg_p50
         if comp_p50 is not None and not has_run(
-                p.spec, p.space, p.objectives, cfg, svc.tech, svc.device):
+                p.spec, p.space, p.objectives, cfg, svc.tech, svc.device,
+                mesh):
             first = comp_p50
         return first + (sched.n_seg - 1) * seg_p50
 

@@ -1,6 +1,6 @@
 """NSGA-II-style evolutionary front explorer — the port of
-``repro.explore.nsga``: ``make_nsga`` (single device, no islands), its
-megabatched form ``make_nsga_fused`` and the surrogate-gated
+``repro.explore.nsga``: ``make_nsga`` (one device, or islands over a
+mesh), its megabatched form ``make_nsga_fused`` and the surrogate-gated
 ``make_nsga_gated``.
 
 One generation, over a population tensor of width ``pop``:
@@ -10,6 +10,13 @@ One generation, over a population tensor of width ``pop``:
     evaluate (``evaluate_arrays`` over the whole population at once)
     select   (dominance counts through the ``pareto_rank`` kernel, crowding
               distance tie-break, over the 2 x pop parent + child pool)
+
+**Islands.**  ``make_nsga(..., mesh=make_island_mesh(n))`` runs the
+reference's island model: n islands as lanes (each with its own
+generator, from the run's seed and its index), in contiguous blocks on
+the mesh's devices, an elite ring migration every
+``migration_interval`` generations, the telemetry over the whole
+population (``_Islands``).
 
 A Python loop over generations takes the place of ``lax.scan``; nothing in
 the loop waits for the device, so a whole segment is queued before the
@@ -38,12 +45,16 @@ from ..core.encoding import (ALL_FIELDS, DesignSpace, feasibility_penalty,
                              mutate, random_design)
 from ..core.evaluate import SystemSpec, evaluate_arrays, spec_tensors
 from ..core.optimizer import METRIC_KEYS, log_metric_stack, metric_stack
-from ..runtime import LaneGenerators, generator, rand, resolve_device
+from ..runtime import (LaneGenerators, fold_in, generator, rand,
+                       resolve_device)
 from .archive import (BIG, HV_LOG_REF, crowding_distance, dominance_counts,
                       flatten_rows, hypervolume_2d_jit, objective_pairs)
 from .surrogate import ensemble_forward
 
 F = torch.float32
+
+# the mesh axis the island model spreads the population over
+ISLAND_AXIS = "islands"
 
 # design fields, in a fixed order, for the field-level crossover
 _DESIGN_KEYS = ("shape", "spatial", "order", "tiling", "pipe", "logB",
@@ -62,6 +73,12 @@ class NSGAConfig:
     pmx_placement: bool = False   # placement crossover MIXES both parents'
     #                               permutations (PMX) instead of taking one
     #                               wholesale — permutation validity kept
+    # --- island mode (only active under make_nsga(..., mesh=...)) -------
+    migration_interval: int = 4   # migrate around the island ring every K
+    #                               generations
+    migration_frac: float = 0.125  # fraction of each island's population
+    #                                sent around the ring (its elite head,
+    #                                replacing the neighbor's worst tail)
 
 
 def pmx(gen, a: torch.Tensor, b: torch.Tensor):
@@ -117,13 +134,24 @@ def _variant(kind: str, spec: SystemSpec, space: DesignSpace, objectives,
             str(resolve_device(device))) + extra
 
 
+def _nsga_variant(spec, space, objectives, cfg, tech, device, mesh):
+    """The variant of a ``make_nsga`` runner: the plain loop, or islands
+    (their count and blocks' devices)."""
+    n = island_count(mesh)
+    if n > 1:
+        devs = tuple(str(d) for d, _ in mesh.blocks())
+        return ("islands", spec, space, objectives, cfg, tech,
+                mesh.blocks()[0][0], n, devs)
+    return ("nsga", spec, space, objectives, cfg, tech, device)
+
+
 def has_run(spec: SystemSpec, space: DesignSpace, objectives,
-            cfg: "NSGAConfig", tech=None, device="cuda") -> bool:
+            cfg: "NSGAConfig", tech=None, device="cuda", mesh=None) -> bool:
     """True once a ``make_nsga`` runner of this variant has run in this
     process (what ``compile_state["executed"]`` of a new runner would
     read), without building one."""
-    st = _RUN_STATE.get(_variant("nsga", spec, space, objectives, cfg, tech,
-                                 device))
+    st = _RUN_STATE.get(_variant(*_nsga_variant(spec, space, objectives,
+                                                cfg, tech, device, mesh)))
     return bool(st and st["executed"])
 
 
@@ -255,10 +283,13 @@ class _Engine:
         return (pop_n, take(raw, craw), take(sel, csel),
                 take(feas, cfeas))
 
-    def telemetry(self, sel_n, feas_n, cfeas, hv_run, best_run):
+    def telemetry(self, sel_n, feas_n, cfeas, hv_run, best_run,
+                  lanes: Optional[int] = None):
         """Per-generation convergence stats of every lane's selected
-        population — dominance/staircase math only, no evaluations."""
-        L = self.lanes
+        population — dominance/staircase math only, no evaluations
+        (``lanes=1``: of all rows as one population, the islands' global
+        view)."""
+        L = self.lanes if lanes is None else lanes
         sel_n = sel_n.view(L, -1, sel_n.shape[-1])
         feas_n = feas_n.view(L, -1)
         finite = torch.isfinite(sel_n).all(-1)
@@ -291,8 +322,13 @@ class _Engine:
                 torch.full((L * N, len(METRIC_KEYS)), torch.inf, device=dev),
                 torch.full((L * N, len(self.idx)), torch.inf, device=dev),
                 torch.zeros(L * N, dtype=torch.bool, device=dev),
-                torch.zeros(L, len(self.pairs), dtype=F, device=dev),
-                torch.full((L,), torch.inf, dtype=F, device=dev))
+                *self.running(L))
+
+    def running(self, lanes: int):
+        """The running hypervolume and best of ``lanes`` populations."""
+        dev = self.dev
+        return (torch.zeros(lanes, len(self.pairs), dtype=F, device=dev),
+                torch.full((lanes,), torch.inf, dtype=F, device=dev))
 
     def stack(self, outs, carry):
         """Per-generation outputs stacked as the reference's scan outputs,
@@ -316,28 +352,40 @@ class _Engine:
                 lanes_first(raw), lanes_first(sel), ev_designs, ev_raw,
                 ev_feas, trace)
 
+    def generation(self, gen, parents, prob, gate=None):
+        """One generation: immigrants, variation, evaluation and selection
+        of ``parents`` = (pop, raw, sel, feas).  Returns the next parents
+        and the candidates with their raw metrics, feasibility and, with
+        ``gate``, (forced count, mean disagreement)."""
+        arr, var, var_imm = prob
+        imm = self.immigrants(gen, var_imm)
+        pop, raw, sel, feas = parents
+        cand = self.with_immigrants(self.variate(gen, pop, var), imm)
+        gated = None
+        if gate is not None:
+            order, n_forced, dis = gate(cand)
+            cand = {k: v[order] for k, v in cand.items()}
+            gated = (n_forced, dis)
+        craw, csel, cfeas = self.evaluate(cand, arr, self.lanes)
+        nxt = self.select(pop, raw, sel, feas, cand, craw, csel, cfeas)
+        return nxt, (cand, craw, cfeas), gated
+
     def run(self, gen, pops: Dict, arrays_seq: Sequence, gate=None):
         """The generations.  ``gate`` (one lane only) maps the children to
         (the slots to evaluate, forced count, mean disagreement): only
         those are evaluated and compete in the selection."""
-        arr, var, var_imm = self.problem(arrays_seq)
+        prob = self.problem(arrays_seq)
         carry = self.start(pops)
         outs = []
         for _ in range(self.cfg.generations):
-            imm = self.immigrants(gen, var_imm)
-            pop, raw, sel, feas, hv_run, best_run = carry
-            cand = self.with_immigrants(self.variate(gen, pop, var), imm)
-            if gate is not None:
-                order, n_forced, dis = gate(cand)
-                cand = {k: v[order] for k, v in cand.items()}
-            craw, csel, cfeas = self.evaluate(cand, arr, self.lanes)
-            pop_n, raw_n, sel_n, feas_n = self.select(
-                pop, raw, sel, feas, cand, craw, csel, cfeas)
+            hv_run, best_run = carry[4:]
+            (pop_n, raw_n, sel_n, feas_n), (cand, craw, cfeas), gated = \
+                self.generation(gen, carry[:4], prob, gate)
             hv_run, best_run, tr = self.telemetry(sel_n, feas_n, cfeas,
                                                   hv_run, best_run)
-            if gate is not None:
-                tr.update(forced_exact=n_forced[None],
-                          disagreement=dis[None])
+            if gated is not None:
+                tr.update(forced_exact=gated[0][None],
+                          disagreement=gated[1][None])
             carry = (pop_n, raw_n, sel_n, feas_n, hv_run, best_run)
             outs.append((cand, craw, cfeas, tr))
         return self.stack(outs, carry)
@@ -351,9 +399,107 @@ def _unlane(out):
             {k: v[0] for k, v in trace.items()})
 
 
+def island_count(mesh) -> int:
+    """The islands of ``mesh`` (1 without one); raises on a mesh with no
+    ``"islands"`` axis."""
+    if mesh is None:
+        return 1
+    if ISLAND_AXIS not in mesh.shape:
+        raise ValueError(f"island mesh must name a {ISLAND_AXIS!r} axis; "
+                         f"got {tuple(mesh.shape)}")
+    return int(mesh.shape[ISLAND_AXIS])
+
+
+class _Islands:
+    """``n`` islands of ``pop / n`` designs, each a lane with its own
+    generator (``fold_in(seed, island)``), laid out over the mesh's
+    devices in contiguous blocks: one ``_Engine`` a block, all stepped one
+    generation at a time.  After every ``migration_interval``-th
+    generation island i's rank-sorted elite head replaces island
+    (i + 1) mod n's worst tail (a copy to the receiver's device where the
+    two lie apart); the telemetry is computed over the whole population
+    on the first device, so it means what it means unsharded."""
+
+    def __init__(self, spec, space, objectives, cfg: NSGAConfig, tech,
+                 mesh, n_isl: int):
+        N = cfg.pop // n_isl
+        self.n, self.N, self.G = n_isl, N, cfg.generations
+        self.n_mig = min(int(round(N * cfg.migration_frac)), N - 1)
+        self.mig_k = max(1, int(cfg.migration_interval))
+        sub = dataclasses.replace(cfg, pop=N)
+        self.blocks = mesh.blocks()             # [(device, [islands])]
+        self.engines = [_Engine(spec, space, objectives, sub, tech, dev,
+                                lanes=len(isl)) for dev, isl in self.blocks]
+        self.home = self.engines[0]
+        # island -> (block, lane)
+        self.where = {i: (b, l) for b, (_, isl) in enumerate(self.blocks)
+                      for l, i in enumerate(isl)}
+
+    def _migrate(self, parents):
+        """``parents`` (one (pop, raw, sel, feas) a block) after the
+        ring's migration."""
+        N, m = self.N, self.n_mig
+        out = [[{k: v.clone() for k, v in pp[0].items()},
+                *(x.clone() for x in pp[1:])] for pp in parents]
+        for i in range(self.n):
+            (bs, ls), (bd, ld) = self.where[i], self.where[(i + 1) % self.n]
+            dev = self.engines[bd].dev
+            src = slice(ls * N, ls * N + m)
+            dst = slice(ld * N + N - m, (ld + 1) * N)
+            for k, v in parents[bs][0].items():
+                out[bd][0][k][dst] = v[src].to(dev)
+            for j in (1, 2, 3):
+                out[bd][j][dst] = parents[bs][j][src].to(dev)
+        return out
+
+    def _gather(self, xs):
+        """Per-block tensors concatenated on the first device."""
+        dev = self.home.dev
+        return torch.cat([x.to(dev) for x in xs])
+
+    def run(self, seed: int, pop0: Dict, arrays=None):
+        N = self.N
+        probs, carries, gens = [], [], []
+        for eng, (dev, isl) in zip(self.engines, self.blocks):
+            probs.append(eng.problem([arrays] * len(isl)))
+            lo, hi = isl[0] * N, (isl[-1] + 1) * N      # contiguous
+            carries.append(eng.start({
+                k: torch.as_tensor(v)[lo:hi].reshape(len(isl), N,
+                                                     *v.shape[1:])
+                for k, v in pop0.items()})[:4])
+            g = [generator(fold_in(seed, i), dev) for i in isl]
+            gens.append(g[0] if len(g) == 1 else LaneGenerators(g))
+        hv_run, best_run = self.home.running(1)
+        outs = []
+        for g in range(self.G):
+            step = [eng.generation(gen, c, pr) for eng, gen, c, pr in
+                    zip(self.engines, gens, carries, probs)]
+            carries = [s[0] for s in step]
+            if self.n_mig and g % self.mig_k == self.mig_k - 1:
+                carries = self._migrate(carries)
+            sel = self._gather([c[2] for c in carries])
+            feas = self._gather([c[3] for c in carries])
+            cfeas = self._gather([s[1][2] for s in step])
+            hv_run, best_run, tr = self.home.telemetry(
+                sel, feas, cfeas, hv_run, best_run, lanes=1)
+            outs.append(([s[1] for s in step], tr))
+        pop = {k: self._gather([c[0][k] for c in carries])
+               for k in carries[0][0]}
+        raw, sel = (self._gather([c[j] for c in carries]) for j in (1, 2))
+        ev_designs = {k: torch.stack([self._gather([c[0][k] for c in o[0]])
+                                      for o in outs])
+                      for k in outs[0][0][0][0]}
+        ev_raw, ev_feas = (torch.stack([self._gather([c[j] for c in o[0]])
+                                        for o in outs]) for j in (1, 2))
+        trace = {k: torch.stack([o[1][k][0] for o in outs])
+                 for k in outs[0][1]}
+        return pop, raw, sel, ev_designs, ev_raw, ev_feas, trace
+
+
 def make_nsga(spec: SystemSpec, space: DesignSpace,
               objectives: Tuple[str, ...] = METRIC_KEYS,
-              cfg: NSGAConfig = NSGAConfig(), tech=None, device="cuda"):
+              cfg: NSGAConfig = NSGAConfig(), tech=None, device="cuda",
+              mesh=None):
     """Build a front explorer on ``device``.
 
     Returns ``run(seed, pop0, arrays=None) ->
@@ -368,9 +514,35 @@ def make_nsga(spec: SystemSpec, space: DesignSpace,
     ``hypervolume``, ``hv_now``, ``best``, ``feasible_frac``) — feed it to
     ``ConvergenceTrace.from_scan``.  ``seed`` is an integer; the run draws
     from one ``torch.Generator`` on the device seeded with it.
+
+    ``mesh`` (``launch.mesh.make_island_mesh``: an ``"islands"`` axis of
+    n, placed on its devices) turns on the island model (``_Islands``):
+    n islands of ``cfg.pop / n`` designs on the mesh's devices (``device``
+    is then unused), migrating elites around a ring every
+    ``cfg.migration_interval`` generations, the telemetry over the whole
+    population.  Outputs are laid out as without a mesh, island i's rows
+    at [i pop / n, (i + 1) pop / n).  A 1-island mesh is the plain run, bit
+    for bit; n islands give the same bits on one device or several.
     """
+    n_isl = island_count(mesh)
+    if n_isl > 1:
+        if cfg.pop % n_isl or cfg.pop // n_isl < 2:
+            raise ValueError(f"pop={cfg.pop} cannot shard into {n_isl} "
+                             f"islands of at least 2 designs")
+        isl = _Islands(spec, space, objectives, cfg, tech, mesh, n_isl)
+        state = _run_state(*_nsga_variant(spec, space, objectives, cfg,
+                                          tech, device, mesh))
+
+        def run_islands(seed: int, pop0: Dict, arrays=None):
+            out = isl.run(seed, pop0, arrays)
+            state["executed"] = True
+            return out
+
+        run_islands.compile_state = state
+        return run_islands
     eng = _Engine(spec, space, objectives, cfg, tech, device)
-    state = _run_state("nsga", spec, space, objectives, cfg, tech, eng.dev)
+    state = _run_state(*_nsga_variant(spec, space, objectives, cfg, tech,
+                                      eng.dev, None))
 
     def run(seed: int, pop0: Dict, arrays=None):
         out = _unlane(eng.run(generator(seed, eng.dev),

@@ -84,7 +84,8 @@ from .archive import (MANIFEST_NAME, ArchiveManifest, ConvergenceTrace,
                       design_encoding_dim, objective_pairs, pareto_front,
                       spec_space_key)
 from .locks import LockTimeout, file_lock, lock_path
-from .nsga import NSGAConfig, make_nsga, make_nsga_fused, make_nsga_gated
+from .nsga import (ISLAND_AXIS, NSGAConfig, island_count, make_nsga,
+                   make_nsga_fused, make_nsga_gated)
 from .surrogate import (Surrogate, SurrogateConfig, fit_surrogate,
                         harvest_rows)
 
@@ -312,8 +313,14 @@ class ExplorationService:
                  policy: BudgetPolicy = BudgetPolicy(),
                  transfer_k: int = 3,
                  manifest_policy: ManifestPolicy = ManifestPolicy(),
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        # ``mesh`` (``launch.mesh.make_island_mesh``) runs every
+        # refinement's population as island-model NSGA (see make_nsga);
+        # a quantized population too small to split runs the plain loop,
+        # and megabatching and surrogate gating are off while a mesh is
+        # set (the layouts are mutually exclusive, as in the reference)
         self.device = resolve_device(device)
+        self.mesh = mesh
         if tech is not None and not isinstance(tech, TechConstants):
             _, tech = resolve_tech(tech)
         self.cache_dir = resolve_cache_dir(cache_dir)
@@ -533,7 +540,8 @@ class ExplorationService:
             # whether it runs sequentially or as a megabatch lane
             gkeys = {ck: fold_in(key, i) for i, ck in enumerate(groups)}
             fused = set()
-            if self.policy.megabatch and not resume and len(groups) > 1:
+            if (self.policy.megabatch and not resume and self.mesh is None
+                    and len(groups) > 1):
                 fused = self._megabatch_pass(groups, gkeys, on_segment, seq,
                                              control)
             for ck, g in groups.items():
@@ -1153,6 +1161,16 @@ class ExplorationService:
         return results
 
     # ---- checkpoints -------------------------------------------------------
+    def _mesh_for(self, pop: int):
+        """The service mesh, when a ``pop``-wide population can split over
+        it (every island at least 2 designs); ``None`` (the plain loop)
+        otherwise — small quantized budgets must not fail, they just do
+        not scale."""
+        if self.mesh is None:
+            return None
+        n = int(self.mesh.shape.get(ISLAND_AXIS, 1))
+        return self.mesh if (pop % n == 0 and pop // n >= 2) else None
+
     def _ckpt_signature(self, objectives: Tuple[str, ...], budget: int,
                         pop: int, generations: int, chunk: int, key: int,
                         seeds: Optional[Dict],
@@ -1164,14 +1182,21 @@ class ExplorationService:
         surrogate — and the device type: CUDA and CPU generators draw
         different streams from one seed, so a run resumed on another device
         would splice two streams into a front neither device gives
-        uninterrupted.  A checkpoint of another signature answers a
-        different run and is ignored."""
+        uninterrupted (under a mesh, the device types its islands evolve
+        on); and the island count, which changes the streams and the
+        migrations.  A checkpoint of another signature answers a different
+        run and is ignored."""
         h = hashlib.sha256()
+        mesh = self._mesh_for(pop)
+        kind = self.device.type
+        if mesh is not None:
+            kinds = tuple(d.type for d, isl in mesh.blocks() for _ in isl)
+            kind = kinds[0] if len(set(kinds)) == 1 else kinds
         h.update(repr((CACHE_SALT, tuple(objectives), int(budget), int(pop),
                        int(generations), int(chunk), int(self.capacity),
-                       repr(self.nsga),
+                       repr(self.nsga), island_count(mesh),
                        tech_key(self.tech or DEFAULT_TECH),
-                       int(key), gate_digest, self.device.type)).encode())
+                       int(key), gate_digest, kind)).encode())
         if seeds is not None:
             for k in sorted(seeds):
                 h.update(k.encode())
@@ -1325,11 +1350,14 @@ class ExplorationService:
         pop, generations = sched.pop, sched.generations
         chunk, n_seg = sched.chunk, sched.n_seg
         cfg = dataclasses.replace(self.nsga, pop=pop, generations=chunk)
+        mesh = self._mesh_for(pop)
         run = make_nsga(spec, space, objectives, cfg, tech=self.tech,
-                        device=self.device)
+                        device=self.device, mesh=mesh)
         sur_stats = dict(used=False, hits=0, fallbacks=0)
         run_g, sur, n_exact = None, None, pop
-        if gate is not None and gate.cfg.n_exact(pop) < pop:
+        if gate is not None and gate.cfg.n_exact(pop) < pop and mesh is None:
+            # gating is single-device, as in the reference: a meshed
+            # service runs exact rather than fail the query
             n_exact = gate.cfg.n_exact(pop)
             run_g = make_nsga_gated(spec, space, objectives, cfg,
                                     tech=self.tech, n_exact=n_exact,

@@ -26,11 +26,21 @@ shapes.  The counter reads:
   for parity with its roofline;
 * **collective wire bytes** from the ``_c10d_functional`` operators at the
   ring factors of the reference's ``collective_stats``, the group size
-  read from the operator (its argument, or its process group);
+  read from the operator (its argument, or its process group); an
+  ``all_to_all_single`` that sends to one rank alone is a
+  ``collective-permute`` (a pipeline hop: wire = the bytes sent); the
+  wire is also summed by the group's ranks (``group_wire``), so that the
+  roofline prices a group that spans nodes of its target on the network;
 * **memory**: the peak of the live fake storages' bytes over the step,
   inputs included (a storage dies when its last tensor does);
 * **kernels**: each kernel operator's calls, the launches they make on the
   card, and their FLOPs and bytes.
+
+DTensors: an operator on DTensors is left to DTensor (the counter returns
+``NotImplemented`` for it), which runs it on the local shards and issues
+the collectives its layouts need; the counter then counts those, so a
+sharded step reads per-device FLOPs, bytes and wire.  A DTensor input's
+live bytes are its local shard's.
 
 Loops: eager tracing unrolls every loop of the step (the layer stack,
 microbatches, the decode loop a caller writes), so each trip is counted as
@@ -48,14 +58,17 @@ training step traces with ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import functools
 import weakref
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -97,38 +110,61 @@ _SCATTERS = {aten.scatter, aten.scatter_, aten.scatter_add,
              aten.index_copy_}
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
+# with the pipeline's hop: the kinds a step's wire is counted under
+WIRE_KINDS = COLLECTIVES + ("collective-permute",)
 
 
 def wire_bytes(kind: str, size: float, n: int) -> float:
     """Wire bytes a device sends for one collective over ``n`` ranks whose
     per-device result is ``size`` bytes (the reference's ring factors):
     all-reduce 2 size (n-1)/n, all-gather size (n-1)/n, reduce-scatter
-    size n (n-1)/n (its input is n results), all-to-all size (n-1)/n."""
+    size n (n-1)/n (its input is n results), all-to-all size (n-1)/n; a
+    collective-permute sends its ``size`` once (one hop)."""
     n = max(int(n), 1)
     f = (n - 1) / n
     return {"all-reduce": 2.0 * size * f, "all-gather": size * f,
-            "reduce-scatter": size * n * f, "all-to-all": size * f}[kind]
+            "reduce-scatter": size * n * f, "all-to-all": size * f,
+            "collective-permute": float(size)}[kind]
 
 
-def _group_size(group_name: str) -> int:
+def _group(group_name: str):
     from torch.distributed.distributed_c10d import _resolve_process_group
-    return _resolve_process_group(group_name).size()
+    return _resolve_process_group(group_name)
+
+
+def _group_ranks(group_name: str) -> Tuple[int, ...]:
+    import torch.distributed as dist
+    return tuple(dist.get_process_group_ranks(_group(group_name)))
+
+
+def inter_node_wire(group_wire: Dict[Tuple[int, ...], float],
+                    node_gpus: int) -> float:
+    """The wire of the groups whose ranks lie in more than one node of
+    ``node_gpus`` consecutive ranks."""
+    n = max(int(node_gpus), 1)
+    return float(sum(w for ranks, w in group_wire.items()
+                     if len({r // n for r in ranks}) > 1))
 
 
 def _collective(func, args) -> Optional[tuple]:
-    """(kind, group size) of a ``_c10d_functional`` collective, else
-    None."""
+    """(kind, group size, group name, bytes it sends or None for its
+    output's) of a ``_c10d_functional`` collective, else None."""
     if func.namespace != "_c10d_functional":
         return None
     name = func._overloadpacket.__name__
     if name in ("all_reduce", "all_reduce_"):
-        return "all-reduce", _group_size(args[2])
+        return "all-reduce", _group(args[2]).size(), args[2], None
     if name == "all_gather_into_tensor":
-        return "all-gather", int(args[1])
+        return "all-gather", int(args[1]), args[2], None
     if name == "reduce_scatter_tensor":
-        return "reduce-scatter", int(args[2])
+        return "reduce-scatter", int(args[2]), args[3], None
     if name == "all_to_all_single":
-        return "all-to-all", _group_size(args[3])
+        sends = [int(x) for x in (args[2] or [])]
+        if sum(1 for x in sends if x) <= 1 and args[2] is not None:
+            # one destination: a permute hop, its wire what it sends
+            return ("collective-permute", _group(args[3]).size(), args[3],
+                    _nbytes(args[0]))
+        return "all-to-all", _group(args[3]).size(), args[3], None
     return None
 
 
@@ -152,6 +188,11 @@ def _spec_tensors(tree) -> list:
     return out
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor itself."""
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 class StepCounter(TorchDispatchMode):
     """Counts what every operator dispatched under it does (see the module
     docstring); ``track(tensors)`` puts the step's inputs in the live
@@ -159,12 +200,14 @@ class StepCounter(TorchDispatchMode):
 
     def __init__(self):
         super().__init__()
+        self.group_wire: Dict[Tuple[int, ...], float] = {}
+        self.paused = 0
         self.flops = 0.0
         self.flops_kernels = 0.0
         self.bytes_all = 0.0
         self.bytes_heavy = 0.0
-        self.wire = dict.fromkeys(COLLECTIVES, 0.0)
-        self.collectives = dict.fromkeys(COLLECTIVES, 0)
+        self.wire = dict.fromkeys(WIRE_KINDS, 0.0)
+        self.collectives = dict.fromkeys(WIRE_KINDS, 0)
         self.kernels: Dict[str, Dict] = {}
         self.ops = 0
         self.live = 0
@@ -178,7 +221,7 @@ class StepCounter(TorchDispatchMode):
 
     def track(self, tensors):
         for t in tensors:
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             key = id(st)
             if key in self._alive:
                 continue
@@ -190,8 +233,12 @@ class StepCounter(TorchDispatchMode):
 
     # ---- one operator ------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # DTensor runs it on local shards
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self.paused:                  # DTensor's layout bookkeeping
+            return out
         outs = _tensors(out)
         self.track(outs)
         if func.is_view or not outs:
@@ -228,8 +275,12 @@ class StepCounter(TorchDispatchMode):
         else:
             col = _collective(func, args)
             if col is not None:
-                kind, n = col
-                self.wire[kind] += wire_bytes(kind, _nbytes(outs[0]), n)
+                kind, n, group, sent = col
+                w = wire_bytes(kind, _nbytes(outs[0]) if sent is None
+                               else sent, n)
+                self.wire[kind] += w
+                ranks = _group_ranks(group)
+                self.group_wire[ranks] = self.group_wire.get(ranks, 0.0) + w
                 self.collectives[kind] += 1
                 self.bytes_heavy += io
         return out
@@ -244,6 +295,7 @@ class StepAnalysis:
     wire_bytes: Dict[str, float]  # per collective kind, per device
     collectives: Dict[str, int]
     total_wire_bytes: float
+    group_wire: Dict[Tuple[int, ...], float]   # by the group's ranks
     peak_bytes: int               # live fake storages, inputs included
     input_bytes: int
     kernels: Dict[str, Dict]      # operator -> calls, launches, flops, bytes
@@ -258,6 +310,14 @@ def _to_fake(spec, device: torch.device, memo: dict):
     may read), modules copied with fake parameters."""
     if isinstance(spec, torch.Tensor):
         key = id(spec)
+        if key not in memo and isinstance(spec, DTensor):
+            local = _to_fake(spec._local_tensor, device, {})
+            fake = DTensor.from_local(local, spec.device_mesh,
+                                      spec.placements, run_check=False,
+                                      shape=spec.shape, stride=spec.stride())
+            if isinstance(spec, nn.Parameter):
+                fake = nn.Parameter(fake, requires_grad=spec.requires_grad)
+            memo[key] = fake
         if key not in memo:
             if spec.dim() == 0 and not spec.is_floating_point():
                 fake = torch.tensor(0, dtype=spec.dtype, device=device)
@@ -282,9 +342,63 @@ def _to_fake(spec, device: torch.device, memo: dict):
     return spec
 
 
+@contextlib.contextmanager
+def _patched(cls, name: str, wrap):
+    """``cls.name`` replaced by ``wrap(original)`` for the context (left
+    alone where this PyTorch has no such attribute)."""
+    orig = getattr(cls, name, None) if cls is not None else None
+    if orig is None:
+        yield
+        return
+    setattr(cls, name, functools.wraps(orig)(wrap(orig)))
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+@contextlib.contextmanager
+def _dtensor_internals(counter: "StepCounter"):
+    """What DTensor computes about layouts is not the step's work: its
+    sharding propagation builds fake tensors of the GLOBAL shapes to read
+    an operator's output metadata, which ``counter`` must neither count
+    nor hold live (it pauses for them); and a strided shard's offsets
+    come from an ``arange`` read back with ``tolist``, which fake tensor
+    mode cannot answer (it runs with the modes off, on a few real
+    indices)."""
+    from torch.distributed.tensor import placement_types as pt
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    def paused(orig):
+        def run(*args, **kwargs):
+            counter.paused += 1
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                counter.paused -= 1
+        return run
+
+    def off_modes(orig):
+        def run(*args, **kwargs):
+            with _disable_current_modes():
+                return orig(*args, **kwargs)
+        return run
+    with contextlib.ExitStack() as stack:
+        for name in ("propagate_op_sharding_non_cached",
+                     "_propagate_tensor_meta_non_cached"):
+            stack.enter_context(_patched(ShardingPropagator, name, paused))
+        stack.enter_context(_patched(getattr(pt, "_StridedShard", None),
+                                     "local_shard_size_and_offset",
+                                     off_modes))
+        yield
+
+
 def analyze(fn, *specs, device="cuda") -> StepAnalysis:
     """Run ``fn(*specs)`` once on fake tensors on ``device`` (see the module
-    docstring) and return what ``StepCounter`` counted."""
+    docstring) and return what ``StepCounter`` counted.  A DTensor spec
+    (parameters laid out on a mesh over meta shards) becomes a DTensor of
+    the same layout over fake shards."""
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"analyze: unsupported device {device!r}; use "
@@ -299,15 +413,15 @@ def analyze(fn, *specs, device="cuda") -> StepAnalysis:
         fakes = _to_fake(list(specs), dev, {})
         counter.track(_spec_tensors(fakes))
         input_bytes = counter.live
-        with counter:
+        with counter, _dtensor_internals(counter):
             result = fn(*fakes)
     return StepAnalysis(
         flops=counter.flops, flops_kernels=counter.flops_kernels,
         bytes_all=counter.bytes_all, bytes_heavy=counter.bytes_heavy,
         wire_bytes=dict(counter.wire), collectives=dict(counter.collectives),
         total_wire_bytes=float(sum(counter.wire.values())),
-        peak_bytes=counter.peak, input_bytes=input_bytes,
-        kernels=counter.kernels, ops=counter.ops, result=result)
+        group_wire=dict(counter.group_wire), peak_bytes=counter.peak,
+        input_bytes=input_bytes, kernels=counter.kernels, ops=counter.ops, result=result)
 
 
 # ---------------------------------------------------------------------------
@@ -335,18 +449,25 @@ class Roofline:
 def roofline(flops_per_device: float, bytes_per_device: float,
              wire_bytes_per_device: float, n_chips: int,
              model_flops: float, model_min_bytes: float = 0.0,
-             target: H100Target = DEFAULT_H100) -> Roofline:
+             target: H100Target = DEFAULT_H100,
+             group_wire: Optional[Dict[Tuple[int, ...], float]] = None
+             ) -> Roofline:
     """Three-term roofline, all per card: compute_s = FLOPs / peak;
     memory_s = bytes / HBM rate; collective_s = wire bytes / (links x link
-    rate).  ``roofline_frac`` = ideal time / the largest term, the ideal
+    rate), the share of them over groups that span more than one node of
+    ``target.node_gpus`` cards (``group_wire``: wire by the group's ranks,
+    as ``analyze`` records it) at ``target.net_gbps`` instead.  ``roofline_frac`` = ideal time / the largest term, the ideal
     time being the better of the two hardware floors: useful model FLOPs at
     peak, or the compulsory bytes (weights and caches that must stream once
     a step, dominant for decode) at the full HBM rate.  ``hlo_total_flops``
     keeps the reference's name: the counted FLOPs of all cards."""
     compute_s = flops_per_device / (target.peak_bf16_tflops * 1e12)
     memory_s = bytes_per_device / (target.hbm_gbps * 1e9)
-    collective_s = wire_bytes_per_device / (
+    net = inter_node_wire(group_wire or {}, target.node_gpus)
+    collective_s = (wire_bytes_per_device - net) / (
         target.links_per_chip * target.link_gbps * 1e9)
+    if net:
+        collective_s += net / (target.net_gbps * 1e9)
     hlo_total = flops_per_device * n_chips
     useful = model_flops / max(hlo_total, 1.0)
     terms = {"compute": compute_s, "memory": memory_s,

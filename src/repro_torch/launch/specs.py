@@ -11,7 +11,7 @@ reference's serving checkpoints (``params_specs``)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -72,8 +72,10 @@ def cache_specs(cfg: ModelConfig, B: int, max_seq: int):
     return build_model(cfg, META).init_cache(B, max_seq)
 
 
-def input_specs(arch: str, shape_name: str) -> Dict:
-    """Everything the step function needs, as specs.
+def input_specs(arch: str, shape_name: str,
+                cfg: Optional[ModelConfig] = None) -> Dict:
+    """Everything the step function needs, as specs (of ``cfg`` in place
+    of ``arch``'s own config where given: a reduced one, say).
 
     kind='train':   {params (+ the optimizer state via
                     ``launch.train.train_state_specs``), batch}
@@ -81,7 +83,7 @@ def input_specs(arch: str, shape_name: str) -> Dict:
     kind='decode':  {params, tokens (B, 1), cache (filled to seq_len),
                     index}
     """
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     sc: ShapeConfig = SHAPES[shape_name]
     B, S = sc.global_batch, sc.seq_len
     out: Dict = {"cfg": cfg, "shape": sc,

@@ -39,10 +39,15 @@ from torch import nn
 
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.mamba_scan.ops import selective_scan
+from ..parallel import ctx
 from .config import ModelConfig
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 RMS_EPS = 1e-6
+# logical layouts of ``ctx.shard`` (no-ops without a sharding context)
+HEADS = ("batch", "seq", "heads", None)
+BATCH4 = ("batch", None, None, None)
+EXPERTS = ("ep", None, None)
 
 
 def new_param(shape, device) -> nn.Parameter:
@@ -89,7 +94,7 @@ class Dense(nn.Module):
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w.to(x.dtype)
+    y = ctx.gather_inner(x) @ p.w.to(x.dtype)
     if p.b is not None:
         y = y + p.b.to(y.dtype)
     return y
@@ -162,7 +167,7 @@ class Attention(nn.Module):
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     B, S, _ = x.shape
-    return x.reshape(B, S, n, hd)
+    return ctx.reshape(x, B, S, n, hd)
 
 
 def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -183,9 +188,9 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     this call, rotated at their positions."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
-    q = _split_heads(dense(p.wq, x), H, hd)
-    k = _split_heads(dense(p.wk, src), KV, hd)
-    v = _split_heads(dense(p.wv, src), KV, hd)
+    q = ctx.shard(_split_heads(dense(p.wq, x), H, hd), HEADS)
+    k = ctx.shard(_split_heads(dense(p.wk, src), KV, hd), HEADS)
+    v = ctx.shard(_split_heads(dense(p.wv, src), KV, hd), HEADS)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         kp = positions if kv_positions is None else kv_positions
@@ -194,14 +199,21 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if kv_cache is not None:
         ck, cv = kv_cache
         if cache_index is not None:
-            ck[:, cache_index:cache_index + S] = k
-            cv[:, cache_index:cache_index + S] = v
+            # the new token's q, k, v replicated over the model axis: the
+            # cache keeps its layout (the reference's flash-decoding note)
+            q, k, v = (ctx.shard(t, BATCH4) for t in (q, k, v))
+            ctx.write_seq(ck, k, cache_index)
+            ctx.write_seq(cv, v, cache_index)
         k, v = ck, cv
     else:
         k, v = k.contiguous(), v.contiguous()
     kv_len = None if cache_index is None else cache_index + S
-    out = flash_attention(q.contiguous(), k, v, mask_kind=mask_kind,
-                          window=window, kv_valid_len=kv_len)
+    out = ctx.split_key_attention(q, k, v, kv_len) if mask_kind in (
+        "causal", "none") and not window else None
+    if out is None:
+        out = flash_attention(q.contiguous(), k, v, mask_kind=mask_kind,
+                              window=window, kv_valid_len=kv_len)
+    out = ctx.shard(out, BATCH4 if cache_index is not None else HEADS)
     return dense(p.wo, out.reshape(B, S, H * hd)), (k, v)
 
 
@@ -278,21 +290,22 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor,
                      cfg.v_head_dim)
     B, S, _ = x.shape
 
-    q = dense(p.wq, x).reshape(B, S, H, dn + dr)
+    q = ctx.shard(ctx.reshape(dense(p.wq, x), B, S, H, dn + dr), HEADS)
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     qf = torch.cat([q[..., :dn], q_rope], dim=-1)
 
     latent = dense(p.wkv_down, x)                          # (B, S, r + dr)
     if kv_cache is not None and cache_index is not None:
-        kv_cache[:, cache_index:cache_index + S] = latent
+        ctx.write_seq(kv_cache, latent, cache_index)
         latent = kv_cache
     new_cache = latent if kv_cache is not None else None
     c_kv = rmsnorm(p.kv_norm, latent[..., :r])
     Sk = c_kv.shape[1]
     kpos = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
     k_rope = apply_rope(latent[:, :, None, r:], kpos, cfg.rope_theta)
-    k_nope = dense(p.wk_up, c_kv).reshape(B, Sk, H, dn)
-    v = dense(p.wv_up, c_kv).reshape(B, Sk, H, dv)
+    k_nope = ctx.shard(ctx.reshape(dense(p.wk_up, c_kv), B, Sk, H, dn),
+                       HEADS)
+    v = ctx.shard(ctx.reshape(dense(p.wv_up, c_kv), B, Sk, H, dv), HEADS)
     k = torch.cat([k_nope, k_rope.expand(B, Sk, H, dr)], dim=-1)
 
     kv_len = None if cache_index is None else cache_index + S
@@ -316,7 +329,10 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    return dense(p.wd, F.silu(dense(p.wg, x)) * dense(p.wu, x))
+    h = F.silu(dense(p.wg, x)) * dense(p.wu, x)
+    if h.dim() == 3:
+        h = ctx.shard(h, ("batch", "seq", "tp"))
+    return dense(p.wd, h)
 
 
 class MoE(nn.Module):
@@ -379,9 +395,10 @@ def _queue_positions(onehot: torch.Tensor) -> torch.Tensor:
 def _moe_experts(p: MoE, xe: torch.Tensor) -> torch.Tensor:
     """The batched expert FFN over (E, cap, d) buffers."""
     dt = xe.dtype
-    h = torch.bmm(xe, p.wg.to(dt))
-    u = torch.bmm(xe, p.wu.to(dt))
-    return torch.bmm(F.silu(h) * u, p.wd.to(dt))              # (E, cap, d)
+    h = ctx.shard(torch.bmm(xe, p.wg.to(dt)), ("ep", None, "tp"))
+    u = ctx.shard(torch.bmm(xe, p.wu.to(dt)), ("ep", None, "tp"))
+    return ctx.shard(torch.bmm(F.silu(h) * u, p.wd.to(dt)),
+                     EXPERTS)                                  # (E, cap, d)
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
@@ -403,7 +420,9 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     dt = x.dtype
-    xt = x.reshape(T, d)
+    # tokens sharded as the batch was (a sharded layout's backward then
+    # views the gradient back to (B, S, d) from that layout)
+    xt = ctx.shard(x.reshape(T, d), ("batch", None))
     gate_vals, gate_idx, pos, in_cap, cap, onehot, aux = _moe_route(p, cfg,
                                                                     xt)
 
@@ -413,7 +432,8 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
         tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
         xe = torch.zeros((E * cap + 1, d), dtype=dt,
                          device=x.device).index_add(0, buf_idx, xt[tok_idx])
-        ye = _moe_experts(p, xe[:E * cap].reshape(E, cap, d))
+        ye = _moe_experts(p, ctx.shard(xe[:E * cap].reshape(E, cap, d),
+                                       EXPERTS))
         flat = torch.cat([ye.reshape(E * cap, d),
                           torch.zeros((1, d), dtype=ye.dtype,
                                       device=x.device)])
@@ -434,7 +454,8 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
             "gtk,gtke->gte", gate_vals.reshape(G, Tg, K) * in_cap_g.float(),
             ohg.float()).to(dt)[..., None]
         xe = torch.einsum("gtd,gtec->egcd", xt.reshape(G, Tg, d), disp)
-        ye = _moe_experts(p, xe.reshape(E, G * capg, d))
+        ye = _moe_experts(p, ctx.shard(xe.reshape(E, G * capg, d),
+                                       EXPERTS))
         out = torch.einsum("egcd,gtec->gtd", ye.reshape(E, G, capg, d),
                            comb).reshape(T, d)
     else:
@@ -445,7 +466,8 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
         comb = disp * torch.einsum(
             "tk,tke->te", gate_vals * in_cap.float(),
             onehot.float()).to(dt)[:, :, None]
-        xe = torch.einsum("td,tec->ecd", xt, disp)              # (E, cap, d)
+        xe = ctx.shard(torch.einsum("td,tec->ecd", xt, disp),
+                       EXPERTS)                                 # (E, cap, d)
         out = torch.einsum("ecd,tec->td", _moe_experts(p, xe), comb)
 
     if p.shared is not None:
@@ -495,6 +517,8 @@ def mamba_apply(p: Mamba, cfg: ModelConfig, x: torch.Tensor, state=None):
     dt_rank = max(d // 16, 1)
 
     xs, z = dense(p.in_proj, x).chunk(2, dim=-1)            # (B, S, di)
+    xs = ctx.shard(xs, ("batch", "seq", "tp"))
+    z = ctx.shard(z, ("batch", "seq", "tp"))
     if state is None:
         h0 = None
         prev = torch.zeros((B, dc - 1, di), dtype=xs.dtype, device=x.device)

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from .. import runtime
+from ..parallel import ctx
 from . import layers as Ly
 from . import transformer as Tr
 from .config import ModelConfig
@@ -150,7 +151,7 @@ def _xent(logits, labels, mask=None):
     its sum floored at 1)."""
     lf = logits.float()
     nll = torch.logsumexp(lf, dim=-1) - lf.gather(
-        -1, labels[..., None].long())[..., 0]
+        -1, labels.long().unsqueeze(-1)).squeeze(-1)
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -167,7 +168,8 @@ def _loss_of(logits, aux, batch, dev, aux_weight: float):
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev).float()
-    xent = _xent(logits, labels, mask)
+    # the vocabulary whole on each rank for the loss (sharded layouts)
+    xent = _xent(ctx.shard(logits, ("batch", "seq", None)), labels, mask)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
     return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
@@ -208,7 +210,7 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
         if cfg.meta_tokens:
             meta = p.meta.to(dt)[None].expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
-        return x
+        return ctx.shard(x, ("batch", "seq", None))
 
     def positions(batch, B: int, St: int):
         if "positions" in batch:
@@ -301,8 +303,8 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
             cache_index=None if cfg.family == "ssm" else int(index))
         return _logits(p, cfg, x), new_cache
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step,
-                 loss)
+    return Model(cfg, dev, init, forward, ctx.cache_layout(cfg, init_cache),
+                 prefill, decode_step, loss)
 
 
 # ---------------------------------------------------------------------------
@@ -367,8 +369,8 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> Model:
                             int(index))
         return _logits(p, cfg, x), {"self": self_kv, "enc": cache["enc"]}
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step,
-                 loss)
+    return Model(cfg, dev, init, forward, ctx.cache_layout(cfg, init_cache),
+                 prefill, decode_step, loss)
 
 
 def build_model(cfg: ModelConfig, device=runtime.DEFAULT_DEVICE) -> Model:

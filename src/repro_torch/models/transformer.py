@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel import ctx
 from . import layers as Ly
 from .config import ModelConfig
 
@@ -193,6 +194,7 @@ def _group_apply(blocks, cfg: ModelConfig, x, positions, enc_out):
     """Layers ``blocks`` in order, without caches: (x, aux)."""
     aux = 0.0
     for p in blocks:
+        x = ctx.shard(x, ("batch", "seq", None))
         x, _, a = block_apply(p, cfg, x, positions, enc_out=enc_out)
         aux = aux + a
     return x, aux
@@ -241,6 +243,7 @@ def stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions,
     aux = 0.0
     for i, p in enumerate(blocks):
         c = None if caches is None else tree_map(lambda t: t[i], caches)
+        x = ctx.shard(x, ("batch", "seq", None))
         x, c_new, a = block_apply(p, cfg, x, positions, kv_cache=c,
                                   cache_index=cache_index, enc_out=enc_out)
         aux = aux + a

@@ -50,11 +50,15 @@ BO_LOG_GATE = math.log(1.05)
 
 
 def _tpu_numbers() -> H100Target:
+    """The reference target's numbers; its torus is one fabric at every
+    mesh size, so no group leaves the node (``node_gpus`` = the largest
+    mesh, two pods of 256)."""
     t = DEFAULT_TPU
     return H100Target(peak_bf16_tflops=t.peak_bf16_tflops,
                       hbm_gbps=t.hbm_gbps, link_gbps=t.ici_link_gbps,
                       links_per_chip=t.ici_links_per_chip,
-                      hbm_bytes=t.hbm_bytes, smem_bytes=t.vmem_bytes)
+                      hbm_bytes=t.hbm_bytes, smem_bytes=t.vmem_bytes,
+                      node_gpus=512)
 
 
 def _ref_plan(p):
