@@ -320,8 +320,10 @@ Phases (any failure ends the run with a non-zero exit; none is skipped):
     qwen2-72b ``decode_32k`` cell on the single (16, 16) mesh of a
     256-rank fake world, on fake CUDA tensors (no launch): per-device
     FLOPs, bytes, wire bytes by kind, the traced peak and the roofline
-    beside the advisor's ``predict`` of the same layout (``train_4k``
-    unrolls ~1k operators a layer a microbatch, past the phase's minute).
+    beside the advisor's ``predict`` of the same layout, and ``train_4k``
+    at full depth in its default layout by trip counts, its attention
+    operators 80 layers x 8 microbatches times the reduced cell's calls a
+    layer and microbatch.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -414,9 +416,8 @@ from repro_torch.kernels.mamba_scan import cost as ms_cost  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     selective_scan_bwd_ref, selective_scan_ref)
-from repro_torch.autosharding.advisor import (ShardPlan,  # noqa: E402
-                                              bo_search, exhaustive_best,
-                                              predict)
+from repro_torch.autosharding.advisor import (bo_search,  # noqa: E402
+                                              exhaustive_best)
 from repro_torch.core.constants import DEFAULT_H100  # noqa: E402
 from repro_torch.core.cost import monolithic_cost  # noqa: E402
 from repro_torch.core.optimizer import optimize as legacy_optimize  # noqa: E402
@@ -424,7 +425,7 @@ from repro_torch.core.optimizer import (  # noqa: E402
     two_stage_optimize as legacy_two_stage)
 from repro_torch.explore.service import ExplorationService  # noqa: E402
 from repro_torch.explore.service import explore as legacy_explore  # noqa: E402
-from repro_torch.launch.dryrun import (default_parallel,  # noqa: E402
+from repro_torch.launch.dryrun import (advisor_estimate,  # noqa: E402
                                        lower_cell, model_flops_for,
                                        model_min_bytes_for)
 from repro_torch.launch.mesh import make_island_mesh  # noqa: E402
@@ -5107,9 +5108,9 @@ def planning_phase(served: dict, trained: dict) -> dict:
 # phase 19: the multi-rank half on one card
 # ---------------------------------------------------------------------------
 ISLANDS = 4
-# the dry-run cell: qwen2-72b train_4k unrolls ~1k operators a layer a
-# microbatch (80 layers x 8 microbatches), far past the phase's minute;
-# its decode cell traces every layer once
+# the dry-run cells: qwen2-72b decode_32k, and train_4k by trip counts
+# (unrolled, ~1k operators a layer a microbatch over 80 layers x 8
+# microbatches, it took minutes)
 DRY_ARCH, DRY_SHAPE = "qwen2_72b", "decode_32k"
 
 
@@ -5295,8 +5296,8 @@ def elastic_on_card(mesh, rules, device: str) -> dict:
 def dryrun_cell_on_card(device: str = "cuda", arch: str = DRY_ARCH,
                         shape: str = DRY_SHAPE, config=None) -> dict:
     """(d): one full-width cell at 256 fake ranks on fake tensors of the
-    card's type, beside the advisor's estimate of the same layout.  Nothing
-    is launched."""
+    card's type, counted by trip counts, beside the advisor's estimate of
+    the same layout.  Nothing is launched."""
     def counts():
         return (launch_counts(), lm_counts(), train_counts())
     before = counts()
@@ -5304,22 +5305,17 @@ def dryrun_cell_on_card(device: str = "cuda", arch: str = DRY_ARCH,
     art = lower_cell(arch, shape, False, device=device, config=config)
     wall = time.perf_counter() - t0
     if counts() != before:
-        fail("phase 19 (d): the dry run launched a kernel")
-    pc, cfg_over = default_parallel(arch, shape)
-    cfg = dataclasses.replace(config or get_config(arch), **cfg_over)
-    sc = SHAPES[shape]
-    kv = pc.decode_kv
-    if kv == "auto":
-        kv = "heads" if cfg.n_kv_heads and cfg.n_kv_heads % 16 == 0 \
-            else "sequence"
-    plan = ShardPlan(data=16, model=16, microbatch=pc.microbatch,
-                     remat=pc.remat, fsdp=True, decode_kv=kv,
-                     seq_shard=pc.seq_shard)
-    est = predict(cfg, sc, plan).to_dict()
+        fail(f"phase 19 (d): the dry run of {shape} launched a kernel")
+    if art["status"] != "ok":
+        fail(f"phase 19 (d): the dry run of {arch} {shape} reads "
+             f"{art['status']}")
+    plan, est = advisor_estimate(arch, shape, config=config)
+    est = est.to_dict()
     rl = art["roofline"]
     print(f"phase 19 (d) dry run {arch} {shape} on 256 fake ranks ({device}"
           f" fake tensors): traced in {art['lower_s']} s ({wall:.1f} s with "
-          f"the layout), {art['operators']} operators; per device "
+          f"the layout; trips {json.dumps(art['trips'])}), "
+          f"{art['operators']} operators; per device "
           f"{art['flops_per_device']:.6e} FLOPs, {art['bytes_per_device']:.6e}"
           f" bytes (every operator's: {art['bytes_all_per_device']:.6e}), "
           f"wire {json.dumps(art['collectives']['wire_bytes'])} "
@@ -5337,6 +5333,42 @@ def dryrun_cell_on_card(device: str = "cuda", arch: str = DRY_ARCH,
                 plan=dataclasses.asdict(plan))
 
 
+def dryrun_train_on_card(device: str = "cuda", arch: str = DRY_ARCH,
+                         config=None) -> dict:
+    """(d): ``train_4k`` at full depth in its default layout (Megatron
+    sequence parallelism, full remat in groups, the layout's
+    microbatches), counted by trip counts; its attention operators must
+    be the layers x microbatches times the calls a layer and microbatch
+    of the reduced cell traced trip by trip."""
+    red = dataclasses.replace(get_reduced(arch), n_layers=2)
+    unrolled = lower_cell(arch, "train_4k", False, device=device,
+                          config=red, overrides={"microbatch": 2},
+                          trips=False)
+    if unrolled["status"] != "ok":
+        fail(f"phase 19 (d): the reduced train_4k reads "
+             f"{unrolled['status']}")
+    out = dryrun_cell_on_card(device, arch, "train_4k", config)
+    art = out["artifact"]
+    cfg = config or get_config(arch)
+    M = art["parallel"]["microbatch"]
+    for op in (fa_ops.FWD_LSE, fa_ops.BWD):
+        name = op.name()
+        per = unrolled["kernels"][name]["calls"] / (2 * 2)
+        want = cfg.n_layers * M * per
+        got = art["kernels"][name]["calls"]
+        if got != want:
+            fail(f"phase 19 (d): {name} called {got} times in the train "
+                 f"cell, expected {cfg.n_layers} x {M} x {per:g}")
+    if not art["parallel"]["seq_tp"]:
+        fail("phase 19 (d): the train cell's layout lost seq_tp")
+    print(f"phase 19 (d) train_4k by trip counts: {art['lower_s']} s of "
+          f"traces for {cfg.n_layers} layers x {M} microbatches; attention "
+          f"calls {art['kernels'][fa_ops.FWD_LSE.name()]['calls']} forward, "
+          f"{art['kernels'][fa_ops.BWD.name()]['calls']} backward (the "
+          f"reduced cell unrolled in {unrolled['lower_s']} s)", flush=True)
+    return out
+
+
 def multirank_phase(problem, cold, cold_s: float, cold_launches: int,
                     served: dict) -> dict:
     t0 = time.perf_counter()
@@ -5345,6 +5377,7 @@ def multirank_phase(problem, cold, cold_s: float, cold_launches: int,
     out["sharded"] = sharded_serve_and_restore(served)
     free_card()
     out["dryrun"] = dryrun_cell_on_card()
+    out["dryrun_train"] = dryrun_train_on_card()
     out["wall_s"] = time.perf_counter() - t0
     print(f"phase 19: {out['wall_s']:.1f} s")
     return out

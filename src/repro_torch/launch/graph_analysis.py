@@ -30,7 +30,10 @@ shapes.  The counter reads:
   ``all_to_all_single`` that sends to one rank alone is a
   ``collective-permute`` (a pipeline hop: wire = the bytes sent); the
   wire is also summed by the group's ranks (``group_wire``), so that the
-  roofline prices a group that spans nodes of its target on the network;
+  roofline prices a group that spans nodes of its target on the network,
+  and by the line of the port that issued it (``wire_sites``: the
+  innermost frame of ``repro_torch`` outside the layout helpers, e.g.
+  ``models/layers.py:314 mla_apply``);
 * **memory**: the peak of the live fake storages' bytes over the step,
   inputs included (a storage dies when its last tensor does);
 * **kernels**: each kernel operator's calls, the launches they make on the
@@ -42,10 +45,20 @@ the collectives its layouts need; the counter then counts those, so a
 sharded step reads per-device FLOPs, bytes and wire.  A DTensor input's
 live bytes are its local shard's.
 
-Loops: eager tracing unrolls every loop of the step (the layer stack,
-microbatches, the decode loop a caller writes), so each trip is counted as
-it runs, and the trip-count machinery of the reference's
-``ModuleAnalysis`` (XLA counts a ``while`` body once) has no counterpart.
+Loops: eager tracing unrolls every loop of the step (the layer stack, the
+microbatches, the decode loop a caller writes), so one trace counts each
+trip as it runs.  ``extrapolate`` is the counterpart of the reference's
+``ModuleAnalysis`` trip counts (XLA counts a ``while`` body once and
+multiplies it by its trip count): a caller traces the step at two small
+counts of each loop (``launch.dryrun.trip_plan``: one and two remat
+groups of layers, two and three microbatches) and every summed count is
+evaluated at the full counts from the corners, as a multilinear function
+of them; the peak of live bytes by the same rule.  An 80-layer step of 8
+microbatches then costs four traces of 4 or 8 layers and 2 or 3
+microbatches: qwen2-72b ``train_4k`` in its default layout traced in
+372.5 s unrolled and 46.9 s by trip counts, every summed count and the
+peak equal (fake CUDA tensors on the host of an NVIDIA H100 80GB HBM3 at
+700.00 W; ``PERF.md``).
 
 ``Roofline`` and ``roofline(...)`` are the reference's three-term model,
 priced on ``core.constants.DEFAULT_H100``.
@@ -62,6 +75,8 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import os
+import sys
 import weakref
 from typing import Dict, Optional, Tuple
 
@@ -146,6 +161,27 @@ def inter_node_wire(group_wire: Dict[Tuple[int, ...], float],
                      if len({r // n for r in ranks}) > 1))
 
 
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NOT_SITES = tuple(os.path.join(_PACKAGE, f) for f in (
+    os.path.join("launch", "graph_analysis.py"),
+    os.path.join("parallel", "ctx.py"), os.path.join("parallel",
+                                                     "sharding.py")))
+
+
+def _site() -> str:
+    """The line of the port that issued the operator running now: the
+    innermost frame of the package outside this module and the layout
+    helpers (``parallel/ctx.py``, ``parallel/sharding.py``)."""
+    f = sys._getframe(1)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.startswith(_PACKAGE) and not name.startswith(_NOT_SITES):
+            return (f"{os.path.relpath(name, _PACKAGE)}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "?"
+
+
 def _collective(func, args) -> Optional[tuple]:
     """(kind, group size, group name, bytes it sends or None for its
     output's) of a ``_c10d_functional`` collective, else None."""
@@ -201,6 +237,7 @@ class StepCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.group_wire: Dict[Tuple[int, ...], float] = {}
+        self.wire_sites: Dict[str, float] = {}
         self.paused = 0
         self.flops = 0.0
         self.flops_kernels = 0.0
@@ -281,6 +318,8 @@ class StepCounter(TorchDispatchMode):
                 self.wire[kind] += w
                 ranks = _group_ranks(group)
                 self.group_wire[ranks] = self.group_wire.get(ranks, 0.0) + w
+                site = _site()
+                self.wire_sites[site] = self.wire_sites.get(site, 0.0) + w
                 self.collectives[kind] += 1
                 self.bytes_heavy += io
         return out
@@ -296,6 +335,7 @@ class StepAnalysis:
     collectives: Dict[str, int]
     total_wire_bytes: float
     group_wire: Dict[Tuple[int, ...], float]   # by the group's ranks
+    wire_sites: Dict[str, float]  # by the line of the port that issued it
     peak_bytes: int               # live fake storages, inputs included
     input_bytes: int
     kernels: Dict[str, Dict]      # operator -> calls, launches, flops, bytes
@@ -420,8 +460,101 @@ def analyze(fn, *specs, device="cuda") -> StepAnalysis:
         bytes_all=counter.bytes_all, bytes_heavy=counter.bytes_heavy,
         wire_bytes=dict(counter.wire), collectives=dict(counter.collectives),
         total_wire_bytes=float(sum(counter.wire.values())),
-        group_wire=dict(counter.group_wire), peak_bytes=counter.peak,
-        input_bytes=input_bytes, kernels=counter.kernels, ops=counter.ops, result=result)
+        group_wire=dict(counter.group_wire),
+        wire_sites=dict(counter.wire_sites), peak_bytes=counter.peak,
+        input_bytes=input_bytes, kernels=counter.kernels, ops=counter.ops,
+        result=result)
+
+
+# ---------------------------------------------------------------------------
+# trip counts
+# ---------------------------------------------------------------------------
+def _leaves(an: StepAnalysis) -> Dict[tuple, float]:
+    """The counts of ``an`` as {key: value}."""
+    out = {("flops",): an.flops, ("flops_kernels",): an.flops_kernels,
+           ("bytes_all",): an.bytes_all, ("bytes_heavy",): an.bytes_heavy,
+           ("input_bytes",): an.input_bytes, ("ops",): an.ops,
+           ("peak_bytes",): an.peak_bytes}
+    out.update({("wire_bytes", k): v for k, v in an.wire_bytes.items()})
+    out.update({("collectives", k): v for k, v in an.collectives.items()})
+    out.update({("group_wire", r): v for r, v in an.group_wire.items()})
+    out.update({("wire_sites", r): v for r, v in an.wire_sites.items()})
+    out.update({("kernels", n, f): v for n, rec in an.kernels.items()
+                for f, v in rec.items()})
+    return out
+
+
+def extrapolate(traces: Dict[Tuple[int, ...], StepAnalysis],
+                lo: Tuple[int, ...], hi: Tuple[int, ...],
+                target: Tuple[int, ...]) -> StepAnalysis:
+    """The analysis of a step at the trip counts ``target`` from traces of
+    it at fewer trips: the counterpart of the reference's ``ModuleAnalysis``,
+    which counts a ``while`` body once and multiplies it by its trip count.
+
+    Each trip count i (a stack's layers, the microbatches) was traced at
+    ``lo[i]`` and, where ``hi[i] != lo[i]``, at ``hi[i]`` too: ``traces``
+    maps each corner (every count at its ``lo`` or its ``hi``) to its
+    analysis.  Every summed count (FLOPs, bytes, wire by kind, by
+    group and by site, collectives, kernel calls, launches, FLOPs and bytes, operators,
+    the inputs' bytes) is a multilinear function of the trip counts when
+    each trip past the first does the same work: the corners fix it, and
+    it is evaluated at ``target`` (a body times its trips, and the product
+    of the two loops, as nested scans scale).  The peak of live bytes is a
+    maximum, not a sum; it is extrapolated by the same rule, which holds
+    where the same point of the step holds the peak at every corner and
+    each trip adds the same live bytes there (a layer's parameters,
+    optimizer state and saved group boundary; past the second microbatch,
+    whose gradients accumulate onto the first's, what a microbatch keeps
+    until the loop ends).  A count that is not a whole number at
+    ``target`` is refused."""
+    n = len(lo)
+    free = [i for i in range(n) if hi[i] != lo[i]]
+    scale = [(target[i] - lo[i]) / (hi[i] - lo[i]) for i in free]
+    leaves = {}
+    for mask in range(1 << len(free)):
+        # the corner with the counts of ``mask`` raised, weighted by its
+        # share of every mixed difference that holds it
+        w = 1.0
+        for j, k in enumerate(scale):
+            w *= k if mask >> j & 1 else 1.0 - k
+        corner = tuple(hi[i] if i in free and mask >> free.index(i) & 1
+                       else lo[i] for i in range(n))
+        for key, v in _leaves(traces[corner]).items():
+            leaves[key] = leaves.get(key, 0.0) + w * v
+
+    def get(*key):
+        return leaves.get(key, 0.0)
+
+    def whole(x):
+        # a count (calls, launches, collectives, operators, bytes) is an
+        # integer combination of the corners' counts
+        n = round(x)
+        if abs(x - n) > 1e-6:
+            raise ValueError(f"extrapolate: a count came out {x!r}, not "
+                             f"a whole number")
+        return int(n)
+    kinds = sorted({k[1] for k in leaves if k[0] == "wire_bytes"},
+                   key=WIRE_KINDS.index)
+    wire = {k: get("wire_bytes", k) for k in kinds}
+    kernels = {}
+    for k in leaves:
+        if k[0] == "kernels":
+            rec = kernels.setdefault(k[1], {})
+            v = leaves[k]
+            rec[k[2]] = whole(v) if k[2] in ("calls", "launches") else v
+    return StepAnalysis(
+        flops=get("flops"), flops_kernels=get("flops_kernels"),
+        bytes_all=get("bytes_all"), bytes_heavy=get("bytes_heavy"),
+        wire_bytes=wire,
+        collectives={k: whole(get("collectives", k)) for k in kinds},
+        total_wire_bytes=float(sum(wire.values())),
+        group_wire={k[1]: v for k, v in leaves.items()
+                    if k[0] == "group_wire"},
+        wire_sites={k[1]: v for k, v in leaves.items()
+                    if k[0] == "wire_sites"},
+        peak_bytes=whole(get("peak_bytes")),
+        input_bytes=whole(get("input_bytes")),
+        kernels=kernels, ops=whole(get("ops")))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,14 @@ mesh of the NSGA engine.
 * ``make_production_mesh(multi_pod=False)`` — the (16, 16) ("data",
   "model") mesh of one pod, or (2, 16, 16) ("pod", "data", "model") of
   two, as a ``DeviceMesh`` over the first 256 / 512 ranks of the process
-  group that exists (the dry run's fake world: ``fake_world``);
+  group that exists (the dry run's fake world: ``fake_world``); given a
+  cell's layout ``pc`` that never names "data" without "pod"
+  (``names_data_alone``), the two pods' mesh is a ``sharding.FlatMesh``
+  over a (32, 16) ``DeviceMesh`` whose first dim holds ("pod", "data")
+  flattened: the same ranks and the same layout of every spec that names
+  the two axes together, over which DTensor plans its layouts and
+  collectives as on one pod's mesh (on three mesh dims its sharding
+  propagation and redistribution planning take several times as long);
 * ``make_host_mesh(model_parallel=1)`` — a ("data", "model") mesh over
   the world that exists;
 * ``fake_world(n)`` — a context that installs torch's fake process group
@@ -38,11 +45,23 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 0
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
-    """16 x 16 = 256 ranks a pod; multi-pod adds a leading 2-pod axis.
-    ``device`` is the ranks' device type (the card unless
-    ``device="cpu"``)."""
+def names_data_alone(pc) -> bool:
+    """Whether a layout names the "data" axis without "pod" (the sequence
+    of a ``seq_shard`` cell, FSDP over one of the two): such a layout
+    needs the three-dim multi-pod mesh."""
+    return bool(pc.seq_shard
+                or len(set(pc.fsdp_axes) & {"pod", "data"}) == 1)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         pc=None):
+    """16 x 16 = 256 ranks a pod; multi-pod adds a leading 2-pod axis,
+    flattened with the data axis where the layout ``pc`` allows it (a
+    ``ParallelConfig``; none keeps three dims).  ``device`` is the
+    ranks' device type (the card unless ``device="cpu"``)."""
     from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.sharding import FlatMesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = 1
@@ -54,6 +73,11 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
         raise RuntimeError(
             f"mesh {shape} needs {n} devices, have {have} — run under "
             f"launch/dryrun.py (it installs a fake world of 512 ranks)")
+    if multi_pod and pc is not None and not names_data_alone(pc):
+        return FlatMesh(
+            DeviceMesh(dev.type, torch.arange(n).reshape(32, 16),
+                       mesh_dim_names=("pod_data", "model")),
+            ((("pod", 2), ("data", 16)), (("model", 16),)))
     return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
 

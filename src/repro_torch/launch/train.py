@@ -38,6 +38,7 @@ from ..data.pipeline import DataConfig, SyntheticLM
 from ..models.config import ModelConfig
 from ..models.model import Model, build_model
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from ..parallel import ctx
 from ..runtime.driver import FaultTolerantTrainer
 from .specs import params_specs
 
@@ -58,18 +59,29 @@ def train_state_specs(model: Model, opt_cfg: AdamWConfig) -> Dict:
 
 
 def _split(batch: Dict, n: int):
-    """``batch`` cut into ``n`` microbatches along the leading axis."""
+    """``batch`` cut into ``n`` microbatches along the leading axis (a
+    batch-sharded DTensor on each rank's own rows: ``ctx.row_block``)."""
     for k, v in batch.items():
         if v.shape[0] % n:
             raise ValueError(f"batch leaf {k} of {v.shape[0]} rows does not "
                              f"split into {n} microbatches")
-    return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
-             for k, v in batch.items()} for i in range(n)]
+    return [{k: ctx.row_block(v, i, n) for k, v in batch.items()}
+            for i in range(n)]
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     microbatches: int = 1) -> Callable:
     """(state, batch) -> (state, metrics); updates the state in place."""
+    return _train_step(model, opt_cfg, microbatches)
+
+
+def _train_step(model: Model, opt_cfg: AdamWConfig, microbatches: int,
+                first: Optional[int] = None) -> Callable:
+    """``make_train_step``'s step; with ``first``, the accumulation loop
+    runs the first ``first`` of the ``microbatches`` only (then divides by
+    ``microbatches`` as the whole step does): not a training step, but the
+    trips of one that the dry run traces to count the whole
+    (``launch.dryrun``)."""
 
     def step(state, batch):
         params = state["params"]
@@ -80,7 +92,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             loss.backward()
         else:
             loss = aux = 0.0
-            for mb in _split(batch, microbatches):
+            for mb in _split(batch, microbatches)[:first]:
                 l, pr = model.loss(params, mb)
                 l.backward()
                 loss = loss + l.detach()

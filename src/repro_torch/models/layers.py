@@ -94,7 +94,8 @@ class Dense(nn.Module):
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    y = ctx.gather_inner(x) @ p.w.to(x.dtype)
+    x = ctx.gather_inner(x)
+    y = ctx.own_grad_layout(x @ ctx.gather_fsdp(p.w.to(x.dtype), x))
     if p.b is not None:
         y = y + p.b.to(y.dtype)
     return y
@@ -214,7 +215,8 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = flash_attention(q.contiguous(), k, v, mask_kind=mask_kind,
                               window=window, kv_valid_len=kv_len)
     out = ctx.shard(out, BATCH4 if cache_index is not None else HEADS)
-    return dense(p.wo, out.reshape(B, S, H * hd)), (k, v)
+    out = ctx.own_grad_layout(out.reshape(B, S, H * hd))
+    return dense(p.wo, out), (k, v)
 
 
 def attention_decode_rolling(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -303,14 +305,30 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor,
     Sk = c_kv.shape[1]
     kpos = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
     k_rope = apply_rope(latent[:, :, None, r:], kpos, cfg.rope_theta)
-    k_nope = ctx.shard(ctx.reshape(dense(p.wk_up, c_kv), B, Sk, H, dn),
-                       HEADS)
-    v = ctx.shard(ctx.reshape(dense(p.wv_up, c_kv), B, Sk, H, dv), HEADS)
+    if cache_index is not None and S == 1 and ctx.sequence_sharded(latent):
+        # decode over a sequence-sharded latent cache: each rank
+        # up-projects its own block of the cache for every head, and the
+        # blocks' attention combines by flash-decoding
+        # (``ctx.split_key_attention``), the cache never gathered
+        k_nope = ctx.rows_matmul(c_kv, p.wk_up.w.to(c_kv.dtype)).reshape(
+            B, Sk, H, dn)
+        v = ctx.rows_matmul(c_kv, p.wv_up.w.to(c_kv.dtype)).reshape(
+            B, Sk, H, dv)
+        qf = ctx.shard(qf, BATCH4)
+    else:
+        k_nope = ctx.shard(ctx.reshape(dense(p.wk_up, c_kv), B, Sk, H, dn),
+                           HEADS)
+        v = ctx.shard(ctx.reshape(dense(p.wv_up, c_kv), B, Sk, H, dv),
+                      HEADS)
     k = torch.cat([k_nope, k_rope.expand(B, Sk, H, dr)], dim=-1)
 
     kv_len = None if cache_index is None else cache_index + S
-    out = flash_attention(qf, k, v, mask_kind="causal", kv_valid_len=kv_len)
-    return dense(p.wo, out.reshape(B, S, H * dv)), new_cache
+    out = ctx.split_key_attention(qf, k, v, kv_len)
+    if out is None:
+        out = flash_attention(qf, k, v, mask_kind="causal",
+                              kv_valid_len=kv_len)
+    out = ctx.own_grad_layout(out.reshape(B, S, H * dv))
+    return dense(p.wo, out), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -456,8 +474,9 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
         xe = torch.einsum("gtd,gtec->egcd", xt.reshape(G, Tg, d), disp)
         ye = _moe_experts(p, ctx.shard(xe.reshape(E, G * capg, d),
                                        EXPERTS))
-        out = torch.einsum("egcd,gtec->gtd", ye.reshape(E, G, capg, d),
-                           comb).reshape(T, d)
+        out = ctx.combine_experts("egcd,gtec->gtd",
+                                  ye.reshape(E, G, capg, d),
+                                  comb).reshape(T, d)
     else:
         pos_c = torch.clamp(pos, 0, cap - 1)
         disp = torch.einsum(
@@ -468,11 +487,11 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor):
             onehot.float()).to(dt)[:, :, None]
         xe = ctx.shard(torch.einsum("td,tec->ecd", xt, disp),
                        EXPERTS)                                 # (E, cap, d)
-        out = torch.einsum("ecd,tec->td", _moe_experts(p, xe), comb)
+        out = ctx.combine_experts("ecd,tec->td", _moe_experts(p, xe), comb)
 
     if p.shared is not None:
         out = out + mlp_apply(p.shared, xt)
-    return out.reshape(B, S, d), aux
+    return ctx.reshape(out, B, S, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -143,15 +143,14 @@ def _decode_positions(B: int, index: int, cfg: ModelConfig, device):
 
 
 def _embed(p: _LM, tokens, dt, dev) -> torch.Tensor:
-    return p.embed[torch.as_tensor(tokens, device=dev)].to(dt)
+    return ctx.lookup(p.embed, torch.as_tensor(tokens, device=dev), dt)
 
 
 def _xent(logits, labels, mask=None):
     """Mean next-token cross-entropy in float32 (over ``mask`` where given,
     its sum floored at 1)."""
     lf = logits.float()
-    nll = torch.logsumexp(lf, dim=-1) - lf.gather(
-        -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    nll = torch.logsumexp(lf, dim=-1) - ctx.take_last(lf, labels.long())
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

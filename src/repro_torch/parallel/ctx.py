@@ -29,8 +29,10 @@ import math
 import threading
 from typing import Optional, Tuple
 
-from .sharding import (P, _axis_size, cache_spec, lay_out, mesh_shape,
-                       placements)
+import torch
+
+from .sharding import (P, _axis_size, cache_spec, device_mesh_of, lay_out,
+                       mesh_shape, placements)
 
 _tls = threading.local()
 
@@ -52,7 +54,7 @@ def activation_sharding(mesh, pc):
                     seq_shard=bool(pc.seq_shard),
                     seq_tp=bool(getattr(pc, "seq_tp", False)))
     try:
-        if hasattr(mesh, "mesh_dim_names"):
+        if device_mesh_of(mesh) is not None:
             from torch.distributed.tensor.experimental import \
                 implicit_replication
             with implicit_replication():
@@ -75,7 +77,7 @@ def cache_layout(cfg, init_cache):
     def laid_out(batch_size: int, max_seq: int):
         cache = init_cache(batch_size, max_seq)
         c = _state()
-        if c is None or not hasattr(c["mesh"], "mesh_dim_names"):
+        if c is None or device_mesh_of(c["mesh"]) is None:
             return cache
         return lay_out(cache, cache_spec(cfg, c["pc"], c["mesh"],
                                          batch_size), c["mesh"])
@@ -179,6 +181,190 @@ def gather_inner(x):
                               stride=x.stride())
 
 
+def gather_fsdp(w, x=None):
+    """``w`` (a weight DTensor) replicated over every mesh dim but the
+    tensor axis of the installed context, as ZeRO-3 / FSDP gathers a
+    weight sharded over the data axes before computing with it (its
+    gradient is reduce-scattered back to the shards) — where its shard is
+    no larger than the shard of the input ``x`` it meets.  Otherwise (a
+    decode step's few rows) ``w`` stays sharded and DTensor moves the
+    activations instead, as a partitioner pricing both would; gathering
+    always would leave the larger moving (a train step's microbatch
+    contracted over the data axes, every rank holding the whole batch's
+    output as a partial sum).  Without a context, or on anything but a
+    DTensor, ``w`` itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+    c = _state()
+    if c is None or not isinstance(w, DTensor):
+        return w
+    if x is not None and _local(w).numel() * w.element_size() > \
+            _local(x).numel() * x.element_size():
+        return w
+    names = w.device_mesh.mesh_dim_names or ()
+    pl = [p if name == c["tp"] else Replicate()
+          for name, p in zip(names, w.placements)]
+    if pl == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
+
+def _local(t):
+    """A DTensor's local shard (no autograd node); any other tensor."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _on_mesh(t, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor is the same on every
+    rank (replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def lookup(table, index, dtype):
+    """The rows ``index`` of ``table`` cast to ``dtype`` (an embedding
+    lookup).  On a DTensor table under a context: the vocabulary-parallel
+    lookup of Megatron, on each rank's shards — the table cast and
+    gathered over the FSDP axes, each rank looking up the indices that
+    fall in its block of the vocabulary (zeros for the others), the rows
+    a partial sum over the tensor axis and laid out on the index's other
+    mesh dims as the index is; the table's gradient a partial sum over
+    the mesh dims the index is sharded on.  (DTensor's own indexing
+    builds the gradient in zeros of the whole table on every rank, and
+    some versions refuse batch-sharded indices.)  Anything else is
+    ``table[index]`` cast."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if _state() is None or not isinstance(table, DTensor):
+        return table[index].to(dtype)
+    table = gather_fsdp(table.to(dtype))
+    mesh = table.device_mesh
+    vocab = [k for k, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    index = _on_mesh(index, mesh)
+    if any(not isinstance(index.placements[k], Replicate) for k in vocab):
+        index = index.redistribute(mesh, [
+            Replicate() if k in vocab else p
+            for k, p in enumerate(index.placements)])
+    lo, n = 0, table.shape[0]
+    for k in vocab:
+        n //= mesh.size(k)
+        lo += mesh.get_coordinate()[k] * n
+    grad = [p if k in vocab else
+            Partial() if isinstance(index.placements[k], Shard) else
+            Replicate() for k, p in enumerate(table.placements)]
+    local = table.to_local(grad_placements=grad)
+    idx = index.to_local()
+    inside = (idx >= lo) & (idx < lo + n)
+    out = torch.nn.functional.embedding(torch.where(inside, idx - lo, 0),
+                                        local)
+    if vocab:
+        out = out * inside.unsqueeze(-1).to(out.dtype)
+    shape = tuple(index.shape) + (table.shape[1],)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(
+        out, mesh, [Partial() if k in vocab else p
+                    for k, p in enumerate(index.placements)],
+        run_check=False, shape=shape, stride=stride)
+
+
+def take_last(x, index):
+    """``x.gather(-1, index[..., None])[..., 0]`` (``index`` an int64 tensor
+    of ``x``'s leading shape).  On a DTensor whose last dim is whole on
+    every rank, each rank takes from its own rows (the index laid out as
+    they are; a plain index is the same on every rank): DTensor's own
+    gather would build the gradient in zeros of ``x``'s global shape on
+    every rank (the loss's logits, batch x sequence x vocabulary).
+    Anything else is ``x``'s plain gather."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    last = x.dim() - 1
+    if not isinstance(x, DTensor) or not all(
+            isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim < last)
+            for p in x.placements):
+        return x.gather(-1, index.unsqueeze(-1)).squeeze(-1)
+    index = _on_mesh(index, x.device_mesh).redistribute(
+        x.device_mesh, x.placements).to_local()
+    local = x.to_local().gather(-1, index.unsqueeze(-1)).squeeze(-1)
+    shape = tuple(x.shape[:last])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(last))
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=shape, stride=stride)
+
+
+def row_block(x, i: int, n: int):
+    """Block ``i`` of ``n`` equal blocks of ``x``'s leading dim (a
+    microbatch of a batch).  On a DTensor whose leading dim is sharded
+    evenly, block ``i`` of each rank's own rows, laid out as ``x`` is: a
+    rank-local split, as a data-parallel trainer accumulates over its own
+    rows (slicing the DTensor would gather the whole batch on every rank,
+    once a microbatch).  Anything else is the plain slice."""
+    from torch.distributed.tensor import DTensor, Shard
+    b = x.shape[0] // n
+    if isinstance(x, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 0 for p in x.placements):
+        local = x.to_local()
+        ranks = x.shape[0] // max(local.shape[0], 1)
+        if local.shape[0] * ranks == x.shape[0] and local.shape[0] % n == 0:
+            lb = local.shape[0] // n
+            shape = (b,) + tuple(x.shape[1:])
+            stride = tuple(math.prod(shape[k + 1:])
+                           for k in range(len(shape)))
+            return DTensor.from_local(local[i * lb:(i + 1) * lb],
+                                      x.device_mesh, x.placements,
+                                      run_check=False, shape=shape,
+                                      stride=stride)
+    return x[i * b:(i + 1) * b]
+
+
+def combine_experts(eq: str, ye, comb):
+    """``einsum(eq, ye, comb)``, the experts' outputs ``ye`` (expert label
+    ``e``) combined over experts and capacity (label ``c``).  einsum
+    flattens the contracted labels in alphabetical order, capacity
+    before expert; on DTensors, whose experts are sharded, the expert
+    label is renamed to sort first, since a view that merges dims keeps a
+    shard only on the outer one (some versions refuse the other).  A
+    plain tensor keeps the equation."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(ye, DTensor):
+        eq = eq.replace("e", "a")
+    return torch.einsum(eq, ye, comb)
+
+
+class _OwnGradLayout(torch.autograd.Function):
+    """Identity whose backward lays the gradient out as the forward output
+    was (a partial sum read as replicated)."""
+
+    @staticmethod
+    def forward(fctx, x):
+        from torch.distributed.tensor import Replicate
+        fctx.mesh = x.device_mesh
+        fctx.placements = tuple(Replicate() if p.is_partial() else p
+                                for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        from torch.distributed.tensor import DTensor
+        if isinstance(g, DTensor) and tuple(g.placements) != fctx.placements:
+            g = g.redistribute(fctx.mesh, fctx.placements)
+        return g
+
+
+def own_grad_layout(y):
+    """``y`` (a projection's output), whose gradient arrives in ``y``'s own
+    layout: the gradient of a residual stream sharded on its sequence
+    (Megatron sequence parallelism) is gathered back onto the batch alone
+    before the projection's backward flattens (batch x sequence) rows,
+    which DTensor takes only with the sequence whole (and some versions
+    refuse).  Anything but a DTensor is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(y, DTensor):
+        return y
+    return _OwnGradLayout.apply(y)
+
+
 def _seq_block(t):
     """(the mesh dims, this rank's offset, the block length) of a DTensor
     whose dim 1 (the sequence) is sharded in even blocks, nested in mesh
@@ -196,6 +382,41 @@ def _seq_block(t):
         span //= mesh.size(d)
         offset += coord[d] * span
     return dims, offset, span
+
+
+def sequence_sharded(t) -> bool:
+    """Whether ``t`` is a DTensor whose dim 1 (the sequence) is sharded in
+    even blocks (the layout ``split_key_attention`` reads)."""
+    return _seq_block(t) is not None
+
+
+def rows_matmul(x, w):
+    """``x @ w`` (``w`` a weight, (d_in, d_out)).  On a DTensor ``x``, each
+    rank multiplies its own rows of ``x`` (its blocks of every dim but the
+    last, which is gathered whole) by the whole weight, gathered over
+    every mesh dim: the rows keep their layout, a sequence sharded over
+    the tensor axis included, where DTensor's own product flattens
+    (batch x sequence) rows, which some versions refuse with the
+    sequence sharded.  The weight's gradient is a partial sum over the
+    mesh dims that split the rows.  Anything else is the plain
+    product."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x @ w
+    mesh, last = x.device_mesh, x.dim() - 1
+    if any(isinstance(p, Shard) and p.dim == last for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if isinstance(p, Shard)
+                                  and p.dim == last else p
+                                  for p in x.placements])
+    if isinstance(w, DTensor):
+        w = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial() if isinstance(p, Shard)
+                             else Replicate() for p in x.placements])
+    local = x.to_local() @ w
+    shape = tuple(x.shape[:last]) + (w.shape[-1],)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, x.placements, run_check=False,
+                              shape=shape, stride=stride)
 
 
 def split_key_attention(q, k, v, kv_valid_len):

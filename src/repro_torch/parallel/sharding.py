@@ -21,8 +21,10 @@ shape (L, ...)): ``param_spec`` reads the name with the layer index
 dropped and returns the reference's spec without its leading ``None``.
 
 A mesh is anything with named extents: a ``DeviceMesh`` with
-``mesh_dim_names``, or a stand-in whose ``.shape`` is a dict of axis ->
-extent (``launch.mesh.IslandMesh``, the tests' stand-ins).
+``mesh_dim_names``, a ``FlatMesh`` (a ``DeviceMesh`` one of whose dims
+holds several axes flattened, as the multi-pod mesh's ("pod", "data")),
+or a stand-in whose ``.shape`` is a dict of axis -> extent
+(``launch.mesh.IslandMesh``, the tests' stand-ins).
 """
 
 from __future__ import annotations
@@ -47,6 +49,34 @@ class P(tuple):
 
     def __repr__(self):
         return f"P{tuple(self)!r}"
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatMesh:
+    """``device_mesh`` (a ``DeviceMesh``) read as named axes: ``axes`` holds,
+    for each of its dims in order, the (axis, extent) pairs flattened into
+    it, outer first.  A dimension laid over all the axes of a flattened dim
+    is one ``Shard`` of it: the same ranks hold the same blocks as ``Shard``
+    on each axis of an unflattened mesh, and DTensor plans its layouts over
+    fewer mesh dims.  A spec that names only some axes of a flattened dim
+    cannot be laid out on it (``placements`` raises)."""
+    device_mesh: object
+    axes: Tuple[Tuple[Tuple[str, int], ...], ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {a: n for dim in self.axes for a, n in dim}
+
+    def size(self) -> int:
+        return self.device_mesh.size()
+
+
+def device_mesh_of(mesh):
+    """The ``DeviceMesh`` of a ``DeviceMesh`` or a ``FlatMesh``; None for a
+    stand-in."""
+    if isinstance(mesh, FlatMesh):
+        return mesh.device_mesh
+    return mesh if hasattr(mesh, "mesh_dim_names") else None
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -161,14 +191,24 @@ def placements(spec: P, mesh) -> tuple:
     ``Replicate`` — as is an axis of extent 1, over which a shard is the
     whole tensor."""
     from torch.distributed.tensor import Replicate, Shard
+    if isinstance(mesh, FlatMesh):
+        dims = [tuple(a for a, _ in dim) for dim in mesh.axes]
+    else:
+        dims = [(axis,) for axis in mesh_shape(mesh)]
+    extents = mesh_shape(mesh)
     out = []
-    for axis, extent in mesh_shape(mesh).items():
+    for names in dims:
         dim = None
         for d, ax in enumerate(spec):
-            if ax == axis or (isinstance(ax, tuple) and axis in ax):
+            named = {ax} if isinstance(ax, str) else set(ax or ())
+            if named & set(names):
+                if not named >= set(names):
+                    raise ValueError(
+                        f"sharding: spec {spec!r} names {sorted(named)}, "
+                        f"part of the flattened mesh dim {names}")
                 dim = d
-        out.append(Replicate() if dim is None or extent == 1
-                   else Shard(dim))
+        out.append(Replicate() if dim is None
+                   or _axis_size(extents, names) == 1 else Shard(dim))
     return tuple(out)
 
 
@@ -282,6 +322,7 @@ def distribute(t, mesh, pl):
     from torch.distributed.tensor import DTensor, distribute_tensor
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
+    mesh = device_mesh_of(mesh)
     if is_fake(t) or t.is_meta:
         local_shape, _ = compute_local_shape_and_global_offset(
             t.shape, mesh, pl)

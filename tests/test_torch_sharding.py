@@ -209,6 +209,24 @@ def test_h100_node_numbers():
     assert DEFAULT_H100.net_gbps == 50.0        # 400 Gb/s a GPU
 
 
+def test_flat_mesh_places_the_flattened_axes_as_one_dim():
+    """On a ``FlatMesh`` whose first dim holds ("pod", "data") a dimension
+    over both axes is one ``Shard`` of that dim (the blocks the two
+    ``Shard``s of the three-dim mesh give the same ranks); a spec naming
+    "data" alone cannot be laid out on it."""
+    from repro_torch.parallel import sharding as Sh
+    flat = Sh.FlatMesh(None, ((("pod", 2), ("data", 16)), (("model", 16),)))
+    three = SimpleNamespace(shape={"pod": 2, "data": 16, "model": 16})
+    assert Sh.mesh_shape(flat) == three.shape
+    spec = Sh.P(("pod", "data"), "model")
+    assert Sh.placements(spec, flat) == (Shard(0), Shard(1))
+    assert Sh.placements(spec, three) == (Shard(0), Shard(0), Shard(1))
+    assert Sh.placements(Sh.P(None, "model"), flat) == (Replicate(),
+                                                       Shard(1))
+    with pytest.raises(ValueError, match="flattened"):
+        Sh.placements(Sh.P("data", None), flat)
+
+
 def test_production_mesh_needs_its_world():
     """Without a process group of 256 ranks the production mesh raises the
     reference's error, pointing at the dry run."""
